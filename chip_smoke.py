@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py                 # from the root of a checkout
+
+Phases (any failure raises; nothing is caught):
+  1. setup: require a CUDA card, build every kernel from ``src/repro_torch/
+     csrc/`` with nvcc, turn TF32 off for matmul and cuDNN;
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes the serving path gives it, with the tolerance stated; kernel,
+     plain and library times (cold L2, CUDA events) and the roofline bound;
+  3. full-width yi-9b (48 layers, bf16, random weights from a seeded
+     generator on the card): 8 prompts prefilled through the kernels, the
+     plain ("ref") policy and the plain policy on fp32 weights;
+     last-position logits compared;
+  4. serve 6 requests through ``SlotEngine`` + ``serve()`` with every
+     launch counter reset just before and read just after; request 0's
+     tokens must equal ``generate`` on its prompt, bitwise;
+  5. one JSON line listing the kernels, the card's name and power limit,
+     and the final ``{"ok": true, ...}`` line.
+
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
+              "float32": 67e12}    # CUDA cores, no TF32
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    """(bound_ms, bound_by): the larger of the memory and compute times."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0]
+
+
+class Timer:
+    """Median time of one call with a cold L2 (a 128 MiB buffer is
+    written between calls), by CUDA events around each call."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, iters: int = 10) -> float:
+        torch = self.torch
+        fn()
+        fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return sorted(times)[len(times) // 2]
+
+
+def check_kernels(torch, timer):
+    """Phase 2. Returns {kernel name: record of its representative shape}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    from repro_torch.kernels.entropy_exit import ops as ee
+    from repro_torch.kernels.entropy_exit.ref import entropy_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    records = {}
+
+    def compare(name, shape, kernel, plain, library, nbytes, flops, dtype,
+                rtol, atol, representative=False):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        max_abs = float(err.max())
+        ok = bool((err <= atol + rtol * want.float().abs()).all())
+        ms, plain_ms = timer(kernel), timer(plain)
+        lib_ms = timer(library) if library is not None else None
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        print(f"kernel {name:12s} {shape:34s} max_abs_err={max_abs:.3e} "
+              f"(tol {atol:g} + {rtol:g}*|ref|) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {shape}: kernel disagrees with "
+                                 f"its plain version (max abs err {max_abs})")
+        if representative:
+            records[name] = dict(shape=shape, max_abs_err=max_abs, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
+
+    # gemm: bf16 outputs of magnitude ~1; the two sides differ only in the
+    # fp32 summation order, which can move the bf16 rounding by one unit
+    # in the last place (2^-8 relative): rtol = atol = 1e-2
+    for m in (4, 128):
+        for k, n, act in ((4096, 4096, "none"), (4096, 512, "none"),
+                          (4096, 11008, "silu"), (11008, 4096, "none"),
+                          (4096, 64000, "none")):
+            x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+            lib = (lambda x=x, w=w: torch.matmul(x, w)) if act == "none" \
+                else None
+            compare("gemm", f"M={m} K={k} N={n} {act}",
+                    lambda x=x, w=w, a=act: gm.gemm(x, w, activation=a),
+                    lambda x=x, w=w, a=act: gemm_ref(x, w, activation=a),
+                    lib, 2 * (m * k + k * n + m * n), 2 * m * k * n,
+                    "bfloat16", 1e-2, 1e-2,
+                    representative=(m == 4 and k == 4096 and n == 4096))
+    # fp32 inputs: full fp32 on both sides, summation order only
+    x, w = randn(4, 4096, dtype=torch.float32), randn(
+        4096, 512, dtype=torch.float32, scale=4096 ** -0.5)
+    compare("gemm", "M=4 K=4096 N=512 none fp32",
+            lambda: gm.gemm(x, w), lambda: gemm_ref(x, w),
+            lambda: torch.matmul(x, w), 4 * (4 * 4096 + 4096 * 512 + 4 * 512),
+            2 * 4 * 4096 * 512, "float32", 1e-4, 1e-4)
+
+    # rmsnorm: fp32 math on both sides, bf16 output: one bf16 ulp
+    x, sc = randn(128, 4096), randn(4096, dtype=torch.float32)
+    compare("rmsnorm", "[128, 4096] scale fp32",
+            lambda: rn.rmsnorm(x, sc), lambda: rmsnorm_ref(x, sc),
+            lambda: F.rms_norm(x, (4096,), sc.to(bf16), 1e-5),
+            2 * 128 * 4096 * 2 + 4096 * 4, 4 * 128 * 4096, "bfloat16",
+            1e-2, 1e-2, representative=True)
+
+    # flash attention: fp32 online softmax vs the materialized softmax,
+    # bf16 output: one bf16 ulp
+    q, k_, v_ = randn(1, 32, 128, 128), randn(1, 4, 128, 128), \
+        randn(1, 4, 128, 128)
+    pairs = 128 * 129 // 2                      # causal (query, key) pairs
+    compare("attention", "q[1,32,128,128] kv[1,4,128,128] causal",
+            lambda: fa.attention(q, k_, v_, causal=True),
+            lambda: attention_ref(q, k_, v_, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k_, v_, is_causal=True,
+                                                   enable_gqa=True),
+            2 * (2 * q.numel() + 2 * k_.numel()), 4 * 32 * 128 * pairs,
+            "bfloat16", 1e-2, 1e-2, representative=True)
+
+    # decode attention: the plain version rounds the softmax weights to
+    # bf16 before the weighted sum (as the JAX ref), the kernel keeps them
+    # fp32: differences up to ~2^-9 of the output scale
+    b, s = 4, 160
+    q, kc, vc = randn(b, 32, 128), randn(b, 4, s, 128), randn(b, 4, s, 128)
+    cp = torch.tensor([19, 75, 130, 159], dtype=torch.int32, device="cuda")
+    n_valid = int((cp + 1).sum())
+    mask = (torch.arange(s, device="cuda")[None, :] <= cp[:, None]
+            )[:, None, None, :]
+    compare("attn_decode", "q[4,32,128] kv[4,4,160,128] ragged",
+            lambda: ad.attn_decode(q, kc, vc, cp),
+            lambda: attn_decode_ref(q, kc, vc, cp),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+            2 * q.numel() + 2 * 2 * 4 * 128 * n_valid + 4 * b * 32 * 128 + 4 * b,
+            4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2,
+            representative=True)
+
+    # entropy: fp32 sums in another order; the result is O(1)
+    lg = randn(4, 64000, scale=3.0)
+    compare("entropy_exit", "[4, 64000]",
+            lambda: ee.entropy(lg), lambda: entropy_ref(lg), None,
+            2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
+            representative=True)
+    return records
+
+
+def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
+                  length: int = 100):
+    """Phase 3: last-position prefill logits of the kernel path against
+    the plain policy on the same bf16 weights, and both against the plain
+    policy on the weights cast to fp32 (the rounding-free yardstick).
+
+    With random weights the logits are ~N(0, 1) over 64000 entries, so the
+    top two of a prompt can lie closer than bf16 rounding moves them
+    (kernel and plain differ only in summation order, each ~2% rel L2 from
+    fp32). The argmax must agree on every prompt whose plain top-2 gap is
+    at least 0.1 (5x the RMS logit difference); near ties are reported."""
+    rng = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (n_prompts, length),
+                            generator=rng, dtype=torch.int32).cuda()
+    runs = (("kernels", "auto", cfg, params), ("plain", "ref", cfg, params),
+            ("fp32", "ref", dataclasses.replace(cfg, dtype="float32"), None))
+    last = {}
+    with torch.inference_mode():
+        for name, policy, c, p in runs:
+            if p is None:       # fp32 copy of the same weights, then freed
+                p = _map(params, lambda t: t.float())
+            cache = lm.init_cache(c, n_prompts, length, device="cuda")
+            logits, _ = lm.forward_prefill(p, prompts, c, policy, cache)
+            last[name] = logits.float()
+            del p, cache
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return (last[a] - last[b]).norm(dim=-1) / last[b].norm(dim=-1)
+
+    rel_kp, rel_kf, rel_pf = (rel("kernels", "plain"), rel("kernels", "fp32"),
+                              rel("plain", "fp32"))
+    top2 = last["plain"].topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    arg = {k: last[k].argmax(-1) for k in last}
+    decisive = gap >= 0.1
+    print(f"prefill logits, {n_prompts} prompts x {length} tokens: rel_l2 "
+          f"kernels-vs-plain max {float(rel_kp.max()):.3e} (bound 5e-2); vs "
+          f"fp32: kernels {float(rel_kf.mean()):.3e} plain "
+          f"{float(rel_pf.mean()):.3e}; argmax kernels==plain "
+          f"{int((arg['kernels'] == arg['plain']).sum())}/{n_prompts} "
+          f"(decisive {int(decisive.sum())}), kernels==fp32 "
+          f"{int((arg['kernels'] == arg['fp32']).sum())}/{n_prompts}; "
+          f"plain top-2 gaps {[round(float(g), 3) for g in gap]}", flush=True)
+    assert torch.isfinite(last["kernels"]).all(), "non-finite prefill logits"
+    assert float(rel_kp.max()) < 5e-2, f"prefill logits differ: {rel_kp}"
+    assert float(rel_kf.mean()) <= 1.5 * float(rel_pf.mean()), \
+        "kernels are further from fp32 than the plain version"
+    assert int(decisive.sum()) >= n_prompts // 2, f"too few clear prompts {gap}"
+    assert bool((arg["kernels"] == arg["plain"])[decisive].all()), \
+        f"argmax differs on a clear prompt: {arg}, gaps {gap}"
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def main() -> int:
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script runs on a CUDA card")
+    from repro_torch.configs.base import RunConfig, get_arch
+    from repro_torch.core import xaif
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, generate
+    from repro_torch.serve.scheduler import Request, serve
+
+    # -- 1. setup -----------------------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    card = card_line()
+    timer = Timer(torch)
+
+    # -- 2. kernels against their plain versions ----------------------------
+    records = check_kernels(torch, timer)
+
+    # -- 3. full-width yi-9b: kernels against the plain policy --------------
+    cfg = get_arch("yi-9b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"yi-9b: {cfg.num_layers} layers d_model={cfg.d_model} "
+          f"{n_params / 1e9:.3f}B params ({cfg.dtype}) initialised in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check_prefill(torch, lm, cfg, params)
+
+    # -- 4. serve through the engine; counters cover this run only ---------
+    rs = torch.Generator().manual_seed(11)
+    lens = torch.randint(20, 121, (6,), generator=rs).tolist()
+    requests = [Request(rid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (n,), generator=rs, dtype=torch.int32).numpy(),
+        max_new_tokens=24) for i, n in enumerate(lens)]
+    engine = SlotEngine(RunConfig(arch=cfg), capacity=4, max_len=160,
+                        chunk=8, prompt_bucket=16)
+    torch.cuda.synchronize()
+    xaif.reset_launch_counts()
+    report = serve(engine, params, requests)
+    torch.cuda.synchronize()
+    launches = xaif.launch_counts()
+    steps = engine.decode_calls * engine.chunk
+    print(f"launches in serve: {launches} over {steps} decode steps "
+          f"and {engine.prefill_calls} prefills", flush=True)
+    assert len(report.served) == 6, [r.reject_reason for r in requests]
+    for r in requests:
+        assert len(r.tokens) == 24 and all(
+            0 <= t < cfg.vocab_size for t in r.tokens), (r.rid, r.tokens)
+    assert all(n > 0 for n in launches.values()), launches
+    assert launches["attn_decode"] == cfg.num_layers * steps, launches
+    ref_toks, _ = generate(cfg, params, requests[0].prompt[None], 24)
+    assert ref_toks[0].tolist() == requests[0].tokens, (
+        "engine tokens differ from generate", ref_toks[0].tolist(),
+        requests[0].tokens)
+    lat = report.latency_percentiles()
+    print(f"serve: {len(report.served)}/6 served, 24 tokens each, request 0 "
+          f"== generate; {report.tokens_per_s:.1f} tok/s p50="
+          f"{lat['p50'] * 1e3:.0f}ms p99={lat['p99'] * 1e3:.0f}ms "
+          f"exit_rate={report.stats['exit_rate']:.3f} on {card}", flush=True)
+
+    # -- 5. the kernels line, the card, the verdict -------------------------
+    replaces = {
+        "gemm": "src/repro/kernels/gemm/gemm.py:48",
+        "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
+        "attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
+        "attn_decode": "src/repro/kernels/attn_decode/attn_decode.py:73",
+        "entropy_exit": "src/repro/kernels/entropy_exit/entropy_exit.py:68",
+    }
+    sources = {"attention": "flash_attention"}
+    kernels = [dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
+                    replaces=replaces[name], launches=launches[name],
+                    **records[name]) for name in replaces]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""Declarative architecture / run configuration (PyTorch port).
+
+A copy of the JAX package's ``repro.configs.base`` dataclasses, cut to what
+the port serves today: dense decoder-only LMs with entropy early exits.
+The port keeps its own copy so that it imports nothing of the JAX package.
+``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
+tests can hold one against the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class EarlyExitConfig:
+    """Entropy-thresholded early exit (the paper's technique).
+
+    ``exit_layers`` are indices of the block AFTER which an exit head is
+    attached; the exit fires where the normalized entropy of the exit
+    logits is strictly below ``entropy_threshold``.
+    """
+
+    exit_layers: Tuple[int, ...]
+    loss_weight: float = 0.1
+    entropy_threshold: float = 0.45
+    share_unembed: bool = True         # CALM-style shared unembedding
+
+
+MIXERS = ("attn",)
+FFNS = ("mlp",)
+
+
+@dataclass(frozen=True)
+class BlockSpec:
+    """One layer = (sequence mixer, channel mixer). The port runs only the
+    dense pattern (attention + SwiGLU MLP) so far."""
+
+    mixer: str
+    ffn: str
+
+    def __post_init__(self):
+        if self.mixer not in MIXERS or self.ffn not in FFNS:
+            raise ValueError(f"the port runs only {MIXERS} x {FFNS} blocks, "
+                             f"got ({self.mixer!r}, {self.ffn!r})")
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                        # only "dense" is served by the port
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: int = 0                  # 0 => d_model // num_heads
+    block_pattern: Tuple[BlockSpec, ...] = (BlockSpec("attn", "mlp"),)
+    first_k_dense: int = 0
+    rope: str = "full"                 # full | partial | none
+    rope_theta: float = 10_000.0
+    rope_partial_pct: float = 0.5      # used when rope == "partial"
+    qkv_bias: bool = False
+    early_exit: Optional[EarlyExitConfig] = None
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        hd = self.head_dim or self.d_model // self.num_heads
+        object.__setattr__(self, "head_dim", hd)
+        if self.family != "dense":
+            raise ValueError(f"{self.name}: the port serves dense archs only")
+        if self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError(f"{self.name}: num_heads % num_kv_heads != 0")
+        if (self.num_layers - self.first_k_dense) % len(self.block_pattern):
+            raise ValueError(f"{self.name}: layers not divisible by the "
+                             f"pattern period {len(self.block_pattern)}")
+
+    @property
+    def period(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def num_superblocks(self) -> int:
+        return (self.num_layers - self.first_k_dense) // self.period
+
+    def reduced(self, **overrides) -> "ArchConfig":
+        """A tiny same-family config for CPU tests (same as the JAX one)."""
+        changes: dict = dict(
+            num_layers=max(self.period * 2 + self.first_k_dense,
+                           self.first_k_dense + self.period),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=max(1, min(self.num_kv_heads, 2)),
+            d_ff=128,
+            vocab_size=256,
+            head_dim=16,
+        )
+        if self.early_exit is not None:
+            # keep a single exit aligned to the reduced depth
+            nl = changes["num_layers"]
+            changes["early_exit"] = dataclasses.replace(
+                self.early_exit,
+                exit_layers=((self.first_k_dense + self.period,)
+                             if nl > self.period else (self.period,)))
+        changes.update(overrides)
+        return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """An arch plus the dispatch policy its ops run under.
+
+    ``policy`` is ``"auto"`` (hand-written kernels for CUDA tensors, plain
+    PyTorch for CPU tensors) or ``"ref"`` (plain PyTorch everywhere — the
+    oracle that tests and ``chip_smoke.py`` hold the kernels against)."""
+
+    arch: ArchConfig
+    policy: str = "auto"
+
+
+# ---------------------------------------------------------------------------
+# Registry: each config module registers itself when imported
+# ---------------------------------------------------------------------------
+
+_ARCH_REGISTRY: dict = {}
+
+
+def register_arch(fn):
+    """Decorator: register a zero-arg builder returning an ArchConfig."""
+    cfg = fn()
+    _ARCH_REGISTRY[cfg.name] = cfg
+    return fn
+
+
+def get_arch(name: str) -> ArchConfig:
+    from repro_torch.configs import yi_9b  # noqa: F401  (registers itself)
+    try:
+        return _ARCH_REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(_ARCH_REGISTRY)}") from None
+
+
+def list_archs() -> Tuple[str, ...]:
+    from repro_torch.configs import yi_9b  # noqa: F401
+    return tuple(sorted(_ARCH_REGISTRY))

@@ -1,0 +1,37 @@
+"""Load the JAX package's parameters into the port.
+
+``params_from_jax`` takes the JAX ``init_lm`` pytree after
+``jax.device_get``: nested dicts and tuples of numpy arrays, with the
+per-layer weights stacked ``[n_superblocks, ...]`` and every matrix in the
+``[K, N]`` layout. The port keeps the same tree and layout, so loading is a
+copy of each array. This module takes numpy only and imports no JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a)          # a writable copy: never aliases the caller's
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: reinterpret the 16-bit patterns
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """The port's parameter tree for a JAX parameter tree of numpy arrays."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(v) for v in node)
+        return _tensor(node, device)
+
+    return walk(tree)

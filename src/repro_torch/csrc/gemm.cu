@@ -1,0 +1,226 @@
+// Fused GEMM: out = act(x @ w + bias), fp32 accumulation.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/gemm/gemm.py
+// (gemm_pallas -> _gemm_kernel). Same contract: x [M, K], w [K, N] in the
+// model dtype, optional bias [N] (passed as fp32), activation in
+// {none, relu, gelu (tanh form, as jax.nn.gelu), silu}, output in x's dtype.
+//
+// Bound on the H100: at decode (M = the slot count, a handful of rows) the
+// product reads every weight once and does ~2*M flops per weight byte pair:
+// far below the ~295 flops/byte where the tensor cores become the limit,
+// so it is bound by the bytes of w. At prefill (M >= 128) the larger
+// shapes approach the compute bound. Design for now: one shared-memory
+// tiled kernel (64 x 64 output tile, K in steps of 32, one tile of
+// registers prefetched ahead of the tensor-core work) with bias and
+// activation fused into the epilogue, so the output is written once.
+// bf16 goes through WMMA (mma.sync) tensor-core fragments; fp32 through
+// FMA on the CUDA cores, so fp32 keeps full precision (no TF32).
+//
+// Batch invariance: each output element is reduced over K in one fixed
+// order (k = 0, 32, 64, ... with the same fragment steps), with no split-K
+// and the same tiling for every M, so a row's result never depends on the
+// other rows of the batch. The serve engine's bitwise token identity with
+// the one-request loop rests on this. Ragged M/N/K edges are masked in the
+// loads (zero fill) and the stores; nothing is padded in device memory.
+#include <mma.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3 };
+
+__device__ __forceinline__ float activate(float v, int act) {
+  switch (act) {
+    case kRelu:
+      return fmaxf(v, 0.f);
+    case kGelu: {
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
+    }
+    case kSilu:
+      return v / (1.f + expf(-v));
+    default:
+      return v;
+  }
+}
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;  // padded strides
+
+// ---------------------------------------------------------------------------
+// bf16: WMMA 16x16x16 fragments, 4 warps, each warp a 32 x 32 sub-tile
+// ---------------------------------------------------------------------------
+
+// One 8-element (16-byte) piece of a tile: vector load where it lies whole
+// inside the matrix and the rows are 16-byte aligned, else element by
+// element with zero fill.
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const unsigned short* p, int row,
+                                       int col, int rows, int cols) {
+  if (VEC && row < rows && col + 8 <= cols)
+    return *reinterpret_cast<const uint4*>(p + (size_t)row * cols + col);
+  unsigned short t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    t[e] = (row < rows && col + e < cols) ? p[(size_t)row * cols + col + e]
+                                          : (unsigned short)0;
+  uint4 u;
+  memcpy(&u, t, sizeof(u));
+  return u;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(128)
+    gemm_bf16_kernel(const unsigned short* __restrict__ x,
+                     const unsigned short* __restrict__ w,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                     int act) {
+  __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
+  __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
+  __shared__ __align__(128) float Cs[BM * LDC];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+
+  // each thread stages two 8-element pieces of A and two of B per K step
+  uint4 ra[2], rb[2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + i * 128;
+      ra[i] = load8<VEC>(x, m0 + v / (BK / 8), k0 + (v % (BK / 8)) * 8, M, K);
+      rb[i] = load8<VEC>(w, k0 + v / (BN / 8), n0 + (v % (BN / 8)) * 8, K, N);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = tid + i * 128;
+      *reinterpret_cast<uint4*>(&As[(v / (BK / 8)) * LDA + (v % (BK / 8)) * 8]) = ra[i];
+      *reinterpret_cast<uint4*>(&Bs[(v / (BN / 8)) * LDB + (v % (BN / 8)) * 8]) = rb[i];
+    }
+    __syncthreads();
+    if (k0 + BK < K) fetch(k0 + BK);  // next tile in flight during the MMAs
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[(wm + 16 * i) * LDA + kk], LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[kk * LDB + wn + 16 * j], LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wm + 16 * i) * LDC + wn + 16 * j],
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += 128) {
+    const int r = e / BN, c = e % BN, gr = m0 + r, gc = n0 + c;
+    if (gr < M && gc < N) {
+      float v = Cs[r * LDC + c];
+      if (bias) v += bias[gc];
+      out[(size_t)gr * N + gc] = __float2bfloat16(activate(v, act));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA on the CUDA cores, 256 threads, each a 4 x 4 block of outputs
+// ---------------------------------------------------------------------------
+
+constexpr int FBK = 16;
+
+__global__ void __launch_bounds__(256)
+    gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int M, int N, int K, int act) {
+  __shared__ float As[BM][FBK + 1];
+  __shared__ float Bs[FBK][BN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += FBK) {
+    for (int e = tid; e < BM * FBK; e += 256) {
+      const int r = e / FBK, c = e % FBK;
+      As[r][c] = (m0 + r < M && k0 + c < K) ? x[(size_t)(m0 + r) * K + k0 + c] : 0.f;
+    }
+    for (int e = tid; e < FBK * BN; e += 256) {
+      const int r = e / BN, c = e % BN;
+      Bs[r][c] = (k0 + r < K && n0 + c < N) ? w[(size_t)(k0 + r) * N + n0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[ty * 4 + i][kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gr = m0 + ty * 4 + i, gc = n0 + tx * 4 + j;
+      if (gr < M && gc < N) {
+        float v = acc[i][j];
+        if (bias) v += bias[gc];
+        out[(size_t)gr * N + gc] = activate(v, act);
+      }
+    }
+}
+
+KERNEL_API int gemm_launch(const void* x, const void* w, const void* bias,
+                           void* out, int M, int N, int K, int dtype, int act,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const float* b = static_cast<const float*>(bias);
+  if (dtype == kBF16) {
+    const bool vec = K % 8 == 0 && N % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    auto xs = static_cast<const unsigned short*>(x);
+    auto ws = static_cast<const unsigned short*>(w);
+    auto o = static_cast<__nv_bfloat16*>(out);
+    if (vec)
+      gemm_bf16_kernel<true><<<grid, 128, 0, s>>>(xs, ws, b, o, M, N, K, act);
+    else
+      gemm_bf16_kernel<false><<<grid, 128, 0, s>>>(xs, ws, b, o, M, N, K, act);
+  } else {
+    gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
+                                         static_cast<const float*>(w), b,
+                                         static_cast<float*>(out), M, N, K, act);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,60 @@
+"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``)."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import xaif
+from repro_torch.kernels._build import (check, dtype_code, library,
+                                        require_cuda, stream_ptr)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIM = 128      # the kernel's tiles are laid out for D = 128
+
+
+def _lib() -> ctypes.CDLL:
+    lib = library("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_attention_launch.restype = i
+    return lib
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """q [B, Hq, T, 128], k/v [B, Hkv, S, 128] -> [B, Hq, T, 128] on the
+    card, causal mask bottom-right."""
+    require_cuda("attention", q, k, v)
+    code = dtype_code("attention", q)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("attention: q, k, v must share one dtype")
+    b, hq, t, d = q.shape
+    if d != HEAD_DIM or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"attention: the kernel takes head dim {HEAD_DIM} "
+                         f"for q, k and v; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    hkv, s = k.shape[1], k.shape[2]
+    if k.shape[0] != b or hq % hkv:
+        raise ValueError(f"attention: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    rc = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+        t, s, int(causal), scale, code, stream_ptr(q))
+    attention.launches += 1
+    check(lib, rc, "attention")
+    return out
+
+
+attention.launches = 0
+
+xaif.register("attention", attention_ref, attention)

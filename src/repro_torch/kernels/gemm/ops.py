@@ -1,0 +1,60 @@
+"""Wrapper of the fused GEMM kernel (``csrc/gemm.cu``) and its XAIF op."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import xaif
+from repro_torch.kernels._build import (check, dtype_code, library,
+                                        require_cuda, stream_ptr)
+from repro_torch.kernels.gemm.ref import gemm_ref
+
+ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}   # csrc/gemm.cu Act
+
+
+def _lib() -> ctypes.CDLL:
+    lib = library("gemm")
+    if lib.gemm_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gemm_launch.restype = i
+    return lib
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor,
+         bias: Optional[torch.Tensor] = None,
+         activation: str = "none") -> torch.Tensor:
+    """act(x [..., K] @ w [K, N] + bias) on the card; output in x's dtype."""
+    require_cuda("gemm", x, w)
+    code = dtype_code("gemm", x)
+    if w.dtype != x.dtype:
+        raise TypeError(f"gemm: x is {x.dtype} but w is {w.dtype}")
+    if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"gemm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    if activation not in ACT_CODE:
+        raise ValueError(f"gemm: unknown activation {activation!r}")
+    k, n = w.shape
+    m = x.numel() // k
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    b = None
+    if bias is not None:
+        if bias.shape != (n,):
+            raise ValueError(f"gemm: bias {tuple(bias.shape)} for N={n}")
+        b = bias.float().contiguous()
+        require_cuda("gemm", x, b)
+    lib = _lib()
+    rc = lib.gemm_launch(x.data_ptr(), w.data_ptr(),
+                         None if b is None else b.data_ptr(), out.data_ptr(),
+                         m, n, k, code, ACT_CODE[activation], stream_ptr(x))
+    gemm.launches += 1
+    check(lib, rc, "gemm")
+    return out
+
+
+gemm.launches = 0
+
+xaif.register("gemm", gemm_ref, gemm)

@@ -1,0 +1,156 @@
+"""The port's plain ops against the JAX package, op by op.
+
+Inputs are made from a seed with numpy and handed to both packages. Each
+plain PyTorch op is held against the JAX ``ref`` backend and against the
+Pallas kernel in interpret mode (as ``tests/test_kernels.py`` runs it).
+Tolerances: float32 1e-5 (both sides compute in fp32 and differ only in
+summation order); bfloat16 1e-2 relative, because the result is rounded
+to bf16 (2^-8 relative spacing) and an fp32 difference in the last place
+can move that rounding by one step.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attn_decode import ops as jax_ad_ops
+from repro.kernels.attn_decode import ref as jax_ad_ref
+from repro.kernels.entropy_exit import ops as jax_ee_ops
+from repro.kernels.entropy_exit import ref as jax_ee_ref
+from repro.kernels.flash_attention import ops as jax_fa_ops
+from repro.kernels.flash_attention import ref as jax_fa_ref
+from repro.kernels.gemm import ops as jax_gemm_ops
+from repro.kernels.gemm import ref as jax_gemm_ref
+from repro.kernels.rmsnorm import ops as jax_rn_ops
+from repro.kernels.rmsnorm import ref as jax_rn_ref
+from repro_torch.core import xaif
+from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+from repro_torch.kernels.entropy_exit.ref import entropy_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gemm.ref import gemm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a).astype(getattr(jnp, dtype))
+    t = torch.from_numpy(a).to(getattr(torch, dtype))
+    return j, t
+
+
+def _close(torch_out, jax_outs, dtype):
+    tol = TOL[dtype]
+    got = torch_out.float().numpy()
+    for want in jax_outs:
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu", "silu"])
+def test_gemm_matches_jax(activation, with_bias, dtype):
+    """Ragged M, K and N (no multiple of 8 or of any block)."""
+    m, k, n = 5, 33, 70
+    rng = np.random.default_rng(len(activation) * 2 + with_bias)
+    x, tx = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    w, tw = _pair((rng.standard_normal((k, n)) * k ** -0.5)
+                  .astype(np.float32), dtype)
+    b = tb = None
+    if with_bias:
+        b, tb = _pair(rng.standard_normal(n).astype(np.float32), dtype)
+    out = gemm_ref(tx, tw, tb, activation)
+    assert out.dtype == tx.dtype and out.shape == (m, n)
+    _close(out, [jax_gemm_ref.gemm_ref(x, w, b, activation),
+                 jax_gemm_ops.gemm_pallas_op(x, w, b, activation,
+                                             interpret=True)], dtype)
+
+
+def test_gemm_leading_dims_and_dispatch():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 40), np.float32)
+    w = rng.standard_normal((40, 24), np.float32)
+    out = xaif.call("gemm", "auto", torch.from_numpy(x), torch.from_numpy(w),
+                    activation="silu")
+    assert out.shape == (2, 3, 24)
+    _close(out, [jax_gemm_ref.gemm_ref(jnp.asarray(x), jnp.asarray(w),
+                                       None, "silu")], "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 64), (3, 4, 48)])
+def test_rmsnorm_matches_jax(shape, dtype):
+    rng = np.random.default_rng(len(shape) * 7 + shape[-1])
+    x, tx = _pair(rng.standard_normal(shape, np.float32) * 3.0, dtype)
+    s = rng.standard_normal(shape[-1]).astype(np.float32)
+    out = rmsnorm_ref(tx, torch.from_numpy(s), 1e-5)
+    assert out.dtype == tx.dtype
+    js = jnp.asarray(s)
+    _close(out, [jax_rn_ref.rmsnorm_ref(x, js, 1e-5),
+                 jax_rn_ops.rmsnorm_pallas_op(x, js, 1e-5, interpret=True)],
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,s", [(7, 7), (5, 12)])
+def test_attention_matches_jax(t, s, causal, dtype):
+    """GQA with g = 2; t < s exercises the bottom-right causal offset."""
+    rng = np.random.default_rng(t * 31 + s)
+    q, tq = _pair(rng.standard_normal((2, 4, t, 16), np.float32), dtype)
+    k, tk = _pair(rng.standard_normal((2, 2, s, 16), np.float32), dtype)
+    v, tv = _pair(rng.standard_normal((2, 2, s, 16), np.float32), dtype)
+    out = attention_ref(tq, tk, tv, causal=causal)
+    assert out.shape == (2, 4, t, 16) and out.dtype == tq.dtype
+    _close(out, [jax_fa_ref.attention_ref(q, k, v, causal),
+                 jax_fa_ops.attention_pallas_op(q, k, v, causal,
+                                                interpret=True)], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_decode_matches_jax(dtype):
+    """Ragged cache positions, GQA g = 2, fp32 output. The JAX ref and the
+    port round the softmax weights to bf16 alike; the Pallas kernel keeps
+    them fp32, which bf16's tolerance covers."""
+    rng = np.random.default_rng(11)
+    q, tq = _pair(rng.standard_normal((3, 4, 16), np.float32), dtype)
+    k, tk = _pair(rng.standard_normal((3, 2, 24, 16), np.float32), dtype)
+    v, tv = _pair(rng.standard_normal((3, 2, 24, 16), np.float32), dtype)
+    cp = np.array([0, 10, 23], np.int32)
+    out = attn_decode_ref(tq, tk, tv, torch.from_numpy(cp))
+    assert out.dtype == torch.float32 and out.shape == (3, 4, 16)
+    jcp = jnp.asarray(cp)
+    _close(out, [jax_ad_ref.attn_decode_ref(q, k, v, jcp),
+                 jax_ad_ops.attn_decode_pallas_op(q, k, v, jcp,
+                                                  interpret=True)], dtype)
+
+
+def test_attn_decode_precise_mode_not_ported():
+    z = torch.zeros(1, 2, 8)
+    with pytest.raises(NotImplementedError):
+        attn_decode_ref(z, torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, 8, 8),
+                        torch.zeros(1, dtype=torch.int32), precise=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,v", [(3, 1000), (2, 2500)])
+def test_entropy_matches_jax(m, v, dtype):
+    """V not a multiple of the Pallas vocab block (masked tail)."""
+    rng = np.random.default_rng(m + v)
+    lg, tlg = _pair(rng.standard_normal((m, v), np.float32) * 4.0, dtype)
+    out = entropy_ref(tlg)
+    assert out.dtype == torch.float32 and out.shape == (m,)
+    # the entropy is computed in fp32 from the same (rounded) logits on
+    # both sides, so fp32's tolerance holds for either input dtype
+    _close(out, [jax_ee_ref.entropy_ref(lg),
+                 jax_ee_ops.entropy_pallas_op(lg, interpret=True)],
+           "float32")
+
+
+def test_plain_ops_keep_jax_names():
+    assert xaif.ops() == ("attention", "attn_decode", "entropy_exit",
+                          "gemm", "rmsnorm")
+    with pytest.raises(ValueError):
+        xaif.call("gemm", "pallas", torch.zeros(2, 2), torch.zeros(2, 2))
