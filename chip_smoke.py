@@ -16,8 +16,19 @@ Phases (any failure raises; nothing is caught):
   4. serve 6 requests through ``SlotEngine`` + ``serve()`` with every
      launch counter reset just before and read just after; request 0's
      tokens must equal ``generate`` on its prompt, bitwise;
-  5. one JSON line listing the kernels, the card's name and power limit,
+  5. the same 6 requests through the paged engine (page size 16, a pool
+     of 24 usable pages, fewer than the slots could ask for): tokens equal
+     phase 4's per request, bitwise, with no contiguous decode launch;
+  6. greedy speculative decoding on yi-9b without its exit heads, against
+     the plain engine on that config: a tied draft on the paged engine
+     (acceptance 1.0) and an independent 2-layer draft on the contiguous
+     engine, both token for token equal to plain greedy;
+  7. one JSON line listing the kernels, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
+
+Each serve run resets every launch counter just before it and reads them
+just after; a kernel's ``launches`` in the JSON line come from the run of
+its path (phase 4, 5 or 6).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -188,6 +199,8 @@ def check_kernels(torch, timer):
             4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2,
             representative=True)
 
+    check_paged_and_verify(torch, compare, randn, gen)
+
     # entropy: fp32 sums in another order; the result is O(1)
     lg = randn(4, 64000, scale=3.0)
     compare("entropy_exit", "[4, 64000]",
@@ -195,6 +208,105 @@ def check_kernels(torch, timer):
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True)
     return records
+
+
+def check_paged_and_verify(torch, compare, randn, gen):
+    """Phase 2 for the paged and verify kernels, at the serving path's
+    shapes: q [4, 32, 128] / [4, 32, 4, 128], pools [25, 4, 16, 128] bf16
+    behind a shuffled page table (extent 10 pages = the contiguous
+    engine's 160 positions), NaN in the page no sequence owns, ragged
+    cache_pos. Beside the tolerance checks, the identities the serving
+    path's token equalities rest on are asserted bitwise."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         paged_attention_ref)
+    from repro_torch.kernels.verify_decode import ops as vd
+    from repro_torch.kernels.verify_decode.ref import (
+        verify_decode_paged_ref, verify_decode_ref)
+
+    b, hq, hkv, d, ps, n_pool, np_, k1 = 4, 32, 4, 128, 16, 25, 10, 4
+    cps = (19, 75, 100, 140)
+    cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+    need = [(c + k1 - 1) // ps + 1 for c in cps]          # 23 of 24 pages
+    perm = (torch.randperm(n_pool - 1, generator=gen, device="cuda") + 1
+            ).tolist()
+    table = torch.full((b, np_), -1, dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = torch.tensor(perm[at:at + n])
+        at += n
+    table = table.cuda()
+    kp, vp = randn(n_pool, hkv, ps, d), randn(n_pool, hkv, ps, d)
+    for pid in perm[at:]:          # pages no sequence owns: never read
+        kp[pid] = vp[pid] = float("nan")
+    q, qv = randn(b, hq, d), randn(b, hq, k1, d)
+    # the same KV as a contiguous cache (-1 entries gather the finite
+    # scratch page 0; no kernel reads them)
+    kc, vc = gather_pages(kp, table), gather_pages(vp, table)
+    n_valid = sum(c + 1 for c in cps)
+    n_read = sum(c + k1 for c in cps)          # verify: positions < cp + K1
+    pairs = sum(c + 1 + i for c in cps for i in range(k1))
+    tbl = 4 * sum(need)
+
+    # one token: the plain version rounds the softmax weights to bf16, the
+    # kernel keeps them fp32 (as attn_decode)
+    compare("attn_decode_paged", "q[4,32,128] pools[25,4,16,128] ragged",
+            lambda: pa.attn_decode_paged(q, kp, vp, table, cp),
+            lambda: paged_attention_ref(q, kp, vp, table, cp), None,
+            2 * q.numel() + 2 * 2 * hkv * d * n_valid + 4 * b * hq * d
+            + 4 * b + tbl, 4 * hq * d * n_valid, "bfloat16", 1e-2, 1e-2,
+            representative=True)
+    staircase = (torch.arange(np_ * ps, device="cuda")[None, None, :]
+                 <= (cp[:, None] + torch.arange(k1, device="cuda"))[:, :, None]
+                 )[:, None]                                 # [B, 1, K1, S]
+    compare("verify_decode", "q[4,32,4,128] kv[4,4,160,128] ragged",
+            lambda: vd.verify_decode(qv, kc, vc, cp),
+            lambda: verify_decode_ref(qv, kc, vc, cp),
+            lambda: F.scaled_dot_product_attention(
+                qv, kc, vc, attn_mask=staircase, enable_gqa=True),
+            2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
+            + 4 * b, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
+            representative=True)
+    compare("verify_decode_paged", "q[4,32,4,128] pools[25,4,16,128] ragged",
+            lambda: vd.verify_decode_paged(qv, kp, vp, table, cp),
+            lambda: verify_decode_paged_ref(qv, kp, vp, table, cp), None,
+            2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
+            + 4 * b + tbl, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
+            representative=True)
+    print("library: none for attn_decode_paged and verify_decode_paged "
+          "(no single PyTorch call reads KV through a page table)",
+          flush=True)
+
+    # (a) paged == contiguous, (b) verify row i == attn_decode at cp + i,
+    # (c) paged verify row i == attn_decode_paged at cp + i: bitwise
+    one = pa.attn_decode_paged(q, kp, vp, table, cp)
+    assert torch.equal(one, ad.attn_decode(q, kc, vc, cp)), "(a) paged"
+    ver = vd.verify_decode(qv, kc, vc, cp)
+    verp = vd.verify_decode_paged(qv, kp, vp, table, cp)
+    for i in range(k1):
+        qi = qv[:, :, i].contiguous()
+        assert torch.equal(ver[:, :, i], ad.attn_decode(qi, kc, vc, cp + i)
+                           ), f"(b) verify row {i}"
+        assert torch.equal(verp[:, :, i], pa.attn_decode_paged(
+            qi, kp, vp, table, cp + i)), f"(c) paged verify row {i}"
+    # a row never multiplies in the V row of a position it masks: with NaN
+    # at positions cp + 1 .. cp + K1 - 1, row 0 keeps its bits
+    kn, vn = kp.clone(), vp.clone()
+    for bi, c in enumerate(cps):
+        for p in range(c + 1, c + k1):
+            pid = int(table[bi, p // ps])
+            kn[pid, :, p % ps] = vn[pid, :, p % ps] = float("nan")
+    row0 = vd.verify_decode_paged(qv, kn, vn, table, cp)[:, :, 0]
+    assert torch.equal(row0, pa.attn_decode_paged(
+        qv[:, :, 0].contiguous(), kp, vp, table, cp)), "masked NaN leaked"
+    torch.cuda.synchronize()
+    print("bitwise: attn_decode_paged == attn_decode; verify_decode row i "
+          "== attn_decode at cache_pos + i; verify_decode_paged row i == "
+          "attn_decode_paged at cache_pos + i (i < 4); NaN past a row's "
+          "window leaves it unchanged", flush=True)
 
 
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
@@ -268,7 +380,7 @@ def main() -> int:
     from repro_torch.core import xaif
     from repro_torch.kernels import _build
     from repro_torch.models import lm
-    from repro_torch.serve.engine import SlotEngine, generate
+    from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
     from repro_torch.serve.scheduler import Request, serve
 
     # -- 1. setup -----------------------------------------------------------
@@ -298,48 +410,106 @@ def main() -> int:
     # -- 4. serve through the engine; counters cover this run only ---------
     rs = torch.Generator().manual_seed(11)
     lens = torch.randint(20, 121, (6,), generator=rs).tolist()
-    requests = [Request(rid=i, prompt=torch.randint(
-        0, cfg.vocab_size, (n,), generator=rs, dtype=torch.int32).numpy(),
-        max_new_tokens=24) for i, n in enumerate(lens)]
-    engine = SlotEngine(RunConfig(arch=cfg), capacity=4, max_len=160,
-                        chunk=8, prompt_bucket=16)
-    torch.cuda.synchronize()
-    xaif.reset_launch_counts()
-    report = serve(engine, params, requests)
-    torch.cuda.synchronize()
-    launches = xaif.launch_counts()
-    steps = engine.decode_calls * engine.chunk
-    print(f"launches in serve: {launches} over {steps} decode steps "
-          f"and {engine.prefill_calls} prefills", flush=True)
-    assert len(report.served) == 6, [r.reject_reason for r in requests]
-    for r in requests:
-        assert len(r.tokens) == 24 and all(
-            0 <= t < cfg.vocab_size for t in r.tokens), (r.rid, r.tokens)
-    assert all(n > 0 for n in launches.values()), launches
-    assert launches["attn_decode"] == cfg.num_layers * steps, launches
-    ref_toks, _ = generate(cfg, params, requests[0].prompt[None], 24)
-    assert ref_toks[0].tolist() == requests[0].tokens, (
-        "engine tokens differ from generate", ref_toks[0].tolist(),
-        requests[0].tokens)
-    lat = report.latency_percentiles()
-    print(f"serve: {len(report.served)}/6 served, 24 tokens each, request 0 "
-          f"== generate; {report.tokens_per_s:.1f} tok/s p50="
-          f"{lat['p50'] * 1e3:.0f}ms p99={lat['p99'] * 1e3:.0f}ms "
-          f"exit_rate={report.stats['exit_rate']:.3f} on {card}", flush=True)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rs,
+                             dtype=torch.int32).numpy() for n in lens]
+    runs = {}
 
-    # -- 5. the kernels line, the card, the verdict -------------------------
-    replaces = {
-        "gemm": "src/repro/kernels/gemm/gemm.py:48",
-        "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:26",
-        "attention": "src/repro/kernels/flash_attention/flash_attention.py:70",
-        "attn_decode": "src/repro/kernels/attn_decode/attn_decode.py:73",
-        "entropy_exit": "src/repro/kernels/entropy_exit/entropy_exit.py:68",
+    def serve_run(name, run_cfg, p, **engine_kw):
+        """Serve the 6 requests (24 new tokens each) with every launch
+        counter reset just before and read just after."""
+        requests = [Request(rid=i, prompt=pr, max_new_tokens=24)
+                    for i, pr in enumerate(prompts)]
+        engine = SlotEngine(RunConfig(arch=run_cfg), capacity=4, max_len=160,
+                            chunk=8, prompt_bucket=16, **engine_kw)
+        torch.cuda.synchronize()
+        xaif.reset_launch_counts()
+        report = serve(engine, p, requests)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in xaif.launch_counts().items() if n}
+        steps = engine.decode_calls * engine.chunk
+        assert len(report.served) == 6, [r.reject_reason for r in requests]
+        for r in requests:
+            assert len(r.tokens) == 24 and all(
+                0 <= t < cfg.vocab_size for t in r.tokens), (r.rid, r.tokens)
+        lat = report.latency_percentiles()
+        print(f"serve {name}: 6/6 served, 24 tokens each, "
+              f"{report.tokens_per_s:.1f} tok/s p50={lat['p50'] * 1e3:.0f}ms "
+              f"p99={lat['p99'] * 1e3:.0f}ms over {steps} decode steps "
+              f"(rounds) and {engine.prefill_calls} prefills; launches "
+              f"{launches}; stats {report.stats} on {card}", flush=True)
+        runs[name] = dict(tokens=[r.tokens for r in requests],
+                          launches=launches, steps=steps, report=report)
+        return runs[name]
+
+    plain = serve_run("contiguous", cfg, params)
+    assert set(plain["launches"]) == {"gemm", "rmsnorm", "attention",
+                                      "attn_decode", "entropy_exit"}, plain
+    assert plain["launches"]["attn_decode"] == \
+        cfg.num_layers * plain["steps"], plain["launches"]
+    ref_toks, _ = generate(cfg, params, prompts[0][None], 24)
+    assert ref_toks[0].tolist() == plain["tokens"][0], (
+        "engine tokens differ from generate", ref_toks[0].tolist(),
+        plain["tokens"][0])
+    print("serve contiguous: request 0 == generate, bitwise", flush=True)
+
+    # -- 5. the paged engine: 24 usable pages for 4 slots that could ask
+    #    for 40; tokens equal the contiguous engine's, bitwise -------------
+    paged = serve_run("paged", cfg, params, paged=True, page_size=16,
+                      num_pages=25)
+    assert paged["tokens"] == plain["tokens"], "paged tokens differ"
+    assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
+    assert paged["launches"]["attn_decode_paged"] == \
+        cfg.num_layers * paged["steps"], paged["launches"]
+    assert "attn_decode" not in paged["launches"], paged["launches"]
+    print("serve paged: tokens == contiguous engine, bitwise, per request",
+          flush=True)
+
+    # -- 6. greedy speculative decoding, against plain greedy on yi-9b
+    #    without its exit heads (the same weights) -------------------------
+    cfg_ne = dataclasses.replace(cfg, early_exit=None)
+    greedy = serve_run("plain-noexit", cfg_ne, params)
+    tied = serve_run("spec-tied-paged", cfg_ne, params, paged=True,
+                     page_size=16, num_pages=25,
+                     spec=SpecConfig(draft_arch=cfg_ne, k=3,
+                                     share_params=True))
+    assert tied["tokens"] == greedy["tokens"], "tied spec tokens differ"
+    assert tied["report"].stats["spec_acceptance"] == 1.0, \
+        tied["report"].stats
+    assert tied["launches"]["verify_decode_paged"] == \
+        cfg.num_layers * tied["steps"], tied["launches"]
+    draft = dataclasses.replace(cfg_ne, name="yi-9b-draft-2l", num_layers=2)
+    indep = serve_run("spec-draft2l-contiguous", cfg_ne, params,
+                      spec=SpecConfig(draft_arch=draft, k=3, draft_seed=1))
+    assert indep["tokens"] == greedy["tokens"], "independent spec differs"
+    assert indep["launches"]["verify_decode"] == \
+        cfg.num_layers * indep["steps"], indep["launches"]
+    print(f"serve spec: tied (paged) and independent 2-layer draft "
+          f"(contiguous) tokens == plain greedy, bitwise; acceptance tied "
+          f"{tied['report'].stats['spec_acceptance']:.3f}, independent "
+          f"{indep['report'].stats['spec_acceptance']:.3f}", flush=True)
+
+    # -- 7. the kernels line, the card, the verdict -------------------------
+    replaces = {   # kernel: (TPU kernel it replaces, source, run of its path)
+        "gemm": ("gemm/gemm.py:48", "gemm", "contiguous"),
+        "rmsnorm": ("rmsnorm/rmsnorm.py:26", "rmsnorm", "contiguous"),
+        "attention": ("flash_attention/flash_attention.py:70",
+                      "flash_attention", "contiguous"),
+        "attn_decode": ("attn_decode/attn_decode.py:73", "attn_decode",
+                        "contiguous"),
+        "entropy_exit": ("entropy_exit/entropy_exit.py:68", "entropy_exit",
+                         "contiguous"),
+        "attn_decode_paged": ("paged_attention/paged_attention.py:73",
+                              "paged_attention", "paged"),
+        "verify_decode": ("verify_decode/verify_decode.py:77",
+                          "verify_decode", "spec-draft2l-contiguous"),
+        "verify_decode_paged": ("verify_decode/verify_decode.py:162",
+                                "verify_decode", "spec-tied-paged"),
     }
-    sources = {"attention": "flash_attention"}
     kernels = [dict(name=name, route="cuda",
-                    source=f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
-                    replaces=replaces[name], launches=launches[name],
-                    **records[name]) for name in replaces]
+                    source=f"src/repro_torch/csrc/{src}.cu",
+                    replaces=f"src/repro/kernels/{tpu}",
+                    launches=runs[run]["launches"][name], **records[name])
+               for name, (tpu, src, run) in replaces.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """XAIF op registry (PyTorch port): one op name, two backends.
 
 The JAX package dispatches each op (``gemm``, ``rmsnorm``, ``attention``,
-``attn_decode``, ``entropy_exit``) through ``repro.core.xaif`` to a pure-jnp
+``attn_decode``, ``attn_decode_paged``, ``verify_decode``,
+``verify_decode_paged``, ``entropy_exit``) through ``repro.core.xaif`` to a pure-jnp
 ``ref`` backend or a Pallas TPU kernel. Here every op has
 
   * a PLAIN backend — straightforward PyTorch with the JAX ref's numerics,
@@ -33,6 +34,7 @@ class OpEntry:
 
 
 _REGISTRY: Dict[str, OpEntry] = {}
+_BUILTINS = []          # set once the built-in ops modules are imported
 
 
 def register(name: str, plain: Callable, kernel: Callable) -> None:
@@ -40,14 +42,19 @@ def register(name: str, plain: Callable, kernel: Callable) -> None:
 
 
 def _ensure_builtin_ops() -> None:
-    if _REGISTRY:
+    # a flag, not "is the registry empty": importing one ops module
+    # directly registers that op alone
+    if _BUILTINS:
         return
     # the ops modules import no CUDA toolchain: kernels build at first launch
     from repro_torch.kernels.attn_decode import ops as _ad     # noqa: F401
     from repro_torch.kernels.entropy_exit import ops as _ee    # noqa: F401
     from repro_torch.kernels.flash_attention import ops as _fa  # noqa: F401
     from repro_torch.kernels.gemm import ops as _gemm          # noqa: F401
+    from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _rn         # noqa: F401
+    from repro_torch.kernels.verify_decode import ops as _vd   # noqa: F401
+    _BUILTINS.append(True)
 
 
 def entry(name: str) -> OpEntry:

@@ -1,0 +1,30 @@
+// Paged decode attention: one query token per sequence over a page pool.
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/paged_attention/paged_attention.py
+// (paged_attention_pallas -> _paged_kernel), GQA mode. q [B, Hq, 128],
+// pools k/v [P, Hkv, ps, 128] in the model dtype, page_table [B, NP] int32
+// (entry j names the pool page of positions [j ps, (j + 1) ps), -1 = none),
+// cache_pos [B] int32: positions 0..cache_pos[b] are valid. Output fp32
+// [B, Hq, 128].
+//
+// Bound on the H100: bytes, as contiguous decode: each valid K and V row is
+// read once for the whole query group. Design: the tile loop of
+// decode_tile.cuh, grid (Hkv, B), with the row address of position p read
+// from page_table[b, p / ps]. The page size divides the 64-position tile,
+// so a tile covers whole pages. Positions whose page entry is -1 are
+// masked and never read. With the tile order of attn_decode, the output
+// equals attn_decode's bit for bit on the same KV, which is what makes the
+// paged engine's tokens equal the contiguous engine's.
+#include "decode_tile.cuh"
+
+KERNEL_API int paged_attention_launch(const void* q, const void* k_pages,
+                                      const void* v_pages,
+                                      const void* page_table,
+                                      const void* cache_pos, void* out, int B,
+                                      int Hq, int Hkv, int ps, int NP,
+                                      float scale, int dtype, void* stream) {
+  const decode::Paged rows{static_cast<const int*>(page_table), Hkv, ps, NP};
+  return decode::launch<16>(q, k_pages, v_pages, cache_pos, out, B, Hq, 1,
+                            NP * ps, scale, dtype, rows, stream);
+}

@@ -9,6 +9,14 @@ Serves the arch's ``.reduced()`` config with random weights from
 percentiles and the early-exit rate. ``--rate 0`` makes every request ready
 at t=0 (closed loop). Runs on the card by default; ``--device cpu`` runs
 the plain PyTorch path.
+
+``--paged`` serves through the paged KV engine: pages of ``--page-size``
+positions from a pool of ``--num-pages``, admission by free pages.
+``--draft ARCH --spec-k N`` turns on greedy speculative decoding: the
+draft arch (reduced, random weights) proposes N tokens per live slot per
+round and the target verifies them in one forward. Exit heads are stripped
+from target and draft (verification scores every position with full-model
+logits); ``--threshold`` is therefore rejected with ``--draft``.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ import numpy as np
 
 from repro_torch.configs.base import RunConfig, get_arch, list_archs
 from repro_torch.models import lm
-from repro_torch.serve.engine import SlotEngine
+from repro_torch.serve.engine import SlotEngine, SpecConfig
 from repro_torch.serve.scheduler import poisson_requests, serve
 
 
@@ -38,13 +46,52 @@ def main(argv=None):
                     help="decode steps per chunk between host fetches")
     ap.add_argument("--threshold", type=float, default=None,
                     help="early-exit entropy threshold (default: the arch's)")
+    ap.add_argument("--paged", action="store_true",
+                    help="store attention KV in fixed-size pages")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page pool size incl. the scratch page (default: "
+                         "the contiguous worst case + 1)")
+    ap.add_argument("--draft", default=None,
+                    help="draft arch for greedy speculative decoding")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft proposals per speculative round (default 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.prompt_len_max + args.new_tokens > args.max_len:
         ap.error("--max-len must fit --prompt-len-max + --new-tokens")
+    # invalid flag combinations die here, before any model is built
+    if not args.paged and (args.num_pages is not None
+                           or args.page_size != 16):
+        ap.error("--page-size/--num-pages require --paged")
+    if args.spec_k is not None and not args.draft:
+        ap.error("--spec-k requires --draft: k counts DRAFT proposals per "
+                 "speculative round — name the draft arch")
+    if args.spec_k is not None and args.spec_k < 1:
+        ap.error(f"--spec-k must be >= 1 (got {args.spec_k}): each round "
+                 "proposes at least one draft token")
+    if args.draft:
+        if args.draft not in list_archs():
+            ap.error(f"--draft {args.draft!r} is not a known arch "
+                     f"(choices: {', '.join(list_archs())})")
+        if args.threshold is not None:
+            ap.error("--draft cannot be combined with --threshold: "
+                     "speculative serving strips the target's early-exit "
+                     "heads, so an exit threshold would be silently ignored")
 
     cfg = get_arch(args.arch).reduced()
+    spec = None
+    if args.draft:
+        draft_cfg = dataclasses.replace(get_arch(args.draft).reduced(),
+                                        early_exit=None)
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            ap.error(f"--draft {args.draft} has vocab_size "
+                     f"{draft_cfg.vocab_size} but target {args.arch} has "
+                     f"{cfg.vocab_size}: acceptance compares tokens of one "
+                     f"vocabulary")
+        cfg = dataclasses.replace(cfg, early_exit=None)
+        spec = SpecConfig(draft_arch=draft_cfg, k=args.spec_k or 4)
     if args.threshold is not None and cfg.early_exit is not None:
         cfg = dataclasses.replace(cfg, early_exit=dataclasses.replace(
             cfg.early_exit, entropy_threshold=args.threshold))
@@ -57,7 +104,9 @@ def main(argv=None):
         seed=args.seed)
     engine = SlotEngine(RunConfig(arch=cfg), capacity=args.capacity,
                         max_len=args.max_len, chunk=args.chunk,
-                        device=args.device)
+                        device=args.device, paged=args.paged,
+                        page_size=args.page_size, num_pages=args.num_pages,
+                        spec=spec)
     report = serve(engine, params, requests, realtime=args.rate > 0)
 
     lat = report.latency_percentiles()
@@ -65,7 +114,8 @@ def main(argv=None):
     itl = report.itl_percentiles()
     print(f"arch={cfg.name} capacity={args.capacity} "
           f"requests={args.requests} rate={args.rate or 'inf'}/s "
-          f"device={engine.device}")
+          f"device={engine.device} paged={engine.paged} "
+          f"spec_k={engine.spec_k}")
     print(f"  throughput: {report.decode_tokens} tokens in "
           f"{report.wall_s:.2f}s = {report.tokens_per_s:.1f} tok/s "
           f"(decode chunks run: {engine.decode_calls})")
@@ -79,6 +129,13 @@ def main(argv=None):
               f"(first: {report.rejected[0].reject_reason})")
     print(f"  exit stats: exit_rate={report.stats['exit_rate']:.2%} "
           f"gated_fraction={report.stats['gated_fraction']:.2%}")
+    if engine.paged:
+        print(f"  pages: peak {int(report.stats['peak_pages'])} of "
+              f"{engine.num_pages - 1} usable ({engine.page_size} "
+              f"positions each)")
+    if spec is not None:
+        print(f"  spec decode: k={spec.k} draft={args.draft} acceptance="
+              f"{report.stats['spec_acceptance']:.2%}")
     return report
 
 

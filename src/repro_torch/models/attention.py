@@ -1,13 +1,21 @@
 """GQA attention mixer (port of ``repro.models.attention``, GQA part).
 
-Two execution modes share one parameter set:
+Four execution modes share one parameter set:
   * prefill: full-sequence causal attention through the XAIF
     ``attention`` op (the flash kernel on the card), K/V written into the
     request's cache;
   * decode: one query token against the KV cache through the
-    ``attn_decode`` op; KV stays in its grouped [B, Hkv, S, D] layout (no
-    head replication — the bandwidth point of GQA) and each sequence is
-    masked by its own cache length.
+    ``attn_decode`` op (contiguous cache) or ``attn_decode_paged`` (page
+    pool + page table); KV stays in its grouped Hkv layout (no head
+    replication — the bandwidth point of GQA) and each sequence is masked
+    by its own cache length;
+  * verify (speculative decoding): K1 query tokens per sequence through
+    ``verify_decode`` / ``verify_decode_paged``, query i masked to the
+    window of the i-th sequential decode step.
+
+K/V rows are written in place (the JAX package builds new caches with
+``.at[].set``); nothing else holds the old cache, so the update saves a
+copy of the whole cache per layer.
 """
 from __future__ import annotations
 
@@ -93,9 +101,6 @@ def apply_attention_decode(params, x: torch.Tensor, cfg: ArchConfig,
     current length (the new token's position)."""
     b = x.shape[0]
     q, k, v = _project_qkv(params, x, cfg, policy, cache_pos[:, None])
-    # The new K/V row is written IN PLACE at each sequence's cache_pos (the
-    # JAX package builds a new cache with .at[].set); nothing else holds the
-    # old cache, so the update saves a copy of the whole cache per layer.
     bidx = torch.arange(b, device=x.device)
     pos = cache_pos.long()
     cache.k[bidx, :, pos] = k[:, :, 0]
@@ -104,3 +109,152 @@ def apply_attention_decode(params, x: torch.Tensor, cfg: ArchConfig,
                     cache.v, cache_pos)                   # fp32 [B, Hq, D]
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return xaif.call("gemm", policy, out, params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: page pools + one page table shared by every layer
+# ---------------------------------------------------------------------------
+
+
+class PagedKVCache(NamedTuple):
+    """Page pools. Page 0 is the reserved SCRATCH page (dead-slot writes
+    land there; never allocated, never validly read). Logical page ids are
+    shared across layers through the ``PagedLMCache`` page table."""
+    k_pages: torch.Tensor      # [(L,) P, Hkv, ps, D]
+    v_pages: torch.Tensor      # [(L,) P, Hkv, ps, D]
+
+
+def init_paged_kv_cache(cfg: ArchConfig, num_pages: int, page_size: int,
+                        dtype, device, layers: int) -> PagedKVCache:
+    """Zeroed pools of ``layers`` layers: [layers, P, Hkv, ps, D] each."""
+    shape = (layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    return PagedKVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _to_pages(x: torch.Tensor, seq_axis: int, page_size: int,
+              n_pages: int) -> torch.Tensor:
+    """Chop a contiguous cache array into page-shaped chunks: ``seq_axis``
+    moves to the front, is zero-padded to ``n_pages * page_size`` and split
+    into [n_pages, page_size, *rest]."""
+    x = x.movedim(seq_axis, 0)
+    pad = n_pages * page_size - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad, *x.shape[1:])])
+    return x.reshape(n_pages, page_size, *x.shape[1:])
+
+
+def fill_pages(paged: PagedKVCache, src: KVCache,
+               page_ids: torch.Tensor) -> PagedKVCache:
+    """Scatter a batch-1 prefilled contiguous cache (src [L, 1, Hkv, T, D])
+    into the pool pages ``page_ids`` [ceil(T / ps)] of every layer, in
+    place. Junk beyond the true length is masked at read time by the
+    per-slot position, so a bucketed prefill's padded tail needs no
+    special handling."""
+    ps = paged.k_pages.shape[-2]
+    n_pages = page_ids.shape[0]
+    ids = page_ids.long()
+
+    def chop(a):      # [L, 1, Hkv, T, D] -> [L, n_pages, Hkv, ps, D]
+        return _to_pages(a[:, 0], 2, ps, n_pages).permute(2, 0, 3, 1, 4)
+
+    paged.k_pages[:, ids] = chop(src.k).to(paged.k_pages.dtype)
+    paged.v_pages[:, ids] = chop(src.v).to(paged.v_pages.dtype)
+    return paged
+
+
+def _current_page(page_table: torch.Tensor, cache_pos: torch.Tensor,
+                  ps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(page id, in-page offset) of each sequence's current write position.
+
+    THE dead-slot routing invariant lives here: entries of -1 (dead/empty
+    slots) are routed to the scratch page 0, whose contents are never
+    validly read. The page index is clamped to the table, as the JAX
+    gather clamps it."""
+    b, np_ = page_table.shape
+    pos = cache_pos.long()
+    pid = page_table[torch.arange(b, device=pos.device),
+                     (pos // ps).clamp(max=np_ - 1)]
+    return torch.where(pid >= 0, pid, 0).long(), pos % ps
+
+
+def apply_attention_decode_paged(params, x: torch.Tensor, cfg: ArchConfig,
+                                 policy: str, state: PagedKVCache,
+                                 cache_pos: torch.Tensor,
+                                 page_table: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One-token decode against one layer's pools [P, Hkv, ps, D]. x [B, 1,
+    d]; cache_pos [B] = the new token's position; page_table [B, NP] (-1 =
+    unallocated). The new K/V row is appended into each sequence's current
+    page, then ``attn_decode_paged`` attends through the page table:
+    bitwise ``apply_attention_decode`` when NP * ps equals the contiguous
+    extent."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(params, x, cfg, policy, cache_pos[:, None])
+    safe, off = _current_page(page_table, cache_pos, state.k_pages.shape[-2])
+    state.k_pages[safe, :, off] = k[:, :, 0]
+    state.v_pages[safe, :, off] = v[:, :, 0]
+    out = xaif.call("attn_decode_paged", policy, q[:, :, 0].contiguous(),
+                    state.k_pages, state.v_pages, page_table, cache_pos)
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
+    return xaif.call("gemm", policy, out, params["wo"]), state
+
+
+def _verify_out(params, out: torch.Tensor, x: torch.Tensor,
+                cfg: ArchConfig, policy: str) -> torch.Tensor:
+    b, k1, _ = x.shape      # out fp32 [B, Hq, K1, D]
+    out = out.transpose(1, 2).reshape(b, k1, cfg.num_heads * cfg.head_dim)
+    return xaif.call("gemm", policy, out.to(x.dtype), params["wo"])
+
+
+def apply_attention_verify(params, x: torch.Tensor, cfg: ArchConfig,
+                           policy: str, cache: KVCache,
+                           cache_pos: torch.Tensor
+                           ) -> Tuple[torch.Tensor, KVCache]:
+    """Multi-token speculative verify. x [B, K1, d] holds the previous token
+    plus k draft proposals; cache_pos [B] is the FIRST row's position. The
+    K1 K/V rows land at ``cache_pos + i``, then ``verify_decode`` scores
+    every query under its own staircase window: row i bitwise the i-th
+    sequential ``apply_attention_decode`` step. Rows past the cache extent
+    are dropped (the JAX scatter drops them silently); only queries the
+    engine clamps away (beyond the budget) could read them. The drop needs
+    no host sync: such a row rewrites position 0 with the value it holds,
+    and no kept row writes position 0 while one is dropped (that would
+    take K1 > S)."""
+    b, k1, _ = x.shape
+    pos = cache_pos[:, None].long() + torch.arange(k1, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, policy, pos)
+    keep = pos < cache.k.shape[-2]
+    at = torch.where(keep, pos, 0)
+    bidx = torch.arange(b, device=x.device)[:, None]
+    for c, new in ((cache.k, k), (cache.v, v)):
+        c[bidx, :, at] = torch.where(keep[:, :, None, None],
+                                     new.transpose(1, 2), c[:, None, :, 0])
+    out = xaif.call("verify_decode", policy, q, cache.k, cache.v, cache_pos)
+    return _verify_out(params, out, x, cfg, policy), cache
+
+
+def apply_attention_verify_paged(params, x: torch.Tensor, cfg: ArchConfig,
+                                 policy: str, state: PagedKVCache,
+                                 cache_pos: torch.Tensor,
+                                 page_table: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Paged sibling of ``apply_attention_verify``. Each of the K1 rows
+    lands in its own (page, offset); rows whose position falls on an
+    unallocated (-1) entry or past the table extent go to the scratch page
+    0 (several dead slots may write there at once: page 0 is never read)."""
+    b, k1, _ = x.shape
+    ps = state.k_pages.shape[-2]
+    np_ = page_table.shape[1]
+    pos = cache_pos[:, None].long() + torch.arange(k1, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, policy, pos)
+    in_range = pos < np_ * ps
+    bidx = torch.arange(b, device=x.device)[:, None]
+    pid = page_table[bidx, torch.where(in_range, pos // ps, 0)]
+    safe = torch.where(in_range & (pid >= 0), pid, 0).long()
+    off = pos % ps
+    state.k_pages[safe, :, off] = k.transpose(1, 2)
+    state.v_pages[safe, :, off] = v.transpose(1, 2)
+    out = xaif.call("verify_decode_paged", policy, q, state.k_pages,
+                    state.v_pages, page_table, cache_pos)
+    return _verify_out(params, out, x, cfg, policy), state

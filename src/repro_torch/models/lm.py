@@ -6,11 +6,13 @@ Parameters keep the JAX package's tree: per-layer weights stacked along a
 leading layer axis in ``params["slots"][0]`` (the dense block pattern has
 period 1, so the super-blocks are the layers) in the ``[K, N]`` layout, so
 loading JAX parameters is copy-only. The KV cache is one ``[L, B, Hkv, S,
-D]`` tensor each for K and V; layer i reads and writes the view ``[i]``.
+D]`` tensor each for K and V (``LMCache``) or one ``[L, P, Hkv, ps, D]``
+page pool each with a ``[B, max_pages]`` page table (``PagedLMCache``);
+layer i reads and writes the view ``[i]``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -151,20 +153,86 @@ def reset_slot(cache: LMCache, slot: int) -> LMCache:
     return cache
 
 
+# ----- paged cache ----------------------------------------------------------
+#
+# Attention KV lives in fixed-size PAGES: one pool per layer (stacked
+# [L, P, Hkv, ps, D]) and ONE [capacity, max_pages] page table shared by all
+# layers maps slot-local page j to the pool page holding positions
+# [j*ps, (j+1)*ps). Page 0 is the reserved scratch page. The host owns
+# allocation (serve/paging.py).
+
+
+class PagedLMCache(NamedTuple):
+    k_pages: torch.Tensor      # [L, P, Hkv, ps, D]
+    v_pages: torch.Tensor      # [L, P, Hkv, ps, D]
+    pos: torch.Tensor          # [B] int32 current lengths
+    page_table: torch.Tensor   # [B, max_pages] int32; -1 = unallocated
+
+    def layer(self, i: int) -> attn.PagedKVCache:
+        return attn.PagedKVCache(self.k_pages[i], self.v_pages[i])
+
+
+def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     page_size: int, num_pages: int,
+                     device="cuda") -> PagedLMCache:
+    _check_dense(cfg)
+    device = resolve_device(device)
+    pools = attn.init_paged_kv_cache(cfg, num_pages, page_size,
+                                     getattr(torch, cfg.dtype), device,
+                                     layers=cfg.num_layers)
+    max_pages = -(-max_len // page_size)
+    return PagedLMCache(
+        pools.k_pages, pools.v_pages,
+        torch.zeros(batch, dtype=torch.int32, device=device),
+        torch.full((batch, max_pages), -1, dtype=torch.int32, device=device))
+
+
+def fill_slot_paged(cache: PagedLMCache, src: LMCache, slot: int, length,
+                    page_ids: torch.Tensor) -> PagedLMCache:
+    """Admit a batch-1 contiguous prefill into row ``slot`` in place: its
+    KV is scattered into the host-allocated ``page_ids`` (one per bucket
+    page, in position order) and the slot's page-table row is rewritten to
+    exactly these pages."""
+    attn.fill_pages(attn.PagedKVCache(cache.k_pages, cache.v_pages),
+                    attn.KVCache(src.k, src.v), page_ids)
+    n = page_ids.shape[0]
+    cache.page_table[slot] = -1
+    cache.page_table[slot, :n] = page_ids.to(torch.int32)
+    cache.pos[slot] = length
+    return cache
+
+
+def free_slot_paged(cache: PagedLMCache, slot: int) -> PagedLMCache:
+    """Retire row ``slot``: zero its length and page-table row, in place.
+    Pool pages keep their bytes; junk is masked at read time."""
+    cache.pos[slot] = 0
+    cache.page_table[slot] = -1
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
 
 
 def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, policy: str,
-                 state: attn.KVCache, mode: str, cache_pos=None):
+                 state, mode: str, cache_pos=None, page_table=None):
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
-    if mode == "decode":
-        out, _ = attn.apply_attention_decode(p["mixer"], h, cfg, policy,
-                                             state, cache_pos)
+    m = p["mixer"]
+    if mode == "prefill":
+        out, _ = attn.apply_attention_prefill(m, h, cfg, policy, state)
+    elif mode == "decode" and page_table is None:
+        out, _ = attn.apply_attention_decode(m, h, cfg, policy, state,
+                                             cache_pos)
+    elif mode == "decode":
+        out, _ = attn.apply_attention_decode_paged(m, h, cfg, policy, state,
+                                                   cache_pos, page_table)
+    elif page_table is None:
+        out, _ = attn.apply_attention_verify(m, h, cfg, policy, state,
+                                             cache_pos)
     else:
-        out, _ = attn.apply_attention_prefill(p["mixer"], h, cfg, policy,
-                                              state)
+        out, _ = attn.apply_attention_verify_paged(m, h, cfg, policy, state,
+                                                   cache_pos, page_table)
     x = x + out
     h2 = rmsnorm(p["ln2"], x, policy, cfg.norm_eps)
     return x + apply_mlp(p["ffn"], h2, policy)
@@ -207,17 +275,41 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
-                   policy: str, cache: LMCache, with_exits: bool = True):
-    """One decode step. tokens [B, 1]. K/V rows are written in place.
-    Returns (final_logits [B, V], exit_logits tuple, cache with pos + 1);
-    each exit's logits come from the hidden state at its boundary."""
+                   policy: str, cache: Union[LMCache, PagedLMCache],
+                   with_exits: bool = True):
+    """One decode step. tokens [B, 1]. ``cache`` is an LMCache (contiguous
+    KV) or a PagedLMCache (page pools attended through the page table: the
+    same numerics). K/V rows are written in place. Returns (final_logits
+    [B, V], exit_logits tuple, cache with pos + 1); each exit's logits come
+    from the hidden state at its boundary."""
+    page_table = (cache.page_table if isinstance(cache, PagedLMCache)
+                  else None)
     x = params["embed"][tokens.long()]
     exit_lg: List[torch.Tensor] = []
     for start, end, exit_i in _segments(cfg):
         for i in range(start, end):
             x = _apply_layer(_layer(params, i), x, cfg, policy,
-                             cache.layer(i), "decode", cache.pos)
+                             cache.layer(i), "decode", cache.pos, page_table)
         if exit_i is not None and with_exits:
             exit_lg.append(_exit_logits(params, x, exit_i, cfg, policy)[:, 0])
     logits = _head(params, x, cfg, policy)[:, 0]
     return logits, tuple(exit_lg), cache._replace(pos=cache.pos + 1)
+
+
+def forward_verify(params, tokens: torch.Tensor, cfg: ArchConfig,
+                   policy: str, cache: Union[LMCache, PagedLMCache]):
+    """Speculative-decode verification: score K1 = k+1 tokens per slot (the
+    previous token plus k draft proposals) in ONE forward. tokens [B, K1].
+
+    Every layer writes the K1 K/V rows at ``pos + i`` and masks each query
+    to its own staircase window, so logits row i is bitwise what the i-th
+    sequential ``forward_decode`` step would produce. Returns (logits
+    [B, K1, V], cache) with ``pos`` UNCHANGED: the caller advances it by
+    the accepted count. Early exits are not consulted."""
+    page_table = (cache.page_table if isinstance(cache, PagedLMCache)
+                  else None)
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_layers):
+        x = _apply_layer(_layer(params, i), x, cfg, policy, cache.layer(i),
+                         "verify", cache.pos, page_table)
+    return _head(params, x, cfg, policy), cache

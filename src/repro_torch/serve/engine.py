@@ -1,6 +1,6 @@
-"""Serving engines (port of ``repro.serve.engine``, contiguous greedy mode):
-the slot-based continuous-batching engine and the one-request reference
-loop ``generate``.
+"""Serving engines (port of ``repro.serve.engine``, greedy mode): the
+slot-based continuous-batching engine and the one-request reference loop
+``generate``.
 
   * The cache's batch dimension is a fixed set of SLOTS (``capacity``). A
     request is admitted by a bucketed batch-1 prefill written into a free
@@ -10,19 +10,30 @@ loop ``generate``.
     greedy argmax, the early-exit merge and the statistics stay on the
     device, and the scheduler fetches (tokens, slot state) to the host once
     per chunk.
+  * Paged KV (``paged=True``): attention KV lives in fixed-size pages from
+    a pool of ``num_pages`` (page 0 is the scratch page, never allocated);
+    one ``[capacity, max_pages]`` page table, shared by every layer, is
+    rewritten by the host between chunks (``serve/paging.py``).
+  * Greedy speculative decoding (``spec=SpecConfig(...)``): per round a
+    draft model proposes ``k`` tokens per slot, ONE target
+    ``forward_verify`` scores all of them, and each slot accepts a
+    variable-length prefix.
 
 Every step runs the same kernels on the same per-row data whatever the
 other slots hold (per-slot cache positions; the GEMM reduces each row in
-one fixed order), so the engine's greedy tokens equal ``generate``'s.
+one fixed order), so the engine's greedy tokens equal ``generate``'s, the
+paged engine's equal the contiguous engine's (when ``page_size`` divides
+``max_len``), and speculative tokens equal plain greedy tokens.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import ArchConfig, RunConfig, get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.early_exit import (gated_layer_fraction,
                                          merge_exit_logits)
@@ -97,6 +108,8 @@ class DecodeState(NamedTuple):
     live_cnt: torch.Tensor     # f32 — sum over steps of live slots
     quarantined: torch.Tensor  # [S] bool
     realized: torch.Tensor     # f32 — tokens emitted by decode chunks
+    spec_prop: torch.Tensor    # f32 — draft tokens proposed (spec decode)
+    spec_acc: torch.Tensor     # f32 — draft tokens accepted (spec decode)
 
 
 def init_decode_state(capacity: int, device) -> DecodeState:
@@ -110,7 +123,25 @@ def init_decode_state(capacity: int, device) -> DecodeState:
         budget=torch.zeros(capacity, **i32),
         exit_cnt=z(), gated_layers=z(), live_cnt=z(),
         quarantined=torch.zeros(capacity, dtype=torch.bool, device=device),
-        realized=z())
+        realized=z(), spec_prop=z(), spec_acc=z())
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Greedy speculative decoding for :class:`SlotEngine`.
+
+    ``draft_arch`` (registry name or :class:`ArchConfig`) proposes ``k``
+    tokens per live slot per round; the target scores all of them in ONE
+    ``forward_verify`` and accepts a per-slot prefix. Acceptance compares
+    proposals with the target's own argmax rows, so the output equals
+    plain greedy decoding whatever the draft: draft quality moves
+    throughput only. ``share_params=True`` runs the draft with the
+    target's weights (``draft_arch`` must equal the target arch): every
+    proposal is accepted."""
+    draft_arch: object                   # registry name or ArchConfig
+    k: int = 4                           # proposals per round
+    draft_seed: int = 0                  # draft init_lm seed
+    share_params: bool = False           # tied self-draft
 
 
 class SlotEngine:
@@ -119,19 +150,69 @@ class SlotEngine:
     ``prompt_bucket``: prompts are right-padded up to the next multiple of
     this for prefill (the pad is masked by the per-slot lengths), so the
     prefill shapes come from a small set of buckets. ``chunk``: decode steps
-    per chunk between two host fetches.
+    (speculative rounds under ``spec``) per chunk between two host fetches.
+
+    ``paged``: attention KV in pages of ``page_size`` positions from a pool
+    of ``num_pages`` (default: the contiguous worst case, capacity x
+    ceil(max_len / page_size), + 1 scratch page; shrink it to trade
+    worst-case headroom for admission concurrency).
+
+    ``spec``: greedy speculative decoding. The target may carry no exit
+    heads (verification scores every position with full-model logits) and
+    the draft must share its vocabulary; the port's configs admit only
+    GQA attention blocks, so both sides are verifiable. Sampling
+    (``temperature > 0``) is not ported.
     """
 
     def __init__(self, run: Union[RunConfig, ArchConfig], capacity: int,
                  max_len: int, chunk: int = 8, prompt_bucket: int = 16,
-                 device="cuda"):
+                 device="cuda", paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 spec: Optional[SpecConfig] = None,
+                 temperature: float = 0.0):
         self.run = _as_run(run)
+        cfg = self.run.arch
+        if temperature > 0.0:
+            raise NotImplementedError("sampling (temperature > 0) is not "
+                                      "ported yet; the engine is greedy")
+        self.spec = spec
+        self.draft_cfg: Optional[ArchConfig] = None
+        if spec is not None:
+            if spec.k < 1:
+                raise ValueError(f"spec.k must be >= 1, got {spec.k}")
+            if max_len <= spec.k:
+                raise ValueError(f"max_len {max_len} cannot hold the "
+                                 f"{spec.k + 1} rows of one verify")
+            dcfg = spec.draft_arch
+            if isinstance(dcfg, str):
+                dcfg = get_arch(dcfg)
+            if cfg.early_exit is not None:
+                raise ValueError("speculative decoding skips the exit merge, "
+                                 "so an early-exit target would change "
+                                 "tokens: strip its exit heads")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {dcfg.vocab_size} != target "
+                                 f"vocab {cfg.vocab_size}")
+            if spec.share_params and dcfg != cfg:
+                raise ValueError("share_params ties the draft to the "
+                                 "target's weights: the draft arch must "
+                                 "equal the target arch")
+            self.draft_cfg = dcfg
+        self.spec_k = spec.k if spec is not None else 0
         self.capacity = capacity
         self.max_len = max_len
         self.chunk = chunk
         self.prompt_bucket = prompt_bucket
         self.device = resolve_device(device)
-        cfg = self.run.arch
+        self.paged = paged
+        self.page_size = page_size
+        self.max_pages = -(-max_len // page_size)
+        self.num_pages = (num_pages if num_pages is not None
+                          else capacity * self.max_pages + 1)
+        if paged and self.num_pages < self.max_pages + 1:
+            raise ValueError(f"a pool of {self.num_pages} pages cannot hold "
+                             f"one max-length request ({self.max_pages} "
+                             f"pages + the scratch page)")
         self._bounds = None
         if cfg.early_exit is not None:
             # layers run per exit index (the last entry: ran to the end)
@@ -142,14 +223,41 @@ class SlotEngine:
         self.prefill_calls = 0
         # bucketed tokens pushed through prefill (proportional to its FLOPs)
         self.prefill_tokens = 0
+        # the engine owns the draft's weights and its contiguous slot cache
+        self.draft_params = None
+        self._draft_cache: Optional[lm.LMCache] = None
+        if spec is not None and not spec.share_params:
+            self.draft_params = lm.init_lm(self.draft_cfg, seed=spec.draft_seed,
+                                           device=self.device)
 
     # -- device state ------------------------------------------------------
 
     @torch.inference_mode()
-    def init_state(self) -> Tuple[lm.LMCache, DecodeState]:
-        return (lm.init_cache(self.run.arch, self.capacity, self.max_len,
-                              device=self.device),
-                init_decode_state(self.capacity, self.device))
+    def init_state(self):
+        """Fresh (cache, DecodeState); under ``spec`` also a fresh draft
+        cache, held by the engine. The draft cache has ``k`` positions more
+        than ``max_len``: a round's draft steps run up to k positions past
+        a slot's pinned position, and those writes must land somewhere
+        (the JAX scatter drops them)."""
+        cfg = self.run.arch
+        if self.spec is not None:
+            self._draft_cache = lm.init_cache(
+                self.draft_cfg, self.capacity, self.max_len + self.spec_k,
+                device=self.device)
+        if self.paged:
+            cache = lm.init_paged_cache(cfg, self.capacity, self.max_len,
+                                        self.page_size, self.num_pages,
+                                        device=self.device)
+        else:
+            cache = lm.init_cache(cfg, self.capacity, self.max_len,
+                                  device=self.device)
+        return cache, init_decode_state(self.capacity, self.device)
+
+    @property
+    def tokens_per_chunk(self) -> int:
+        """Most tokens one chunk can realize per slot: what the scheduler's
+        page growth must cover (chunk rounds x k + 1 rows under spec)."""
+        return self.chunk * (self.spec_k + 1)
 
     # -- admission ---------------------------------------------------------
 
@@ -158,18 +266,29 @@ class SlotEngine:
         return min(-(-t // b) * b, self.max_len)
 
     @torch.inference_mode()
-    def prefill_into(self, params, cache: lm.LMCache, st: DecodeState,
-                     prompt, slot: int, max_new: int):
+    def prefill_into(self, params, cache, st: DecodeState, prompt, slot: int,
+                     max_new: int, page_ids=None):
         """Admit one request: bucketed batch-1 prefill into ``slot``.
-        prompt: 1-D ints. ``cache`` and ``st`` are updated in place.
-        Returns (cache, st, first_token) with the token on the device."""
+        prompt: 1-D ints. A paged engine also takes the host-allocated
+        ``page_ids`` (one per bucket page, in position order): the
+        contiguous prefill's KV is scattered into them. ``cache`` and ``st``
+        are updated in place. Returns (cache, st, first_token) with the
+        token on the device."""
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
         t = int(prompt.shape[0])
         if t + max_new > self.max_len:
             raise ValueError(f"prompt ({t}) + max_new ({max_new}) exceeds "
                              f"max_len ({self.max_len})")
+        if (page_ids is not None) != self.paged:
+            raise ValueError("page_ids are required iff the engine is paged")
         cfg, policy = self.run.arch, self.run.policy
         bucket = self._bucket(t)
+        if self.paged:
+            ids = torch.as_tensor(np.asarray(page_ids, np.int32))
+            n_bucket = -(-bucket // self.page_size)
+            if ids.shape != (n_bucket,):
+                raise ValueError(f"{tuple(ids.shape)} page ids for a bucket "
+                                 f"of {n_bucket} pages")
         padded = torch.zeros(1, bucket, dtype=torch.int32)
         padded[0, :t] = prompt
         padded = padded.to(self.device)
@@ -177,7 +296,11 @@ class SlotEngine:
         lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
         logits, slot_cache = lm.forward_prefill(params, padded, cfg, policy,
                                                 slot_cache, lengths=lengths)
-        lm.fill_slot(cache, slot_cache, slot, t)
+        if self.paged:
+            lm.fill_slot_paged(cache, slot_cache, slot, t,
+                               ids.to(self.device))
+        else:
+            lm.fill_slot(cache, slot_cache, slot, t)
         tok0 = logits[0].argmax(-1).to(torch.int32)
         st.tokens[slot] = tok0
         st.done[slot] = max_new <= 1
@@ -186,18 +309,74 @@ class SlotEngine:
         st.quarantined[slot] = False
         self.prefill_calls += 1
         self.prefill_tokens += bucket
+        if self.spec is not None:
+            self._admit_draft(params, padded, t, slot)
         return cache, st, tok0
 
+    def _admit_draft(self, params, padded: torch.Tensor, t: int,
+                     slot: int) -> None:
+        """Prefill the full prompt into the draft's contiguous slot cache.
+        Only its KV and the slot position matter: a round's first draft
+        step starts from the target's last emitted token."""
+        dcfg, policy = self.draft_cfg, self.run.policy
+        dparams = params if self.spec.share_params else self.draft_params
+        slot_cache = lm.init_cache(dcfg, 1, padded.shape[1],
+                                   device=self.device)
+        lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
+        _, slot_cache = lm.forward_prefill(dparams, padded, dcfg, policy,
+                                           slot_cache, lengths=lengths)
+        lm.fill_slot(self._draft_cache, slot_cache, slot, t)
+
+    def set_draft_params(self, dparams) -> None:
+        """Install other draft weights (e.g. a trained draft) of the
+        configured draft arch's tree, shapes and dtypes."""
+        if self.spec is None or self.spec.share_params:
+            raise ValueError("the engine has no independent draft model")
+
+        def same(a, b):
+            if isinstance(a, dict):
+                return (isinstance(b, dict) and a.keys() == b.keys()
+                        and all(same(a[k], b[k]) for k in a))
+            if isinstance(a, (tuple, list)):
+                return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                        and all(same(x, y) for x, y in zip(a, b)))
+            return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                    and a.dtype == b.dtype)
+
+        if not same(self.draft_params, dparams):
+            raise ValueError("draft parameters do not match the configured "
+                             "draft arch")
+        self.draft_params = dparams
+
+    # -- paged page table --------------------------------------------------
+
     @torch.inference_mode()
-    def scrub_slot_kv(self, cache: lm.LMCache, slot: int) -> lm.LMCache:
-        """Zero a quarantined slot's KV row before the slot is reused:
-        masked softmax weights are exactly 0 and 0 * NaN = NaN, so a
-        poisoned row would leak into its next occupant."""
-        return lm.reset_slot(cache, slot)
+    def set_page_table(self, cache: lm.PagedLMCache,
+                       table: np.ndarray) -> lm.PagedLMCache:
+        """Copy the host mirror of the page table into the device cache (in
+        place, between chunks: the table is data, never shape)."""
+        if not self.paged:
+            raise ValueError("set_page_table on a contiguous engine")
+        cache.page_table.copy_(torch.from_numpy(np.asarray(table, np.int32)))
+        return cache
+
+    @torch.inference_mode()
+    def scrub_slot_kv(self, cache, slot: int, page_ids=None):
+        """Zero a quarantined slot's KV (its row, or on a paged engine its
+        ``page_ids``) before it is reused: masked softmax weights are
+        exactly 0 and 0 * NaN = NaN, so poisoned KV would leak into its
+        next occupant."""
+        if not self.paged:
+            return lm.reset_slot(cache, slot)
+        ids = torch.as_tensor(list(page_ids or ()), dtype=torch.long,
+                              device=self.device)
+        cache.k_pages[:, ids] = 0
+        cache.v_pages[:, ids] = 0
+        return cache
 
     # -- decode ------------------------------------------------------------
 
-    def _step(self, params, cache: lm.LMCache, st: DecodeState):
+    def _step(self, params, cache, st: DecodeState):
         cfg, policy = self.run.arch, self.run.policy
         live = ~st.done
         logits, exit_lgs, new_cache = lm.forward_decode(
@@ -233,24 +412,103 @@ class SlotEngine:
             realized=st.realized + ok.float().sum())
         return new_cache, st
 
+    def _spec_round(self, params, dparams, cache, dcache: lm.LMCache,
+                    st: DecodeState):
+        """One greedy speculative round over all slots. Returns (cache,
+        dcache, st, emit [S, k + 1], n_real [S]): slot s emitted the first
+        n_real[s] entries of its emit row."""
+        cfg, dcfg, policy, k = (self.run.arch, self.draft_cfg,
+                                self.run.policy, self.spec_k)
+        live = ~st.done
+        # the draft's positions are re-synced to the target's every round,
+        # so a stale draft row can only lower acceptance, never the output.
+        # k proposals from the last emitted token, then ONE more step that
+        # only ingests d_k's KV: a fully accepted round moves the target
+        # past d_k, and the next round's proposals must see its row
+        dc = dcache._replace(pos=cache.pos)
+        cur, props = st.tokens, []
+        for j in range(k + 1):
+            dlg, _, dc = lm.forward_decode(dparams, cur[:, None], dcfg,
+                                           policy, dc, with_exits=False)
+            if j == k:
+                break
+            dlg = dlg.float()
+            dlg = torch.where(torch.isfinite(dlg), dlg, -1e30)
+            cur = dlg.argmax(-1).to(torch.int32)
+            props.append(cur)
+        dmat = torch.stack(props, dim=1)                     # [S, k]
+        vtok = torch.cat([st.tokens[:, None], dmat], dim=1)  # [S, k + 1]
+        vlg, cache = lm.forward_verify(params, vtok, cfg, policy, cache)
+        vlg = vlg.float()
+        finite = torch.isfinite(vlg).all(dim=-1)             # [S, k + 1]
+        emit = vlg.argmax(-1).to(torch.int32)
+        acc = finite[:, :k] & (dmat == emit[:, :k])
+        # a consecutive accepts, then one correction / bonus row (emitted
+        # only if its logits are finite), clipped to the budget
+        a = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1,
+                                                        dtype=torch.int32)
+        n_acc = a + finite.gather(1, a[:, None].long())[:, 0].to(torch.int32)
+        n_real = torch.where(live, torch.minimum(n_acc, st.budget
+                                                 - st.generated), 0)
+        bad = live & (n_acc == 0)          # row 0 non-finite: quarantine
+        ok = live & ~bad
+        last = emit.gather(1, (n_real - 1).clamp(min=0)[:, None].long())[:, 0]
+        # forward_verify leaves pos unchanged: advance accepted slots by
+        # their realized count and pin everyone else
+        pos = torch.where(ok, cache.pos + n_real, cache.pos)
+        generated = st.generated + n_real
+        okf = ok.float()
+        st = st._replace(
+            tokens=torch.where(ok, last, st.tokens),
+            done=st.done | (generated >= st.budget) | bad,
+            generated=generated,
+            live_cnt=st.live_cnt + live.float().sum(),
+            quarantined=st.quarantined | bad,
+            realized=st.realized + n_real.float().sum(),
+            spec_prop=st.spec_prop + k * okf.sum(),
+            spec_acc=st.spec_acc + (a.float() * okf).sum())
+        return (cache._replace(pos=pos), dc._replace(pos=pos), st, emit,
+                n_real)
+
     @torch.inference_mode()
-    def decode(self, params, cache: lm.LMCache, st: DecodeState):
-        """Run one chunk of ``chunk`` decode steps over all slots.
-        Returns (cache, st, tokens [S, chunk]) with everything on the
-        device; slot s's valid tokens are the first (generated delta)."""
-        toks = torch.empty(self.capacity, self.chunk, dtype=torch.int32,
-                           device=self.device)
-        for i in range(self.chunk):
-            cache, st = self._step(params, cache, st)
-            toks[:, i] = st.tokens
+    def decode(self, params, cache, st: DecodeState):
+        """Run one chunk of ``chunk`` decode steps (speculative rounds) over
+        all slots. Returns (cache, st, tokens [S, tokens_per_chunk]) with
+        everything on the device; slot s's valid tokens are the first
+        (generated delta), left-packed in emission order."""
         self.decode_calls += 1
-        return cache, st, toks
+        if self.spec is None:
+            toks = torch.empty(self.capacity, self.chunk, dtype=torch.int32,
+                               device=self.device)
+            for i in range(self.chunk):
+                cache, st = self._step(params, cache, st)
+                toks[:, i] = st.tokens
+            return cache, st, toks
+        dparams = params if self.spec.share_params else self.draft_params
+        emits, nreal = [], []
+        for _ in range(self.chunk):
+            cache, self._draft_cache, st, emit, n_real = self._spec_round(
+                params, dparams, cache, self._draft_cache, st)
+            emits.append(emit)
+            nreal.append(n_real)
+        emits = torch.stack(emits, dim=1)                # [S, chunk, k + 1]
+        k1 = emits.shape[2]
+        valid = (torch.arange(k1, device=self.device)[None, None, :]
+                 < torch.stack(nreal, dim=1)[:, :, None]).flatten(1)
+        # left-pack the valid tokens in emission order (stable sort on the
+        # invalid flag), so the scheduler reads toks[slot, :generated delta]
+        order = torch.sort((~valid).to(torch.int8), dim=1, stable=True)[1]
+        return cache, st, emits.flatten(1).gather(1, order)
 
     @staticmethod
     def stats(st: DecodeState) -> Dict[str, float]:
         """One host fetch of the on-device accumulators."""
         n = max(float(st.live_cnt), 1.0)
+        prop = float(st.spec_prop)
         return {"exit_rate": float(st.exit_cnt) / n,
                 "gated_fraction": float(st.gated_layers) / n,
                 "decode_slot_steps": float(st.live_cnt),
-                "realized_tokens": float(st.realized)}
+                "realized_tokens": float(st.realized),
+                "spec_proposed": prop,
+                "spec_accepted": float(st.spec_acc),
+                "spec_acceptance": float(st.spec_acc) / max(prop, 1.0)}

@@ -5,7 +5,10 @@ Requests queue, get admitted into free slots (one bucketed prefill each),
 decode advances ALL occupied slots in chunks, and finished slots are
 retired and backfilled. The host's per-chunk work is ONE fetch of (tokens,
 slot state) and the bookkeeping; token validity is reconstructed from the
-per-slot generated counts.
+per-slot generated counts. On a paged engine admission is bounded by free
+pages as well as free slots, pages grow on demand before each chunk (the
+page table goes to the device only when it changed) and return to the pool
+at retire.
 
 Prompts that cannot fit (``len(prompt) + max_new_tokens > max_len``) are
 REJECTED — ``Request.reject_reason`` is set and the request comes back
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.engine import SlotEngine
+from repro_torch.serve.paging import PageAllocator
 
 
 @dataclass
@@ -97,7 +101,7 @@ class ServeReport:
 
 # admit() outcomes
 ADMITTED = "admitted"
-FULL = "full"          # retry when a slot frees up
+FULL = "full"          # retry when a slot / pages free up
 REJECTED = "rejected"  # can never be served by this engine
 
 # every reject_reason is "<code>: <detail>" with <code> one of these
@@ -120,9 +124,14 @@ class SlotScheduler:
         self.engine = engine
         self.params = params
         self.cache, self.state = engine.init_state()
+        self.alloc: Optional[PageAllocator] = None
+        if engine.paged:
+            self.alloc = PageAllocator(engine.num_pages, engine.capacity,
+                                       engine.max_pages, engine.page_size)
         self.free: deque = deque(range(engine.capacity))
         self.occupant: Dict[int, Request] = {}       # slot -> request
         self._gen_seen: Dict[int, int] = {}          # slot -> tokens recorded
+        self._true_len: Dict[int, int] = {}          # slot -> prompt length
         self._t_last: Dict[int, float] = {}          # slot -> last token time
         self.clock: Optional[Callable[[], float]] = None   # set by serve()
         self.max_concurrency = 0
@@ -144,10 +153,21 @@ class SlotScheduler:
             return REJECTED
         if not self.free:
             return FULL
-        slot = self.free.popleft()
+        page_ids = None
+        if self.alloc is not None:
+            bucket = self.engine._bucket(t)
+            if not self.alloc.can_admit(bucket, t, req.max_new_tokens):
+                return FULL                          # admission by free pages
+            slot = self.free.popleft()
+            page_ids = self.alloc.admit(slot, bucket, t, req.max_new_tokens)
+        else:
+            slot = self.free.popleft()
+        # (the prefill writes this slot's device table row; other pending
+        # mirror changes, e.g. rows cleared by release(), keep alloc.dirty
+        # set and reach the device before the next chunk)
         self.cache, self.state, tok0 = self.engine.prefill_into(
             self.params, self.cache, self.state, req.prompt, slot,
-            req.max_new_tokens)
+            req.max_new_tokens, page_ids=page_ids)
         tok_i = int(tok0)                            # host sync: prefill done
         t_tok = max(self._now(now), req.arrival)
         req.t_admitted = now
@@ -155,6 +175,7 @@ class SlotScheduler:
         req.tokens.append(tok_i)
         self.occupant[slot] = req
         self._gen_seen[slot] = 1
+        self._true_len[slot] = t
         self._t_last[slot] = t_tok
         self.max_concurrency = max(self.max_concurrency, len(self.occupant))
         return ADMITTED
@@ -176,15 +197,41 @@ class SlotScheduler:
 
     # -- decode + retire ---------------------------------------------------
 
+    def _grow_pages(self) -> None:
+        """On-demand page allocation before a chunk: every live slot gets
+        pages for the positions this chunk can accept (``tokens_per_chunk``
+        per slot; reservation-backed, so the pops cannot fail). Verify rows
+        past the covered positions go to the scratch page and are never
+        part of an accepted prefix this chunk."""
+        chunk = self.engine.tokens_per_chunk
+        for slot, req in self.occupant.items():
+            gen = self._gen_seen[slot]
+            steps = min(chunk, req.max_new_tokens - gen)
+            if steps > 0:
+                self.alloc.ensure(slot, self._true_len[slot] + gen - 1
+                                  + steps - 1)
+        self._push_table()
+
+    def _push_table(self) -> None:
+        if self.alloc.dirty:
+            self.cache = self.engine.set_page_table(self.cache,
+                                                    self.alloc.table)
+            self.alloc.dirty = False
+
     def _retire(self, slot: int) -> None:
         del self.occupant[slot]
         del self._gen_seen[slot]
+        del self._true_len[slot]
         self._t_last.pop(slot, None)
+        if self.alloc is not None:
+            self.alloc.release(slot)                 # pages -> free list
         self.free.append(slot)                       # backfill: host-only
 
     def step_chunk(self, now: float) -> int:
         """One decode chunk + ONE host fetch; retire finished slots.
         Returns the number of valid tokens produced this chunk."""
+        if self.alloc is not None:
+            self._grow_pages()
         self.cache, self.state, toks = self.engine.decode(
             self.params, self.cache, self.state)
         st = self.state
@@ -208,8 +255,11 @@ class SlotScheduler:
                 self._t_last[slot] = t_tok
             if quar_np[slot]:
                 # non-finite logits: shed ONLY this request and zero its
-                # KV row before the slot is reused
-                self.cache = self.engine.scrub_slot_kv(self.cache, slot)
+                # KV (row or pages) before the slot or pages are reused
+                pages = (self.alloc.owned[slot] if self.alloc is not None
+                         else None)
+                self.cache = self.engine.scrub_slot_kv(self.cache, slot,
+                                                       pages)
                 req.reject_reason = reject_reason(
                     REASON_NAN, "non-finite logits: slot quarantined, "
                     f"{len(req.tokens)} tokens salvaged")
@@ -253,14 +303,19 @@ def serve(engine: SlotEngine, params, requests: List[Request],
             continue
         decode_tokens += sched.step_chunk(now())
     for req in waiting:
+        # admission stalled with an idle batch: these can never be served
         if req.reject_reason is None:
-            req.reject_reason = reject_reason(REASON_SHED, "unservable")
+            req.reject_reason = reject_reason(
+                REASON_SHED, "unservable: needs more pages than an idle "
+                "pool can provide")
     wall = now()
     # prefill-produced first tokens count toward throughput too
     total = decode_tokens + sum(1 for r in requests if r.tokens)
     stats = SlotEngine.stats(sched.state)
     stats["max_concurrency"] = float(sched.max_concurrency)
     stats["prefill_tokens"] = float(engine.prefill_tokens)   # cumulative
+    if sched.alloc is not None:
+        stats["peak_pages"] = float(sched.alloc.peak_pages)
     return ServeReport(requests=requests, wall_s=wall, decode_tokens=total,
                        stats=stats)
 

@@ -172,7 +172,8 @@ def test_bf16_greedy_agreement_rate():
 def test_ops_get_contiguous_inputs(monkeypatch):
     """The CUDA kernels take contiguous tensors only (their wrappers
     raise otherwise). Check on the CPU that the model hands every op
-    contiguous inputs, at batch > 1, ragged lengths and decode."""
+    contiguous inputs, at batch > 1, ragged lengths, decode and verify,
+    on a contiguous and on a paged cache."""
     seen = []
     for name in xaif.ops():
         e = xaif.entry(name)
@@ -195,4 +196,10 @@ def test_ops_get_contiguous_inputs(monkeypatch):
         logits, exits, _ = lm.forward_decode(pp, tokens[:, :1], pcfg, "auto",
                                              cache)
         merge_exit_logits(logits, exits, pcfg.early_exit, "auto")
+        lm.forward_verify(pp, tokens[:, :3], pcfg, "auto", cache)
+    paged = lm.init_paged_cache(pcfg, 3, 12, 4, 10, device="cpu")
+    paged.page_table[:] = torch.arange(1, 10, dtype=torch.int32).view(3, 3)
+    paged = paged._replace(pos=torch.tensor([7, 2, 5], dtype=torch.int32))
+    lm.forward_decode(pp, tokens[:, :1], pcfg, "auto", paged)
+    lm.forward_verify(pp, tokens[:, :3], pcfg, "auto", paged)
     assert set(seen) == set(xaif.ops())

@@ -150,7 +150,8 @@ def test_entropy_matches_jax(m, v, dtype):
 
 
 def test_plain_ops_keep_jax_names():
-    assert xaif.ops() == ("attention", "attn_decode", "entropy_exit",
-                          "gemm", "rmsnorm")
+    assert xaif.ops() == ("attention", "attn_decode", "attn_decode_paged",
+                          "entropy_exit", "gemm", "rmsnorm", "verify_decode",
+                          "verify_decode_paged")
     with pytest.raises(ValueError):
         xaif.call("gemm", "pallas", torch.zeros(2, 2), torch.zeros(2, 2))
