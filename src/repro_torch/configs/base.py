@@ -1,7 +1,9 @@
 """Declarative architecture / run configuration (PyTorch port).
 
 A copy of the JAX package's ``repro.configs.base`` dataclasses, cut to what
-the port serves today: dense decoder-only LMs with entropy early exits.
+the port serves today: decoder-only LMs with entropy early exits, dense
+(GQA + SwiGLU) or DeepSeek-style (MLA + top-k MoE after dense prefix
+layers).
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
@@ -28,14 +30,46 @@ class EarlyExitConfig:
     share_unembed: bool = True         # CALM-style shared unembedding
 
 
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k mixture of experts (capacity-based dispatch)."""
+
+    num_experts: int
+    top_k: int
+    d_expert: int                      # hidden size of each routed expert
+    num_shared_experts: int = 0        # DeepSeek-style always-on experts
+    d_shared_expert: int = 0           # hidden size of the shared expert(s)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01    # load-balance auxiliary loss weight
+    router_dtype: str = "float32"
+    # renormalize gates over the KEPT experts after capacity dropping
+    # (prefill only — the dropless decode path never drops)
+    renorm_kept: bool = False
+    # serve decode (T == 1) dispatches each token's top-k expert GEMMs
+    # through the per-token ``moe_decode`` op: no capacity, no drops
+    dropless_decode: bool = True
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0               # 0 => full-rank query projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
 MIXERS = ("attn",)
-FFNS = ("mlp",)
+FFNS = ("mlp", "moe")
+FAMILIES = ("dense", "moe")
 
 
 @dataclass(frozen=True)
 class BlockSpec:
-    """One layer = (sequence mixer, channel mixer). The port runs only the
-    dense pattern (attention + SwiGLU MLP) so far."""
+    """One layer = (sequence mixer, channel mixer). The port runs attention
+    (GQA, or MLA when the arch has ``mla``) with a SwiGLU MLP or an MoE."""
 
     mixer: str
     ffn: str
@@ -49,7 +83,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # only "dense" is served by the port
+    family: str                        # "dense" or "moe"
     num_layers: int
     d_model: int
     num_heads: int
@@ -64,6 +98,8 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     rope_partial_pct: float = 0.5      # used when rope == "partial"
     qkv_bias: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     early_exit: Optional[EarlyExitConfig] = None
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -71,8 +107,13 @@ class ArchConfig:
     def __post_init__(self):
         hd = self.head_dim or self.d_model // self.num_heads
         object.__setattr__(self, "head_dim", hd)
-        if self.family != "dense":
-            raise ValueError(f"{self.name}: the port serves dense archs only")
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: the port serves the families "
+                             f"{FAMILIES}, got {self.family!r}")
+        if any(b.ffn == "moe" for b in self.block_pattern) != (
+                self.moe is not None):
+            raise ValueError(f"{self.name}: MoE blocks need a MoEConfig "
+                             f"and a MoEConfig needs MoE blocks")
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: num_heads % num_kv_heads != 0")
         if (self.num_layers - self.first_k_dense) % len(self.block_pattern):
@@ -87,6 +128,13 @@ class ArchConfig:
     def num_superblocks(self) -> int:
         return (self.num_layers - self.first_k_dense) // self.period
 
+    def layer_spec(self, i: int) -> BlockSpec:
+        """BlockSpec of absolute layer index i (prefix layers take the
+        pattern's mixer with a dense MLP)."""
+        if i < self.first_k_dense:
+            return BlockSpec(self.block_pattern[i % self.period].mixer, "mlp")
+        return self.block_pattern[(i - self.first_k_dense) % self.period]
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family config for CPU tests (same as the JAX one)."""
         changes: dict = dict(
@@ -99,6 +147,14 @@ class ArchConfig:
             vocab_size=256,
             head_dim=16,
         )
+        if self.moe is not None:
+            changes["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, d_expert=32,
+                d_shared_expert=32 if self.moe.num_shared_experts else 0)
+        if self.mla is not None:
+            changes["mla"] = MLAConfig(
+                kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
+                qk_rope_head_dim=8, v_head_dim=16)
         if self.early_exit is not None:
             # keep a single exit aligned to the reduced depth
             nl = changes["num_layers"]
@@ -136,8 +192,14 @@ def register_arch(fn):
     return fn
 
 
+def _register_builtin() -> None:
+    # each config module registers itself when imported
+    from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401
+    from repro_torch.configs import yi_9b  # noqa: F401
+
+
 def get_arch(name: str) -> ArchConfig:
-    from repro_torch.configs import yi_9b  # noqa: F401  (registers itself)
+    _register_builtin()
     try:
         return _ARCH_REGISTRY[name]
     except KeyError:
@@ -146,5 +208,5 @@ def get_arch(name: str) -> ArchConfig:
 
 
 def list_archs() -> Tuple[str, ...]:
-    from repro_torch.configs import yi_9b  # noqa: F401
+    _register_builtin()
     return tuple(sorted(_ARCH_REGISTRY))

@@ -1,10 +1,12 @@
 """Load the JAX package's parameters into the port.
 
 ``params_from_jax`` takes the JAX ``init_lm`` pytree after
-``jax.device_get``: nested dicts and tuples of numpy arrays, with the
-per-layer weights stacked ``[n_superblocks, ...]`` and every matrix in the
-``[K, N]`` layout. The port keeps the same tree and layout, so loading is a
-copy of each array. This module takes numpy only and imports no JAX.
+``jax.device_get``: nested dicts, tuples and lists of numpy arrays, with
+the per-layer weights stacked ``[n_superblocks, ...]``, DeepSeek's dense
+prefix layers as a list (``params["prefix"]``), MoE experts as ``[E, ...]``
+stacks with an fp32 router, and every matrix in the ``[K, N]`` layout. The
+port keeps the same tree, containers and layout, so loading is a copy of
+each array. This module takes numpy only and imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ def params_from_jax(tree, device="cuda"):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, tuple):
             return tuple(walk(v) for v in node)
         return _tensor(node, device)
 

@@ -2,14 +2,21 @@
 
 The JAX package dispatches each op (``gemm``, ``rmsnorm``, ``attention``,
 ``attn_decode``, ``attn_decode_paged``, ``verify_decode``,
-``verify_decode_paged``, ``entropy_exit``) through ``repro.core.xaif`` to a pure-jnp
-``ref`` backend or a Pallas TPU kernel. Here every op has
+``verify_decode_paged``, ``entropy_exit``, ``moe_decode``) through
+``repro.core.xaif`` to a pure-jnp ``ref`` backend or a Pallas TPU kernel.
+Here every op has
 
   * a PLAIN backend — straightforward PyTorch with the JAX ref's numerics,
     used for CPU tensors and as the oracle the kernels are held against;
   * a KERNEL backend — the wrapper of a hand-written CUDA kernel
     (``repro_torch/csrc/``). It raises on a CPU tensor and counts its own
     launches in ``wrapper.launches`` (a plain int).
+
+An op's kernel wrapper may launch one of several kernels (``attn_decode``
+launches the GQA kernel or, in precise mode, the MLA kernel); its counter
+counts them all. The port adds one op the JAX package has not:
+``gemm_heads``, the per-head fp32 products of MLA's absorbed decode (plain
+einsums in JAX).
 
 ``call(op, policy, *args)`` picks the backend from the device of the first
 tensor argument: CUDA tensors launch the kernel, CPU tensors run the plain
@@ -51,6 +58,7 @@ def _ensure_builtin_ops() -> None:
     from repro_torch.kernels.entropy_exit import ops as _ee    # noqa: F401
     from repro_torch.kernels.flash_attention import ops as _fa  # noqa: F401
     from repro_torch.kernels.gemm import ops as _gemm          # noqa: F401
+    from repro_torch.kernels.moe_decode import ops as _moe     # noqa: F401
     from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _rn         # noqa: F401
     from repro_torch.kernels.verify_decode import ops as _vd   # noqa: F401

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py
 // (flash_attention_pallas -> _fa_kernel): the prefill attention.
-// q [B, Hq, T, 128], k/v [B, Hkv, S, 128] in the model dtype; query head h
-// reads KV head h / (Hq / Hkv). Causal mode masks bottom-right:
+// q/k [B, H, T|S, Dqk], v [B, Hkv, S, Dv] in the model dtype, with (Dqk,
+// Dv) = (128, 128) (GQA) or (192, 128) (MLA prefill: 128 latent-decompressed
+// dims + 64 rotary dims per head, values of 128); query head h reads KV
+// head h / (Hq / Hkv). Causal mode masks bottom-right:
 // key j is visible to query i iff j <= i + (S - T). Output in q's dtype.
 //
 // Bound on the H100: at prefill lengths up to a few hundred tokens the
@@ -22,20 +24,29 @@
 //
 // Threads: 256; thread t owns query row t / 4 of the tile and, within it,
 // score columns c = t % 4 + 4 j and output dims d = t % 4 + 4 i, so shared
-// memory reads of neighbouring threads fall in distinct banks.
+// memory reads of neighbouring threads fall in distinct banks. The kernel
+// is a template over (Dqk, Dv); the (128, 128) instance does the same
+// arithmetic as the kernel fixed at D = 128 did, so yi-9b's tokens keep
+// their bits. Shared memory: ~115 KB at (128, 128), ~148 KB at (192, 128).
 #include "common.cuh"
 
-constexpr int D = 128, BQ = 64, BKV = 64, kThreads = 256;
-constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, LDP = BKV + 1;
-constexpr size_t kSmemBytes =
-    sizeof(float) * (BQ * LDQ + BKV * LDK + BKV * LDV + BQ * LDP);
+constexpr int BQ = 64, BKV = 64, kThreads = 256;
 constexpr float kNeg = -1e30f;
 
-template <typename T>
+template <int DQK, int DV>
+struct Smem {
+  static constexpr int LDQ = DQK + 1, LDK = DQK + 1, LDV = DV, LDP = BKV + 1;
+  static constexpr size_t bytes =
+      sizeof(float) * (BQ * LDQ + BKV * LDK + BKV * LDV + BQ * LDP);
+};
+
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int Hq,
                  int Hkv, int T_, int S, int causal, float scale) {
+  using L = Smem<DQK, DV>;
+  constexpr int LDQ = L::LDQ, LDK = L::LDK, LDV = L::LDV, LDP = L::LDP;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * LDQ;
@@ -45,31 +56,35 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qb = q + (((size_t)b * Hq + h) * T_) * D;
-  const T* kb = k + (((size_t)b * Hkv + hk) * S) * D;
-  const T* vb = v + (((size_t)b * Hkv + hk) * S) * D;
+  const T* qb = q + (((size_t)b * Hq + h) * T_) * DQK;
+  const T* kb = k + (((size_t)b * Hkv + hk) * S) * DQK;
+  const T* vb = v + (((size_t)b * Hkv + hk) * S) * DV;
   const int off = S - T_;  // causal offset: query i sees keys j <= i + off
 
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int rr = e / D, dd = e % D;
+  for (int e = tid; e < BQ * DQK; e += kThreads) {
+    const int rr = e / DQK, dd = e % DQK;
     Qs[rr * LDQ + dd] =
-        q0 + rr < T_ ? to_f32(qb[(size_t)(q0 + rr) * D + dd]) * scale : 0.f;
+        q0 + rr < T_ ? to_f32(qb[(size_t)(q0 + rr) * DQK + dd]) * scale : 0.f;
   }
   const int q_last = min(T_ - 1, q0 + BQ - 1);
   const int kv_end = causal ? min(S, q_last + off + 1) : S;
   const int qi = q0 + r;
 
-  float m_i = kNeg, l_i = 0.f, acc[D / 4];
+  float m_i = kNeg, l_i = 0.f, acc[DV / 4];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 4; ++i) acc[i] = 0.f;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
     __syncthreads();  // previous tile fully consumed (and Q staged)
-    for (int e = tid; e < BKV * D; e += kThreads) {
-      const int rr = e / D, dd = e % D;
-      const bool in = kv0 + rr < S;
-      Ks[rr * LDK + dd] = in ? to_f32(kb[(size_t)(kv0 + rr) * D + dd]) : 0.f;
-      Vs[rr * LDV + dd] = in ? to_f32(vb[(size_t)(kv0 + rr) * D + dd]) : 0.f;
+    for (int e = tid; e < BKV * DQK; e += kThreads) {
+      const int rr = e / DQK, dd = e % DQK;
+      Ks[rr * LDK + dd] =
+          kv0 + rr < S ? to_f32(kb[(size_t)(kv0 + rr) * DQK + dd]) : 0.f;
+    }
+    for (int e = tid; e < BKV * DV; e += kThreads) {
+      const int rr = e / DV, dd = e % DV;
+      Vs[rr * LDV + dd] =
+          kv0 + rr < S ? to_f32(vb[(size_t)(kv0 + rr) * DV + dd]) : 0.f;
     }
     __syncthreads();
 
@@ -80,7 +95,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = sub + 4 * j, kj = kv0 + c;
       float dot = 0.f;
 #pragma unroll 8
-      for (int dd = 0; dd < D; ++dd) dot = fmaf(Qs[r * LDQ + dd], Ks[c * LDK + dd], dot);
+      for (int dd = 0; dd < DQK; ++dd) dot = fmaf(Qs[r * LDQ + dd], Ks[c * LDK + dd], dot);
       const bool ok = kj < S && (!causal || kj <= qi + off);
       s[j] = ok ? dot : kNeg;
       mt = fmaxf(mt, s[j]);
@@ -105,45 +120,61 @@ __global__ void __launch_bounds__(kThreads)
     m_i = m_new;
     __syncwarp();  // the row's P is written by its own 4 lanes
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV / 4; ++i) acc[i] *= alpha;
     for (int j = 0; j < BKV; ++j) {
       const float p = Ps[r * LDP + j];
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i)
+      for (int i = 0; i < DV / 4; ++i)
         acc[i] = fmaf(p, Vs[j * LDV + sub + 4 * i], acc[i]);
     }
   }
   if (qi < T_) {
     const float inv_l = 1.f / fmaxf(l_i, 1e-30f);
-    T* ob = out + (((size_t)b * Hq + h) * T_ + qi) * D;
+    T* ob = out + (((size_t)b * Hq + h) * T_ + qi) * DV;
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) ob[sub + 4 * i] = from_f32<T>(acc[i] * inv_l);
+    for (int i = 0; i < DV / 4; ++i) ob[sub + 4 * i] = from_f32<T>(acc[i] * inv_l);
   }
 }
 
-template <typename T>
+template <typename T, int DQK, int DV>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int Hq, int Hkv, int T_, int S, int causal,
                   float scale, cudaStream_t s) {
+  constexpr size_t smem = Smem<DQK, DV>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      flash_kernel<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T_ + BQ - 1) / BQ, Hq, B);
-  flash_kernel<T><<<grid, kThreads, kSmemBytes, s>>>(
+  flash_kernel<T, DQK, DV><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, T_, S, causal,
       scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_dims(const void* q, const void* k, const void* v, void* out,
+                       int B, int Hq, int Hkv, int T_, int S, int dqk, int dv,
+                       int causal, float scale, cudaStream_t s) {
+  if (dqk == 128 && dv == 128)
+    return launch<T, 128, 128>(q, k, v, out, B, Hq, Hkv, T_, S, causal, scale,
+                               s);
+  if (dqk == 192 && dv == 128)
+    return launch<T, 192, 128>(q, k, v, out, B, Hq, Hkv, T_, S, causal, scale,
+                               s);
+  return (int)cudaErrorInvalidValue;
+}
+
 KERNEL_API int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
-                                      int Hkv, int T_, int S, int causal,
-                                      float scale, int dtype, void* stream) {
+                                      int Hkv, int T_, int S, int dqk, int dv,
+                                      int causal, float scale, int dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, T_, S, causal,
-                                 scale, s);
-  return launch<float>(q, k, v, out, B, Hq, Hkv, T_, S, causal, scale, s);
+    return launch_dims<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, T_, S, dqk,
+                                      dv, causal, scale, s);
+  return launch_dims<float>(q, k, v, out, B, Hq, Hkv, T_, S, dqk, dv, causal,
+                            scale, s);
 }

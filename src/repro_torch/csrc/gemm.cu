@@ -149,28 +149,55 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: FMA on the CUDA cores, 256 threads, each a 4 x 4 block of outputs
+// fp32: FMA on the CUDA cores, 256 threads, each a 4 x 4 block of outputs.
+// One kernel serves the fused GEMM (H = 1, row-major) and the per-head
+// products of MLA's absorbed decode: for each head h (grid.z),
+// out_h [M, N] = act(x_h [M, K] @ W_h [K, N] + bias), x fp32, W fp32 or
+// bf16 read in place through strides (no transposed copy). The heads
+// replace the JAX package's two fp32 einsums of the absorbed decode
+// (models/attention.py apply_mla_decode: "bhd,lhd->bhl" and
+// "bhl,lhd->bhd"), plain XLA ops there; cuBLAS picks its algorithm by M
+// and could give a B = 4 row other bits than the B = 1 row, while here the
+// tile and the K order are the same for every M and every H.
 // ---------------------------------------------------------------------------
 
 constexpr int FBK = 16;
 
+// Where head h's operands lie (unit stride along k for x, along n for
+// out): x_h[m][k] = x[h * x_head + m * x_row + k]; W_h[k][n] =
+// w[h * w_head + k * w_step + n], or with KFAST (W_h read transposed)
+// w[h * w_head + n * w_step + k]; out_h[m][n] = out[h * out_head +
+// m * out_row + n].
+struct Layout {
+  long long x_head, w_head, out_head;
+  int x_row, w_step, out_row;
+};
+
+template <typename TW, bool KFAST>
 __global__ void __launch_bounds__(256)
-    gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+    gemm_f32_kernel(const float* __restrict__ x, const TW* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int M, int N, int K, int act) {
+                    int M, int N, int K, int act, Layout lay) {
   __shared__ float As[BM][FBK + 1];
   __shared__ float Bs[FBK][BN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, h = blockIdx.z;
+  const float* xh = x + h * lay.x_head;
+  const TW* wh = w + h * lay.w_head;
   float acc[4][4] = {};
   for (int k0 = 0; k0 < K; k0 += FBK) {
     for (int e = tid; e < BM * FBK; e += 256) {
       const int r = e / FBK, c = e % FBK;
-      As[r][c] = (m0 + r < M && k0 + c < K) ? x[(size_t)(m0 + r) * K + k0 + c] : 0.f;
+      As[r][c] = (m0 + r < M && k0 + c < K)
+                     ? xh[(size_t)(m0 + r) * lay.x_row + k0 + c] : 0.f;
     }
+    // neighbouring threads load neighbouring addresses of w
     for (int e = tid; e < FBK * BN; e += 256) {
-      const int r = e / BN, c = e % BN;
-      Bs[r][c] = (k0 + r < K && n0 + c < N) ? w[(size_t)(k0 + r) * N + n0 + c] : 0.f;
+      const int r = KFAST ? e % FBK : e / BN, c = KFAST ? e / FBK : e % BN;
+      Bs[r][c] = (k0 + r < K && n0 + c < N)
+                     ? to_f32(KFAST ? wh[(size_t)(n0 + c) * lay.w_step + k0 + r]
+                                    : wh[(size_t)(k0 + r) * lay.w_step + n0 + c])
+                     : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -187,6 +214,7 @@ __global__ void __launch_bounds__(256)
     }
     __syncthreads();
   }
+  float* oh = out + h * lay.out_head;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -195,9 +223,42 @@ __global__ void __launch_bounds__(256)
       if (gr < M && gc < N) {
         float v = acc[i][j];
         if (bias) v += bias[gc];
-        out[(size_t)gr * N + gc] = activate(v, act);
+        oh[(size_t)gr * lay.out_row + gc] = activate(v, act);
       }
     }
+}
+
+template <typename TW>
+static void gemm_f32_run(const float* x, const TW* w, const float* bias,
+                         float* out, int M, int N, int K, int H, int act,
+                         bool kfast, const Layout& lay, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, H);
+  if (kfast)
+    gemm_f32_kernel<TW, true><<<grid, 256, 0, s>>>(x, w, bias, out, M, N, K,
+                                                   act, lay);
+  else
+    gemm_f32_kernel<TW, false><<<grid, 256, 0, s>>>(x, w, bias, out, M, N, K,
+                                                    act, lay);
+}
+
+// x fp32 [M, H, K]; w [L, H, D] (dtype of w: 0 fp32, 1 bf16); out fp32.
+// transpose_w = 1: K = D, out [M, H, L], W_h[k][n] = w[n, h, k];
+// transpose_w = 0: K = L, out [M, H, D], W_h[k][n] = w[k, h, n].
+KERNEL_API int gemm_heads_launch(const void* x, const void* w, void* out,
+                                 int M, int H, int L, int D, int transpose_w,
+                                 int wdtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K = transpose_w ? D : L, N = transpose_w ? L : D;
+  const Layout lay{K, D, N, H * K, H * D, H * N};
+  auto xf = static_cast<const float*>(x);
+  auto o = static_cast<float*>(out);
+  if (wdtype == kBF16)
+    gemm_f32_run(xf, static_cast<const __nv_bfloat16*>(w), nullptr, o, M, N,
+                 K, H, kNone, transpose_w, lay, s);
+  else
+    gemm_f32_run(xf, static_cast<const float*>(w), nullptr, o, M, N, K, H,
+                 kNone, transpose_w, lay, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 KERNEL_API int gemm_launch(const void* x, const void* w, const void* bias,
@@ -218,9 +279,9 @@ KERNEL_API int gemm_launch(const void* x, const void* w, const void* bias,
     else
       gemm_bf16_kernel<false><<<grid, 128, 0, s>>>(xs, ws, b, o, M, N, K, act);
   } else {
-    gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                         static_cast<const float*>(w), b,
-                                         static_cast<float*>(out), M, N, K, act);
+    gemm_f32_run(static_cast<const float*>(x), static_cast<const float*>(w),
+                 b, static_cast<float*>(out), M, N, K, 1, act, false,
+                 Layout{0, 0, 0, K, N, N}, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,6 @@
-"""Wrapper of the decode attention kernel (``csrc/attn_decode.cu``)."""
+"""Wrappers of the decode attention kernels: GQA mode
+(``csrc/attn_decode.cu``) and precise (MLA) mode
+(``csrc/attn_decode_mla.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,6 +15,7 @@ from repro_torch.kernels.attn_decode.ref import attn_decode_ref
 
 HEAD_DIM = 128
 MAX_GROUP = 16      # query heads per KV head one block serves
+MLA_LATENT, MLA_ROPE, MLA_MAX_HEADS = 512, 64, 16   # csrc/attn_decode_mla.cu
 
 
 def _lib() -> ctypes.CDLL:
@@ -22,6 +25,16 @@ def _lib() -> ctypes.CDLL:
         lib.attn_decode_launch.argtypes = [
             p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.attn_decode_launch.restype = i
+    return lib
+
+
+def _lib_mla() -> ctypes.CDLL:
+    lib = library("attn_decode_mla")
+    if lib.attn_decode_mla_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.attn_decode_mla_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
+        lib.attn_decode_mla_launch.restype = i
     return lib
 
 
@@ -64,14 +77,64 @@ def check_contiguous(name: str, q: torch.Tensor, k: torch.Tensor,
     return code
 
 
+def _attn_decode_precise(q: torch.Tensor, c: torch.Tensor,
+                    cache_pos: torch.Tensor, scale: float, q2: torch.Tensor,
+                    k2: torch.Tensor) -> torch.Tensor:
+    """Precise (MLA absorbed) decode on the card: q fp32 [B, H, 512], q2
+    fp32 [B, H, 64], the latent c [B, 1, S, 512] (K and V at once) and the
+    rotary key k2 [B, 1, S, 64] in the model dtype, cache_pos [B] int32 ->
+    fp32 [B, H, 512]."""
+    name = "attn_decode(precise)"
+    require_cuda(name, q, c, cache_pos, q2, k2)
+    code = dtype_code(name, c)
+    if q.dtype != torch.float32 or q2.dtype != torch.float32:
+        raise TypeError(f"{name}: q and q2 must be float32")
+    if k2.dtype != c.dtype or cache_pos.dtype != torch.int32:
+        raise TypeError(f"{name}: k2 must share the latent's dtype and "
+                        f"cache_pos be int32")
+    b, h, _ = q.shape
+    s = c.shape[2]
+    if (q.shape != (b, h, MLA_LATENT) or q2.shape != (b, h, MLA_ROPE)
+            or c.shape != (b, 1, s, MLA_LATENT)
+            or k2.shape != (b, 1, s, MLA_ROPE) or cache_pos.shape != (b,)
+            or h > MLA_MAX_HEADS):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, q2 {tuple(q2.shape)}, "
+                         f"latent {tuple(c.shape)}, k2 {tuple(k2.shape)}, "
+                         f"cache_pos {tuple(cache_pos.shape)} (the kernel "
+                         f"takes a {MLA_LATENT}-d latent, a {MLA_ROPE}-d "
+                         f"rotary key and at most {MLA_MAX_HEADS} heads)")
+    out = torch.empty(b, h, MLA_LATENT, dtype=torch.float32, device=q.device)
+    if b == 0 or s == 0:
+        return out
+    lib = _lib_mla()
+    rc = lib.attn_decode_mla_launch(q.data_ptr(), q2.data_ptr(), c.data_ptr(),
+                                    k2.data_ptr(), cache_pos.data_ptr(),
+                                    out.data_ptr(), b, h, s, scale, code,
+                                    stream_ptr(q))
+    attn_decode.launches += 1
+    check(lib, rc, name)
+    return out
+
+
 def attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cache_pos: torch.Tensor, scale: Optional[float] = None,
+                q2: Optional[torch.Tensor] = None,
+                k2: Optional[torch.Tensor] = None,
                 precise: bool = False) -> torch.Tensor:
-    """q [B, Hq, 128]; k/v [B, Hkv, S, 128]; cache_pos [B] int32 ->
-    fp32 [B, Hq, 128], on the card. GQA mode only."""
+    """GQA mode: q [B, Hq, 128]; k/v [B, Hkv, S, 128]; cache_pos [B] int32
+    -> fp32 [B, Hq, 128], on the card. ``precise=True`` (MLA) launches
+    the MLA kernel (same counter): v must be k itself (the latent is both), and
+    q2 / k2 the rotary query and key."""
     if precise:
-        raise NotImplementedError("attn_decode: precise (MLA) mode is not "
-                                  "ported yet")
+        if v.data_ptr() != k.data_ptr() or v.shape != k.shape:
+            raise ValueError("attn_decode(precise): the kernel reads the "
+                             "latent once as K and V, so v must be k")
+        if q2 is None or k2 is None:
+            raise ValueError("attn_decode(precise): q2 and k2 are required")
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return _attn_decode_precise(q, k, cache_pos, scale, q2, k2)
+    if q2 is not None or k2 is not None:
+        raise ValueError("attn_decode: q2 / k2 belong to the precise mode")
     code = check_contiguous("attn_decode", q, k, v, cache_pos, MAX_GROUP)
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape

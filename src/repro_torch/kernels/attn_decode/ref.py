@@ -1,6 +1,13 @@
 """Plain PyTorch version of contiguous decode attention (the JAX
-``attn_decode_ref``, GQA mode: cache-dtype operands, pre-scaled query,
-fp32 accumulation, fp32 output)."""
+``attn_decode_ref``), in its two numeric modes:
+
+* GQA (default): cache-dtype operands, pre-scaled query, fp32
+  accumulation, fp32 output;
+* ``precise=True`` (MLA absorbed decode): everything fp32, the scale
+  applied AFTER the dot products, and an optional second score component
+  (``q2`` / ``k2``, the shared rotary key) added before scaling. One latent
+  "KV head" serves every query head.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,18 +17,28 @@ import torch
 
 def attn_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cache_pos: torch.Tensor, scale: Optional[float] = None,
+                    q2: Optional[torch.Tensor] = None,
+                    k2: Optional[torch.Tensor] = None,
                     precise: bool = False) -> torch.Tensor:
     """q [B, Hq, D]; k [B, Hkv, S, D]; v [B, Hkv, S, Dv]; cache_pos [B]
-    (positions <= cache_pos are valid). Returns fp32 [B, Hq, Dv]."""
-    if precise:
-        raise NotImplementedError("precise (MLA) decode attention is not "
-                                  "ported yet")
+    (positions <= cache_pos are valid); ``q2`` [B, Hq, rd] / ``k2``
+    [B, 1, S, rd] (precise mode). Returns fp32 [B, Hq, Dv]."""
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     g = hq // hkv
     scale = d ** -0.5 if scale is None else scale
     valid = (torch.arange(s, device=q.device)[None, :]
              <= cache_pos.long()[:, None])                      # [B, S]
+    if precise:
+        if hkv != 1:
+            raise ValueError("precise mode is the MLA path: one latent head")
+        logits = torch.einsum("bhd,bsd->bhs", q.float(), k[:, 0].float())
+        if q2 is not None:
+            logits = logits + torch.einsum("bhd,bsd->bhs", q2.float(),
+                                           k2[:, 0].float())
+        logits = (logits * scale).masked_fill(~valid[:, None, :], -1e30)
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhs,bsd->bhd", p, v[:, 0].float())
     qg = (q.reshape(b, hkv, g, d) * scale).to(k.dtype)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg.float(), k.float())
     logits = logits.masked_fill(~valid[:, None, None, :], -1e30)

@@ -11,7 +11,9 @@ from repro_torch.kernels._build import (check, dtype_code, library,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIM = 128      # the kernel's tiles are laid out for D = 128
+# (q/k head dim, v head dim) the kernel is instantiated for: GQA, and MLA
+# prefill (128 decompressed + 64 rotary dims per head, values of 128)
+HEAD_DIMS = ((128, 128), (192, 128))
 
 
 def _lib() -> ctypes.CDLL:
@@ -19,7 +21,7 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_launch.restype = i
     return lib
 
@@ -27,29 +29,32 @@ def _lib() -> ctypes.CDLL:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True,
               scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, T, 128], k/v [B, Hkv, S, 128] -> [B, Hq, T, 128] on the
-    card, causal mask bottom-right."""
+    """q [B, Hq, T, Dqk], k [B, Hkv, S, Dqk], v [B, Hkv, S, Dv] ->
+    [B, Hq, T, Dv] on the card, causal mask bottom-right; (Dqk, Dv) is one
+    of ``HEAD_DIMS``."""
     require_cuda("attention", q, k, v)
     code = dtype_code("attention", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("attention: q, k, v must share one dtype")
     b, hq, t, d = q.shape
-    if d != HEAD_DIM or k.shape[-1] != d or v.shape != k.shape:
-        raise ValueError(f"attention: the kernel takes head dim {HEAD_DIM} "
-                         f"for q, k and v; got q {tuple(q.shape)}, k "
+    dv = v.shape[-1]
+    if ((d, dv) not in HEAD_DIMS or k.shape[-1] != d
+            or v.shape[:-1] != k.shape[:-1]):
+        raise ValueError(f"attention: the kernel takes (q/k, v) head dims "
+                         f"{HEAD_DIMS}; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     hkv, s = k.shape[1], k.shape[2]
     if k.shape[0] != b or hq % hkv:
         raise ValueError(f"attention: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
+    out = torch.empty(b, hq, t, dv, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        t, s, int(causal), scale, code, stream_ptr(q))
+        t, s, d, dv, int(causal), scale, code, stream_ptr(q))
     attention.launches += 1
     check(lib, rc, "attention")
     return out

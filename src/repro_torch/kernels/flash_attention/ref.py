@@ -9,7 +9,8 @@ import torch
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, T, D], k/v [B, Hkv, S, D], Hq % Hkv == 0 -> [B, Hq, T, D].
+    """q [B, Hq, T, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv], Hq % Hkv == 0
+    -> [B, Hq, T, Dv].
     Causal masking is bottom-right: query t sees keys s <= t + (S - T)."""
     _, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]

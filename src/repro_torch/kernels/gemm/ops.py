@@ -1,4 +1,6 @@
-"""Wrapper of the fused GEMM kernel (``csrc/gemm.cu``) and its XAIF op."""
+"""Wrappers of the GEMM kernels (``csrc/gemm.cu``) and their XAIF ops: the
+fused GEMM, and ``gemm_heads``, the per-head fp32 products of MLA's
+absorbed decode."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +11,7 @@ import torch
 from repro_torch.core import xaif
 from repro_torch.kernels._build import (check, dtype_code, library,
                                         require_cuda, stream_ptr)
-from repro_torch.kernels.gemm.ref import gemm_ref
+from repro_torch.kernels.gemm.ref import gemm_heads_ref, gemm_ref
 
 ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}   # csrc/gemm.cu Act
 
@@ -20,6 +22,8 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.gemm_launch.restype = i
+        lib.gemm_heads_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.gemm_heads_launch.restype = i
     return lib
 
 
@@ -57,4 +61,36 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
 
 gemm.launches = 0
 
+
+def gemm_heads(x: torch.Tensor, w: torch.Tensor,
+               transpose_w: bool) -> torch.Tensor:
+    """Per-head fp32 products on the card, one launch for all heads.
+    x fp32 [M, H, K]; w [L, H, D] (fp32 or bf16, read in place).
+    ``transpose_w``: out[m, h, l] = sum_d x[m, h, d] w[l, h, d] (K = D);
+    else out[m, h, d] = sum_l x[m, h, l] w[l, h, d] (K = L). fp32 out."""
+    require_cuda("gemm_heads", x, w)
+    if x.dtype != torch.float32:
+        raise TypeError(f"gemm_heads: x must be float32, got {x.dtype}")
+    wcode = dtype_code("gemm_heads", w)
+    m, h, k = x.shape
+    l_, hw, d = w.shape
+    if hw != h or k != (d if transpose_w else l_):
+        raise ValueError(f"gemm_heads: x {tuple(x.shape)} against w "
+                         f"{tuple(w.shape)} (transpose_w={transpose_w})")
+    out = torch.empty(m, h, l_ if transpose_w else d, dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    rc = lib.gemm_heads_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
+                               h, l_, d, int(transpose_w), wcode,
+                               stream_ptr(x))
+    gemm_heads.launches += 1
+    check(lib, rc, "gemm_heads")
+    return out
+
+
+gemm_heads.launches = 0
+
 xaif.register("gemm", gemm_ref, gemm)
+xaif.register("gemm_heads", gemm_heads_ref, gemm_heads)

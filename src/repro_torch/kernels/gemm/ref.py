@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused GEMM (the JAX ``gemm_ref`` numerics)."""
+"""Plain PyTorch versions of the fused GEMM (the JAX ``gemm_ref``
+numerics) and of the per-head fp32 products of MLA's absorbed decode."""
 from __future__ import annotations
 
 from typing import Optional
@@ -23,3 +24,17 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         out = out + bias.float()
     return ACTIVATIONS[activation](out).to(x.dtype)
+
+
+def gemm_heads_ref(x: torch.Tensor, w: torch.Tensor,
+                   transpose_w: bool) -> torch.Tensor:
+    """x fp32 [M, H, K]; w [L, H, D]. ``transpose_w``: the JAX einsum
+    "bhd,lhd->bhl" (K = D); else "bhl,lhd->bhd" (K = L). fp32 out.
+
+    A multiply + reduce per row, not a batched dot, so that a row's bits
+    never depend on how many rows share the call (the serve engine's token
+    equality with the one-request loop rests on this)."""
+    wf = w.float().permute(1, 0, 2)                       # [H, L, D]
+    if transpose_w:
+        return (x.float()[:, :, None, :] * wf[None]).sum(dim=-1)
+    return (x.float()[:, :, :, None] * wf[None]).sum(dim=-2)

@@ -3,6 +3,8 @@ request-stream simulator over the continuous-batching slot engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 32 --capacity 8 --rate 4 [--threshold 0.9]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --device cpu
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency
@@ -16,7 +18,9 @@ positions from a pool of ``--num-pages``, admission by free pages.
 draft arch (reduced, random weights) proposes N tokens per live slot per
 round and the target verifies them in one forward. Exit heads are stripped
 from target and draft (verification scores every position with full-model
-logits); ``--threshold`` is therefore rejected with ``--draft``.
+logits); ``--threshold`` is therefore rejected with ``--draft``. MLA
+archs (deepseek-v2-lite-16b) serve through the contiguous engine only:
+``--paged`` and ``--draft`` are rejected for them.
 """
 from __future__ import annotations
 
@@ -65,6 +69,9 @@ def main(argv=None):
     if not args.paged and (args.num_pages is not None
                            or args.page_size != 16):
         ap.error("--page-size/--num-pages require --paged")
+    if get_arch(args.arch).mla is not None and (args.paged or args.draft):
+        ap.error(f"--arch {args.arch} is an MLA arch: the paged engine and "
+                 f"speculative decoding are not ported for MLA yet")
     if args.spec_k is not None and not args.draft:
         ap.error("--spec-k requires --draft: k counts DRAFT proposals per "
                  "speculative round — name the draft arch")

@@ -1,6 +1,7 @@
-"""GQA attention mixer (port of ``repro.models.attention``, GQA part).
+"""Attention mixers (port of ``repro.models.attention``): GQA, and
+DeepSeek-V2 Multi-head Latent Attention (MLA).
 
-Four execution modes share one parameter set:
+GQA has four execution modes over one parameter set:
   * prefill: full-sequence causal attention through the XAIF
     ``attention`` op (the flash kernel on the card), K/V written into the
     request's cache;
@@ -13,24 +14,53 @@ Four execution modes share one parameter set:
     ``verify_decode`` / ``verify_decode_paged``, query i masked to the
     window of the i-th sequential decode step.
 
+MLA caches only the compressed latent and the shared rotary key
+(``MLACache``). Prefill decompresses K/V per head and runs the flash
+``attention`` op at (q/k, v) head dims (192, 128); decode uses the absorbed
+formulation: the query is projected into latent space (``gemm_heads``),
+the precise mode of ``attn_decode`` attends the latent directly, and the
+pooled latent is decompressed per head (``gemm_heads`` again).
+
 K/V rows are written in place (the JAX package builds new caches with
 ``.at[].set``); nothing else holds the old cache, so the update saves a
 copy of the whole cache per layer.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import xaif
-from repro_torch.models.layers import apply_rope, rope_dims
+from repro_torch.models.layers import (apply_rope, init_rmsnorm, normal_init,
+                                       rmsnorm, rope_dims)
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor            # [(L,) B, Hkv, S, D]
     v: torch.Tensor            # [(L,) B, Hkv, S, D]
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor         # [(L,) B, S, kv_lora_rank]
+    k_rope: torch.Tensor       # [(L,) B, S, rope_dim]
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype,
+                   device) -> Dict:
+    """GQA projections [K, N] (biases zero when ``qkv_bias``)."""
+    d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    p = {"wq": normal_init(gen, (d, hq * dh), d, dtype, device),
+         "wk": normal_init(gen, (d, hkv * dh), d, dtype, device),
+         "wv": normal_init(gen, (d, hkv * dh), d, dtype, device),
+         "wo": normal_init(gen, (hq * dh, d), hq * dh, dtype, device)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            p[name] = torch.zeros(width, dtype=dtype, device=device)
+    return p
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device,
@@ -41,23 +71,24 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def fill_slot(cache: KVCache, src: KVCache, slot: int) -> KVCache:
-    """Write a batch-1 prefilled cache into batch row ``slot``, in place
-    (any leading layer dims: the batch axis is the 4th from the end).
+def fill_slot(cache, src, slot: int):
+    """Write a batch-1 prefilled cache into batch row ``slot``, in place:
+    ``cache`` and ``src`` are tuples of layer-stacked tensors [L, B, ...,
+    S, D] (K and V, or the MLA latent and rotary key).
 
-    ``src`` may be shorter along the sequence (a bucketed prefill): its K/V
-    land at positions [0, src_len) of the row; stale tail positions are
-    masked by the per-slot length until decode overwrites them."""
-    n = src.k.shape[-2]
-    cache.k[..., slot, :, :n, :] = src.k[..., 0, :, :, :]
-    cache.v[..., slot, :, :n, :] = src.v[..., 0, :, :, :]
+    ``src`` may be shorter along the sequence (a bucketed prefill): its
+    rows land at positions [0, src_len) of the slot; stale tail positions
+    are masked by the per-slot length until decode overwrites them."""
+    for dst, s in zip(cache, src):
+        dst[:, slot, ..., :s.shape[-2], :] = s[:, 0]
     return cache
 
 
-def reset_slot(cache: KVCache, slot: int) -> KVCache:
-    """Zero batch row ``slot`` in place (slot retirement)."""
-    cache.k[..., slot, :, :, :].zero_()
-    cache.v[..., slot, :, :, :].zero_()
+def reset_slot(cache, slot: int):
+    """Zero batch row ``slot`` of layer-stacked tensors in place (slot
+    retirement)."""
+    for dst in cache:
+        dst[:, slot].zero_()
     return cache
 
 
@@ -258,3 +289,131 @@ def apply_attention_verify_paged(params, x: torch.Tensor, cfg: ArchConfig,
     out = xaif.call("verify_decode_paged", policy, q, state.k_pages,
                     state.v_pages, page_table, cache_pos)
     return _verify_out(params, out, x, cfg, policy), state
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Dict:
+    """MLA projections (full-rank queries: ``q_lora_rank`` 0)."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r = m.kv_lora_rank
+
+    def w(d_in, d_out):
+        return normal_init(gen, (d_in, d_out), d_in, dtype, device)
+
+    return {"wq": w(d, h * dqk),
+            "w_dkv": w(d, r),
+            "kv_norm": init_rmsnorm(r, device),
+            "w_kr": w(d, m.qk_rope_head_dim),
+            "w_uk": w(r, h * m.qk_nope_head_dim),
+            "w_uv": w(r, h * m.v_head_dim),
+            "wo": w(h * m.v_head_dim, d)}
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device,
+                   layers: int) -> MLACache:
+    """Zeroed latents [layers, B, S, r] and rotary keys [layers, B, S, rd]."""
+    m = cfg.mla
+    return MLACache(
+        torch.zeros(layers, batch, max_len, m.kv_lora_rank, dtype=dtype,
+                    device=device),
+        torch.zeros(layers, batch, max_len, m.qk_rope_head_dim, dtype=dtype,
+                    device=device))
+
+
+def _mla_latent(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                positions: torch.Tensor):
+    """Compressed latent (normed) [B, T, r] and rotary key [B, T, rd]."""
+    c_kv = xaif.call("gemm", policy, x, params["w_dkv"])
+    c_kv = rmsnorm(params["kv_norm"], c_kv, policy, cfg.norm_eps)
+    k_rope = xaif.call("gemm", policy, x, params["w_kr"])
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+    return c_kv, k_rope
+
+
+def _mla_queries(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                 positions: torch.Tensor):
+    """(q_nope [B, H, T, dn], q_rope [B, H, T, dr]) with rotary applied."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = xaif.call("gemm", policy, x, params["wq"])
+    q = q.reshape(b, t, h, dqk).transpose(1, 2)           # [B, H, T, dqk]
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def apply_mla(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+              cache: Optional[MLACache] = None
+              ) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """Prefill x [B, T, d]: decompress K/V per head, causal attention; the
+    latent and rotary key are written into positions [0, T) of ``cache``
+    (in place)."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    h = cfg.num_heads
+    positions = torch.arange(t, device=x.device)
+    c_kv, k_rope = _mla_latent(params, x, cfg, policy, positions)
+    q_nope, q_rope = _mla_queries(params, x, cfg, policy, positions)
+    k_nope = xaif.call("gemm", policy, c_kv, params["w_uk"]).reshape(
+        b, t, h, m.qk_nope_head_dim).transpose(1, 2)
+    v = xaif.call("gemm", policy, c_kv, params["w_uv"]).reshape(
+        b, t, h, m.v_head_dim).transpose(1, 2)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, None].expand(
+        b, h, t, m.qk_rope_head_dim)], dim=-1)
+    out = xaif.call("attention", policy, q.contiguous(), k.contiguous(),
+                    v.to(q.dtype).contiguous(), causal=True,
+                    scale=_mla_scale(cfg))
+    out = out.transpose(1, 2).reshape(b, t, h * m.v_head_dim)
+    if cache is not None:
+        cache.c_kv[:, :t] = c_kv
+        cache.k_rope[:, :t] = k_rope
+    return xaif.call("gemm", policy, out, params["wo"]), cache
+
+
+def apply_mla_decode(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                     cache: MLACache, cache_pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-matrix decode: attend the compressed latent directly.
+
+    score(t, s) = (W_uk^T q_nope_t) . c_s + q_rope_t . k_rope_s, so the
+    query is projected into latent space once per step and the cache is
+    never decompressed. The latent is one shared "KV head": the precise
+    mode of ``attn_decode`` attends it (fp32, post-scale, the rotary key as
+    the second score component) and returns the pooled latent, which is
+    decompressed per head. x [B, 1, d]; cache_pos [B] int32 = the new
+    token's position; the new latent row is written in place."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    positions = cache_pos[:, None]
+    c_new, kr_new = _mla_latent(params, x, cfg, policy, positions)
+    q_nope, q_rope = _mla_queries(params, x, cfg, policy, positions)
+    bidx = torch.arange(b, device=x.device)
+    pos = cache_pos.long()
+    cache.c_kv[bidx, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[bidx, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_abs = xaif.call("gemm_heads", policy,
+                      q_nope[:, :, 0].float().contiguous(), w_uk,
+                      True)                                  # [B, H, r]
+    latent = cache.c_kv[:, None]
+    pooled = xaif.call("attn_decode", policy, q_abs, latent, latent,
+                       cache_pos, scale=_mla_scale(cfg),
+                       q2=q_rope[:, :, 0].float().contiguous(),
+                       k2=cache.k_rope[:, None], precise=True)  # [B, H, r]
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = xaif.call("gemm_heads", policy, pooled, w_uv, False)  # [B, H, dv]
+    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
+    return xaif.call("gemm", policy, out, params["wo"]), cache

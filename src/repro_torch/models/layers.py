@@ -21,10 +21,16 @@ from repro_torch.core import xaif
 # ---------------------------------------------------------------------------
 
 
+def normal_init(gen: torch.Generator, shape, fan_in: int, dtype,
+                device) -> torch.Tensor:
+    """N(0, 1 / fan_in) in ``dtype``, drawn in fp32."""
+    w = torch.randn(*shape, generator=gen, device=device)
+    return (w * fan_in ** -0.5).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                device) -> torch.Tensor:
-    w = torch.randn(d_in, d_out, generator=gen, device=device)
-    return (w * d_in ** -0.5).to(dtype)
+    return normal_init(gen, (d_in, d_out), d_in, dtype, device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
@@ -92,6 +98,13 @@ def rope_dims(cfg: ArchConfig) -> Optional[int]:
 # ---------------------------------------------------------------------------
 # Gated MLP (SwiGLU)
 # ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             device) -> Dict[str, torch.Tensor]:
+    return {"w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_down": dense_init(gen, d_ff, d_model, dtype, device)}
 
 
 def apply_mlp(params, x: torch.Tensor, policy: str) -> torch.Tensor:

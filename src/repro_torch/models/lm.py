@@ -1,14 +1,21 @@
-"""CausalLM assembly, dense path (port of ``repro.models.lm``):
-embed -> layers (an early-exit head at each exit boundary) -> final norm
--> unembed.
+"""CausalLM assembly (port of ``repro.models.lm``): embed -> prefix
+layers -> stacked layers (an early-exit head at each exit boundary) ->
+final norm -> unembed.
 
-Parameters keep the JAX package's tree: per-layer weights stacked along a
-leading layer axis in ``params["slots"][0]`` (the dense block pattern has
-period 1, so the super-blocks are the layers) in the ``[K, N]`` layout, so
-loading JAX parameters is copy-only. The KV cache is one ``[L, B, Hkv, S,
-D]`` tensor each for K and V (``LMCache``) or one ``[L, P, Hkv, ps, D]``
-page pool each with a ``[B, max_pages]`` page table (``PagedLMCache``);
-layer i reads and writes the view ``[i]``.
+Parameters keep the JAX package's tree: DeepSeek's ``first_k_dense``
+dense-MLP layers are a list ``params["prefix"]``; the other layers are
+stacked along a leading axis in ``params["slots"][0]`` (the port's block
+patterns have period 1, so the super-blocks are the layers), every matrix
+in the ``[K, N]`` layout, so loading JAX parameters is copy-only. A layer
+is attention (GQA, or MLA when the arch has ``mla``) followed by a SwiGLU
+MLP or an MoE.
+
+The cache holds every layer's state stacked along a leading axis in
+absolute layer order (prefix layers first): one ``[L, B, Hkv, S, D]``
+tensor each for K and V, or for MLA one ``[L, B, S, r]`` latent and one
+``[L, B, S, rd]`` rotary key (``LMCache``); or one ``[L, P, Hkv, ps, D]``
+page pool each for K and V with a ``[B, max_pages]`` page table
+(``PagedLMCache``, GQA only). Layer i reads and writes the view ``[i]``.
 """
 from __future__ import annotations
 
@@ -16,19 +23,27 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.core import xaif
 from repro_torch.core.device import resolve_device
 from repro_torch.core.early_exit import apply_exit_head, init_exit_head
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
-                                       init_rmsnorm, rmsnorm)
+                                       init_mlp, init_rmsnorm, rmsnorm)
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.period != 1 or cfg.first_k_dense:
-        raise ValueError(f"{cfg.name}: the port runs a period-1 dense "
-                         f"pattern without prefix layers")
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.period != 1:
+        raise ValueError(f"{cfg.name}: the port runs period-1 block "
+                         f"patterns")
+
+
+def _check_gqa(cfg: ArchConfig, what: str) -> None:
+    if cfg.mla is not None:
+        raise ValueError(f"{cfg.name}: {what} is not ported for MLA archs "
+                         f"yet (the JAX package runs it through the paged "
+                         f"precise mode, which waits for a later slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -36,42 +51,68 @@ def _check_dense(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _init_layer(gen: Optional[torch.Generator], spec: BlockSpec,
+                cfg: ArchConfig, dtype, device) -> Dict:
+    d = cfg.d_model
+    mixer = (attn.init_mla(gen, cfg, dtype, device) if cfg.mla is not None
+             else attn.init_attention(gen, cfg, dtype, device))
+    ffn = (moe_mod.init_moe(gen, cfg, dtype, device) if spec.ffn == "moe"
+           else init_mlp(gen, d, cfg.d_ff, dtype, device))
+    return {"ln1": init_rmsnorm(d, device), "mixer": mixer,
+            "ln2": init_rmsnorm(d, device), "ffn": ffn}
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _stacked_layers(gen: Optional[torch.Generator], spec: BlockSpec,
+                    cfg: ArchConfig, n: int, dtype, device) -> Dict:
+    """``n`` layers of ``spec`` stacked along a leading axis, drawn one
+    layer at a time (only one layer's fp32 draws are alive at once)."""
+    layer = _init_layer(gen, spec, cfg, dtype, device)
+    stacked = _map(layer, lambda t: torch.empty(n, *t.shape, dtype=t.dtype,
+                                                device=t.device))
+    for i in range(n):
+        if i:
+            layer = _init_layer(gen, spec, cfg, dtype, device)
+        for dst, src in zip(_leaves(stacked), _leaves(layer)):
+            dst[i] = src
+    return stacked
+
+
 def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
 
     Torch-native: the same seed gives other numbers than the JAX package's
     ``init_lm``; tests that compare the two load JAX's parameters through
-    ``convert.params_from_jax`` instead."""
-    _check_dense(cfg)
+    ``convert.params_from_jax`` instead. MoE routers are fp32, as in JAX.
+    ``device="meta"`` gives the tree's shapes and dtypes without
+    allocating (a full-size config's layout, checked on any machine)."""
+    _check_supported(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    n, d = cfg.num_layers, cfg.d_model
-    hq, hkv, dh, ff = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                       cfg.d_ff)
-    shapes = {"wq": (d, hq * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
-              "wo": (hq * dh, d)}
-    mixer = {k: torch.empty(n, *s, dtype=dtype, device=device)
-             for k, s in shapes.items()}
-    ffn = {"w_gate": torch.empty(n, d, ff, dtype=dtype, device=device),
-           "w_up": torch.empty(n, d, ff, dtype=dtype, device=device),
-           "w_down": torch.empty(n, ff, d, dtype=dtype, device=device)}
-    for i in range(n):      # one layer at a time keeps the fp32 draws small
-        for tree in (mixer, ffn):
-            for w in tree.values():
-                w[i] = dense_init(gen, w.shape[1], w.shape[2], dtype, device)
-    if cfg.qkv_bias:
-        for name, width in (("bq", hq * dh), ("bk", hkv * dh),
-                            ("bv", hkv * dh)):
-            mixer[name] = torch.zeros(n, width, dtype=dtype, device=device)
-    ones = torch.ones(n, d, dtype=torch.float32, device=device)
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, d, dtype, device),
-        "final_norm": init_rmsnorm(d, device),
-        "unembed": dense_init(gen, d, cfg.vocab_size, dtype, device),
-        "slots": ({"ln1": {"scale": ones.clone()}, "mixer": mixer,
-                   "ln2": {"scale": ones}, "ffn": ffn},),
-    }
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
+    d = cfg.d_model
+    params: Dict[str, Any] = {}
+    if cfg.first_k_dense:
+        params["prefix"] = [_init_layer(gen, cfg.layer_spec(i), cfg, dtype,
+                                        device)
+                            for i in range(cfg.first_k_dense)]
+    params["slots"] = (_stacked_layers(gen, cfg.block_pattern[0], cfg,
+                                       cfg.num_superblocks, dtype, device),)
+    params["embed"] = embed_init(gen, cfg.vocab_size, d, dtype, device)
+    params["final_norm"] = init_rmsnorm(d, device)
+    params["unembed"] = dense_init(gen, d, cfg.vocab_size, dtype, device)
     if cfg.early_exit is not None:
         if not cfg.early_exit.share_unembed:
             raise ValueError("the port's exit heads share the unembedding")
@@ -80,21 +121,22 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
     return params
 
 
-def _layer(params, i: int):
-    """Layer i's parameters: views into the stacked slot weights."""
-    def pick(tree):
-        return ({k: pick(v) for k, v in tree.items()}
-                if isinstance(tree, dict) else tree[i])
-    return pick(params["slots"][0])
+def _layer(params, cfg: ArchConfig, i: int):
+    """Absolute layer i's parameters: a prefix layer, or views into the
+    stacked slot weights."""
+    if i < cfg.first_k_dense:
+        return params["prefix"][i]
+    return _map(params["slots"][0], lambda t: t[i - cfg.first_k_dense])
 
 
 # ---------------------------------------------------------------------------
-# Segment planning: exit layers split the layer stack
+# Segment planning: exit layers split the stacked layers
 # ---------------------------------------------------------------------------
 
 
 def _segments(cfg: ArchConfig) -> List[Tuple[int, int, Optional[int]]]:
-    """[(layer_start, layer_end, exit_index_or_None), ...]."""
+    """[(sb_start, sb_end, exit_index_or_None), ...] over the stacked
+    layers (super-blocks; prefix layers excluded)."""
     n = cfg.num_superblocks
     exits = []
     if cfg.early_exit is not None:
@@ -119,36 +161,51 @@ def _segments(cfg: ArchConfig) -> List[Tuple[int, int, Optional[int]]]:
 
 
 class LMCache(NamedTuple):
-    k: torch.Tensor          # [L, B, Hkv, S, D]
-    v: torch.Tensor          # [L, B, Hkv, S, D]
-    pos: torch.Tensor        # [B] int32 current lengths
+    k: Optional[torch.Tensor]          # [L, B, Hkv, S, D] (GQA)
+    v: Optional[torch.Tensor]          # [L, B, Hkv, S, D] (GQA)
+    pos: torch.Tensor                  # [B] int32 current lengths
+    c_kv: Optional[torch.Tensor] = None      # [L, B, S, r] (MLA)
+    k_rope: Optional[torch.Tensor] = None    # [L, B, S, rd] (MLA)
 
-    def layer(self, i: int) -> attn.KVCache:
+    def layer(self, i: int) -> Union[attn.KVCache, attn.MLACache]:
+        if self.c_kv is not None:
+            return attn.MLACache(self.c_kv[i], self.k_rope[i])
         return attn.KVCache(self.k[i], self.v[i])
+
+    @property
+    def states(self) -> Tuple[torch.Tensor, ...]:
+        """The cached tensors present (K and V, or latent and rotary key),
+        each [L, B, ..., S, D]."""
+        return tuple(t for t in (self.k, self.v, self.c_kv, self.k_rope)
+                     if t is not None)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device="cuda") -> LMCache:
-    _check_dense(cfg)
+    _check_supported(cfg)
     device = resolve_device(device)
-    kv = attn.init_kv_cache(cfg, batch, max_len, getattr(torch, cfg.dtype),
-                            device, layers=cfg.num_layers)
-    return LMCache(kv.k, kv.v,
-                   torch.zeros(batch, dtype=torch.int32, device=device))
+    dtype = getattr(torch, cfg.dtype)
+    pos = torch.zeros(batch, dtype=torch.int32, device=device)
+    if cfg.mla is not None:
+        mc = attn.init_mla_cache(cfg, batch, max_len, dtype, device,
+                                 layers=cfg.num_layers)
+        return LMCache(None, None, pos, mc.c_kv, mc.k_rope)
+    kv = attn.init_kv_cache(cfg, batch, max_len, dtype, device,
+                            layers=cfg.num_layers)
+    return LMCache(kv.k, kv.v, pos)
 
 
 def fill_slot(cache: LMCache, src: LMCache, slot: int, length) -> LMCache:
     """Insert a batch-1 prefilled ``src`` cache into row ``slot`` in place;
     ``length`` (the TRUE prompt length) becomes the slot's position."""
-    attn.fill_slot(attn.KVCache(cache.k, cache.v),
-                   attn.KVCache(src.k, src.v), slot)
+    attn.fill_slot(cache.states, src.states, slot)
     cache.pos[slot] = length
     return cache
 
 
 def reset_slot(cache: LMCache, slot: int) -> LMCache:
-    """Retire row ``slot``: zero its K/V and length, in place."""
-    attn.reset_slot(attn.KVCache(cache.k, cache.v), slot)
+    """Retire row ``slot``: zero its cached states and length, in place."""
+    attn.reset_slot(cache.states, slot)
     cache.pos[slot] = 0
     return cache
 
@@ -175,7 +232,8 @@ class PagedLMCache(NamedTuple):
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
                      page_size: int, num_pages: int,
                      device="cuda") -> PagedLMCache:
-    _check_dense(cfg)
+    _check_supported(cfg)
+    _check_gqa(cfg, "the paged KV cache")
     device = resolve_device(device)
     pools = attn.init_paged_kv_cache(cfg, num_pages, page_size,
                                      getattr(torch, cfg.dtype), device,
@@ -215,11 +273,21 @@ def free_slot_paged(cache: PagedLMCache, slot: int) -> PagedLMCache:
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, policy: str,
-                 state, mode: str, cache_pos=None, page_table=None):
+def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
+                 policy: str, state, mode: str, cache_pos=None,
+                 page_table=None, live=None):
+    """One layer: attention (``mode`` prefill / decode / verify) then the
+    MLP or MoE. ``live`` [B] bool (decode): slots that still matter —
+    dead ones are masked out of MoE routing."""
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
-    if mode == "prefill":
+    if cfg.mla is not None:     # contiguous only: verify / paged refuse MLA
+        if mode == "prefill":
+            out, _ = attn.apply_mla(m, h, cfg, policy, state)
+        else:
+            out, _ = attn.apply_mla_decode(m, h, cfg, policy, state,
+                                           cache_pos)
+    elif mode == "prefill":
         out, _ = attn.apply_attention_prefill(m, h, cfg, policy, state)
     elif mode == "decode" and page_table is None:
         out, _ = attn.apply_attention_decode(m, h, cfg, policy, state,
@@ -235,7 +303,34 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, policy: str,
                                                    cache_pos, page_table)
     x = x + out
     h2 = rmsnorm(p["ln2"], x, policy, cfg.norm_eps)
-    return x + apply_mlp(p["ffn"], h2, policy)
+    if spec.ffn != "moe":
+        return x + apply_mlp(p["ffn"], h2, policy)
+    if mode == "decode" and cfg.moe.dropless_decode:
+        out2 = moe_mod.apply_moe_decode(p["ffn"], h2, cfg, policy,
+                                        valid=live)
+    else:
+        groups = 1 if h2.shape[1] == 1 else None
+        v2 = None if live is None else live[:, None]
+        out2, _ = moe_mod.apply_moe(p["ffn"], h2, cfg, policy, groups,
+                                    valid=v2)
+    return x + out2
+
+
+def _run_layers(params, x: torch.Tensor, layers, cfg: ArchConfig,
+                policy: str, cache, mode: str, cache_pos=None,
+                page_table=None, live=None) -> torch.Tensor:
+    for i in layers:
+        x = _apply_layer(_layer(params, cfg, i), x, cfg, cfg.layer_spec(i),
+                         policy, cache.layer(i), mode, cache_pos, page_table,
+                         live)
+    return x
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings in the config's compute dtype (a no-op cast unless
+    an fp32 config runs on lower-precision weights: every op upcasts its
+    weights, so that computes the same model without rounding)."""
+    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
 
 
 def _head(params, x: torch.Tensor, cfg: ArchConfig, policy: str):
@@ -257,12 +352,13 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
 
     ``lengths`` [B]: TRUE lengths of right-padded inputs — logits are taken
     at each sequence's last real token and the cache records the true
-    length, so one bucket serves every prompt length up to it."""
-    x = params["embed"][tokens.long()]
+    length, so one bucket serves every prompt length up to it (attention
+    archs only: an MoE would route the pad tokens, so MoE archs are
+    prefilled at their exact length)."""
+    x = _embed(params, tokens, cfg)
     b, t = tokens.shape
-    for i in range(cfg.num_layers):
-        x = _apply_layer(_layer(params, i), x, cfg, policy, cache.layer(i),
-                         "prefill")
+    x = _run_layers(params, x, range(cfg.num_layers), cfg, policy, cache,
+                    "prefill")
     if lengths is None:
         last = x[:, -1:].contiguous()
         pos = torch.full_like(cache.pos, t)
@@ -276,20 +372,26 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
 
 def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
                    policy: str, cache: Union[LMCache, PagedLMCache],
-                   with_exits: bool = True):
+                   with_exits: bool = True,
+                   live: Optional[torch.Tensor] = None):
     """One decode step. tokens [B, 1]. ``cache`` is an LMCache (contiguous
-    KV) or a PagedLMCache (page pools attended through the page table: the
-    same numerics). K/V rows are written in place. Returns (final_logits
+    KV or MLA latents) or a PagedLMCache (page pools attended through the
+    page table: the same numerics). Cached rows are written in place.
+    ``live`` [B] bool (optional): the serve engine's occupied, not-done
+    slots; dead slots are masked out of MoE routing, which on the dropless
+    decode path never changes a live slot's output. Returns (final_logits
     [B, V], exit_logits tuple, cache with pos + 1); each exit's logits come
     from the hidden state at its boundary."""
     page_table = (cache.page_table if isinstance(cache, PagedLMCache)
                   else None)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, cfg)
+    kd = cfg.first_k_dense
+    run = dict(cfg=cfg, policy=policy, cache=cache, mode="decode",
+               cache_pos=cache.pos, page_table=page_table, live=live)
+    x = _run_layers(params, x, range(kd), **run)
     exit_lg: List[torch.Tensor] = []
     for start, end, exit_i in _segments(cfg):
-        for i in range(start, end):
-            x = _apply_layer(_layer(params, i), x, cfg, policy,
-                             cache.layer(i), "decode", cache.pos, page_table)
+        x = _run_layers(params, x, range(kd + start, kd + end), **run)
         if exit_i is not None and with_exits:
             exit_lg.append(_exit_logits(params, x, exit_i, cfg, policy)[:, 0])
     logits = _head(params, x, cfg, policy)[:, 0]
@@ -305,11 +407,12 @@ def forward_verify(params, tokens: torch.Tensor, cfg: ArchConfig,
     to its own staircase window, so logits row i is bitwise what the i-th
     sequential ``forward_decode`` step would produce. Returns (logits
     [B, K1, V], cache) with ``pos`` UNCHANGED: the caller advances it by
-    the accepted count. Early exits are not consulted."""
+    the accepted count. Early exits are not consulted. GQA archs only (the
+    JAX package refuses verify for MLA too)."""
+    _check_gqa(cfg, "speculative verify")
     page_table = (cache.page_table if isinstance(cache, PagedLMCache)
                   else None)
-    x = params["embed"][tokens.long()]
-    for i in range(cfg.num_layers):
-        x = _apply_layer(_layer(params, i), x, cfg, policy, cache.layer(i),
-                         "verify", cache.pos, page_table)
+    x = _embed(params, tokens, cfg)
+    x = _run_layers(params, x, range(cfg.num_layers), cfg, policy, cache,
+                    "verify", cache.pos, page_table)
     return _head(params, x, cfg, policy), cache

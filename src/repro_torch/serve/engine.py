@@ -3,9 +3,10 @@ slot-based continuous-batching engine and the one-request reference loop
 ``generate``.
 
   * The cache's batch dimension is a fixed set of SLOTS (``capacity``). A
-    request is admitted by a bucketed batch-1 prefill written into a free
-    slot row (``lm.fill_slot``); prompt length and occupancy are slot
-    STATE (per-slot ``pos``/budget/done), never tensor shape.
+    request is admitted by a bucketed batch-1 prefill (exact-length for
+    MoE archs) written into a free slot row (``lm.fill_slot``); prompt
+    length and occupancy are slot STATE (per-slot ``pos``/budget/done),
+    never tensor shape. Decode masks dead slots out of MoE routing.
   * Decode runs in chunks of ``chunk`` steps over the whole slot batch:
     greedy argmax, the early-exit merge and the statistics stay on the
     device, and the scheduler fetches (tokens, slot state) to the host once
@@ -149,7 +150,11 @@ class SlotEngine:
 
     ``prompt_bucket``: prompts are right-padded up to the next multiple of
     this for prefill (the pad is masked by the per-slot lengths), so the
-    prefill shapes come from a small set of buckets. ``chunk``: decode steps
+    prefill shapes come from a small set of buckets. MoE archs prefill at
+    the exact prompt length instead, as the JAX engine does: pad tokens
+    would route into the experts, and the capacity per group scales with
+    the padded length, so padding would change which tokens drop.
+    ``chunk``: decode steps
     (speculative rounds under ``spec``) per chunk between two host fetches.
 
     ``paged``: attention KV in pages of ``page_size`` positions from a pool
@@ -159,9 +164,10 @@ class SlotEngine:
 
     ``spec``: greedy speculative decoding. The target may carry no exit
     heads (verification scores every position with full-model logits) and
-    the draft must share its vocabulary; the port's configs admit only
-    GQA attention blocks, so both sides are verifiable. Sampling
-    (``temperature > 0``) is not ported.
+    the draft must share its vocabulary; both must be GQA archs (the JAX
+    package refuses verify for MLA). The paged engine is GQA-only too:
+    paged MLA waits for a later slice. Sampling (``temperature > 0``) is
+    not ported.
     """
 
     def __init__(self, run: Union[RunConfig, ArchConfig], capacity: int,
@@ -175,6 +181,10 @@ class SlotEngine:
         if temperature > 0.0:
             raise NotImplementedError("sampling (temperature > 0) is not "
                                       "ported yet; the engine is greedy")
+        if paged and cfg.mla is not None:
+            raise ValueError(f"{cfg.name}: the paged engine is not ported "
+                             f"for MLA archs yet (paged precise decode "
+                             f"attention waits for a later slice)")
         self.spec = spec
         self.draft_cfg: Optional[ArchConfig] = None
         if spec is not None:
@@ -186,6 +196,10 @@ class SlotEngine:
             dcfg = spec.draft_arch
             if isinstance(dcfg, str):
                 dcfg = get_arch(dcfg)
+            if cfg.mla is not None or dcfg.mla is not None:
+                raise ValueError("speculative decoding needs GQA target and "
+                                 "draft archs: verify is not defined for "
+                                 "MLA (as in the JAX package)")
             if cfg.early_exit is not None:
                 raise ValueError("speculative decoding skips the exit merge, "
                                  "so an early-exit target would change "
@@ -202,7 +216,7 @@ class SlotEngine:
         self.capacity = capacity
         self.max_len = max_len
         self.chunk = chunk
-        self.prompt_bucket = prompt_bucket
+        self.prompt_bucket = prompt_bucket if cfg.moe is None else 1
         self.device = resolve_device(device)
         self.paged = paged
         self.page_size = page_size
@@ -380,7 +394,7 @@ class SlotEngine:
         cfg, policy = self.run.arch, self.run.policy
         live = ~st.done
         logits, exit_lgs, new_cache = lm.forward_decode(
-            params, st.tokens[:, None], cfg, policy, cache)
+            params, st.tokens[:, None], cfg, policy, cache, live=live)
         logits, exit_idx = _select(logits, exit_lgs, cfg, policy)
         if exit_idx is not None:
             exited = exit_idx < len(exit_lgs)

@@ -173,7 +173,9 @@ def test_ops_get_contiguous_inputs(monkeypatch):
     """The CUDA kernels take contiguous tensors only (their wrappers
     raise otherwise). Check on the CPU that the model hands every op
     contiguous inputs, at batch > 1, ragged lengths, decode and verify,
-    on a contiguous and on a paged cache."""
+    on a contiguous and on a paged cache, and through the MLA + MoE layers
+    of the reduced deepseek-v2-lite-16b (prefill and decode with a live
+    mask)."""
     seen = []
     for name in xaif.ops():
         e = xaif.entry(name)
@@ -202,4 +204,10 @@ def test_ops_get_contiguous_inputs(monkeypatch):
     paged = paged._replace(pos=torch.tensor([7, 2, 5], dtype=torch.int32))
     lm.forward_decode(pp, tokens[:, :1], pcfg, "auto", paged)
     lm.forward_verify(pp, tokens[:, :3], pcfg, "auto", paged)
+    dcfg = port_arch("deepseek-v2-lite-16b").reduced()
+    dp = lm.init_lm(dcfg, device="cpu")
+    cache = lm.init_cache(dcfg, 3, 12, device="cpu")
+    _, cache = lm.forward_prefill(dp, tokens, dcfg, "auto", cache)
+    lm.forward_decode(dp, tokens[:, :1], dcfg, "auto", cache,
+                      live=torch.tensor([True, False, True]))
     assert set(seen) == set(xaif.ops())

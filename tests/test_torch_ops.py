@@ -28,6 +28,7 @@ from repro_torch.kernels.attn_decode.ref import attn_decode_ref
 from repro_torch.kernels.entropy_exit.ref import entropy_ref
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gemm.ref import gemm_ref
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -128,10 +129,14 @@ def test_attn_decode_matches_jax(dtype):
 
 
 def test_attn_decode_precise_mode_not_ported():
+    """The contiguous precise (MLA) mode is ported (tests/test_torch_mla.py
+    holds it against JAX); the paged precise mode is not yet and raises."""
     z = torch.zeros(1, 2, 8)
     with pytest.raises(NotImplementedError):
-        attn_decode_ref(z, torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, 8, 8),
-                        torch.zeros(1, dtype=torch.int32), precise=True)
+        paged_attention_ref(z, torch.zeros(2, 1, 4, 8),
+                            torch.zeros(2, 1, 4, 8),
+                            torch.ones(1, 2, dtype=torch.int32),
+                            torch.zeros(1, dtype=torch.int32), precise=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -150,8 +155,11 @@ def test_entropy_matches_jax(m, v, dtype):
 
 
 def test_plain_ops_keep_jax_names():
+    """Every op ported from the JAX package keeps its XAIF name; the one
+    op of the port's own is ``gemm_heads`` (MLA's absorbed per-head
+    products, plain einsums in JAX)."""
     assert xaif.ops() == ("attention", "attn_decode", "attn_decode_paged",
-                          "entropy_exit", "gemm", "rmsnorm", "verify_decode",
-                          "verify_decode_paged")
+                          "entropy_exit", "gemm", "gemm_heads", "moe_decode",
+                          "rmsnorm", "verify_decode", "verify_decode_paged")
     with pytest.raises(ValueError):
         xaif.call("gemm", "pallas", torch.zeros(2, 2), torch.zeros(2, 2))
