@@ -34,22 +34,38 @@ Phases (any failure raises; nothing is caught):
      the launch counters show moe_decode, precise attn_decode (its
      counter is attn_decode's: no GQA decode runs on deepseek), gemm_heads
      and the (192, 128) flash attention on every layer;
-  9. one JSON line listing the kernels, the card's name and power limit,
+  9. jamba-v0.1-52b at full width, cut to two super-blocks (16 of its 32
+     layers: 14 Mamba, 2 attention, 8 MoE of 16 experts x 14336 top-2;
+     bf16, random weights; deepseek's weights freed first): 64 prompts
+     prefilled through the kernels, the plain policy and the plain policy
+     computing in fp32 on the same bf16 weights (an fp32 copy would not
+     fit beside them), and 16 prompts teacher-forced layer by layer;
+ 10. the 6-request serve of phase 4 on jamba (contiguous KV and
+     slot-indexed Mamba state, greedy, exact-length prefill): request 0
+     equals ``generate`` bitwise, and the launch counters show ssm_decode
+     on the 14 Mamba layers, moe_decode on the 8 MoE layers and
+     attn_decode on the 2 attention layers every step, ssm_scan and flash
+     attention on them every prefill;
+ 11. one JSON line listing the kernels, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
 
-Phase 2 also holds deepseek's kernels at its serving shapes and asserts
-that row b of a B = 4 launch of moe_decode, precise attn_decode and
-gemm_heads equals its B = 1 launch bitwise. Each serve run resets every
+Phase 2 also holds deepseek's and jamba's kernels at their serving shapes
+and asserts, bitwise, that row b of a B = 4 launch of moe_decode (at h =
+1408 and 14336), precise attn_decode, gemm_heads and ssm_decode equals
+its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
+state carried equals the scan of T1 + T2. Each serve run resets every
 launch counter just before it and reads them just after; a kernel's
 ``launches`` in the JSON line come from the run of its path (phase 4, 5,
-6 or 8).
+6, 8 or 10).
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -129,22 +145,32 @@ def check_kernels(torch, timer):
 
     def compare(name, shape, kernel, plain, library, nbytes, flops, dtype,
                 rtol, atol, representative=False):
+        """Kernel against plain on the same inputs. A kernel returning a
+        tuple is compared output by output, ``rtol`` / ``atol`` then
+        tuples of per-output tolerances; ``max_abs_err`` is the largest."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        max_abs = float(err.max())
-        ok = bool((err <= atol + rtol * want.float().abs()).all())
+        if not isinstance(got, tuple):
+            got, want, rtol, atol = (got,), (want,), (rtol,), (atol,)
+        errs, ok = [], True
+        for g, w, rt, at in zip(got, want, rtol, atol):
+            err = (g.float() - w.float()).abs()
+            errs.append(float(err.max()))
+            ok = ok and bool((err <= at + rt * w.float().abs()).all())
+        max_abs = max(errs)
         ms, plain_ms = timer(kernel), timer(plain)
         lib_ms = timer(library) if library is not None else None
         b_ms, b_by = bound(nbytes, flops, dtype)
-        print(f"kernel {name:12s} {shape:34s} max_abs_err={max_abs:.3e} "
-              f"(tol {atol:g} + {rtol:g}*|ref|) ms={ms:.4f} "
+        tol = ", ".join(f"{a:g} + {r:g}*|ref|" for r, a in zip(rtol, atol))
+        each = "" if len(errs) == 1 else f" per output {errs}"
+        print(f"kernel {name:12s} {shape:34s} max_abs_err={max_abs:.3e}"
+              f"{each} (tol {tol}) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if not ok:
             raise AssertionError(f"{name} {shape}: kernel disagrees with "
-                                 f"its plain version (max abs err {max_abs})")
+                                 f"its plain version (max abs err {errs})")
         if representative:
             records[name] = dict(shape=shape, max_abs_err=max_abs, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
@@ -215,11 +241,16 @@ def check_kernels(torch, timer):
 
     check_paged_and_verify(torch, compare, randn, gen)
     check_mla_moe(torch, compare, randn, gen)
+    check_jamba(torch, compare, randn, gen)
 
-    # entropy: fp32 sums in another order; the result is O(1)
+    # entropy: fp32 sums in another order; the result is O(1). Library:
+    # the entropy of torch.distributions.Categorical over log V
     lg = randn(4, 64000, scale=3.0)
+    log_v = math.log(64000)
     compare("entropy_exit", "[4, 64000]",
-            lambda: ee.entropy(lg), lambda: entropy_ref(lg), None,
+            lambda: ee.entropy(lg), lambda: entropy_ref(lg),
+            lambda: torch.distributions.Categorical(
+                logits=lg.float()).entropy() / log_v,
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True)
     return records
@@ -493,9 +524,173 @@ def check_mla_moe(torch, compare, randn, gen):
           "leaves precise decode unchanged", flush=True)
 
 
+def check_jamba(torch, compare, randn, gen):
+    """Phase 2 for jamba-v0.1-52b's kernels at its serving shapes (B = 4
+    slots, d_model 4096, Mamba d_inner 8192 and d_state 16, 32/8 heads of
+    128, 16 experts of 4096 x 14336 top-2): the selective scan of one
+    120-token prompt with and without h0, the Mamba decode step, dropless
+    MoE decode at h = 14336, GQA attention at group 4 and the decode
+    GEMMs. Bitwise: row b of a B = 4 launch of ssm_decode and moe_decode
+    == its B = 1 launch, and a scan of 57 then 63 tokens with the state
+    carried == the scan of all 120."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.moe_decode import ops as md
+    from repro_torch.kernels.moe_decode.ref import moe_decode_ref
+    from repro_torch.kernels.ssm_decode import ops as sd
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+    from repro_torch.kernels.ssm_scan import ops as ss
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    f32 = torch.float32
+    b, d, din, n, t = 4, 4096, 8192, 16, 120
+
+    # the decode GEMMs at M = 4 (per step: Mamba in/x/dt/out projections in
+    # 14 layers, the dense MLPs in 8, attention in 2, the fp32 router in 8,
+    # the unembedding twice with the exit head): bf16, one bf16 ulp
+    for k, nn, act in ((4096, 16384, "none"), (8192, 288, "none"),
+                       (256, 8192, "none"), (8192, 4096, "none"),
+                       (4096, 14336, "silu"), (14336, 4096, "none"),
+                       (4096, 1024, "none"), (4096, 65536, "none")):
+        x, w = randn(b, k), randn(k, nn, scale=k ** -0.5)
+        lib = (lambda x=x, w=w: torch.matmul(x, w)) if act == "none" \
+            else None
+        compare("gemm", f"M=4 K={k} N={nn} {act}",
+                lambda x=x, w=w, a=act: gm.gemm(x, w, activation=a),
+                lambda x=x, w=w, a=act: gemm_ref(x, w, activation=a), lib,
+                2 * (b * k + k * nn + b * nn), 2 * b * k * nn, "bfloat16",
+                1e-2, 1e-2)
+    x, w = randn(b, d, dtype=f32), randn(d, 16, dtype=f32, scale=d ** -0.5)
+    compare("gemm", "M=4 K=4096 N=16 none fp32 (router)",
+            lambda: gm.gemm(x, w), lambda: gemm_ref(x, w),
+            lambda: torch.matmul(x, w), 4 * (b * d + d * 16 + b * 16),
+            2 * b * d * 16, "float32", 1e-4, 1e-4)
+
+    # GQA at group 4 (32 query heads over 8 KV heads): prefill and decode
+    q, k_, v_ = randn(1, 32, t, 128), randn(1, 8, t, 128), \
+        randn(1, 8, t, 128)
+    pairs = t * (t + 1) // 2
+    compare("attention", f"q[1,32,{t},128] kv[1,8,{t},128] causal",
+            lambda: fa.attention(q, k_, v_, causal=True),
+            lambda: attention_ref(q, k_, v_, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k_, v_, is_causal=True,
+                                                   enable_gqa=True),
+            2 * (2 * q.numel() + 2 * k_.numel()), 4 * 32 * 128 * pairs,
+            "bfloat16", 1e-2, 1e-2)
+    s = 160
+    q, kc, vc = randn(b, 32, 128), randn(b, 8, s, 128), randn(b, 8, s, 128)
+    cp = torch.tensor([19, 75, 130, 159], dtype=torch.int32, device="cuda")
+    n_valid = int((cp + 1).sum())
+    mask = (torch.arange(s, device="cuda")[None, :] <= cp[:, None]
+            )[:, None, None, :]
+    compare("attn_decode", "q[4,32,128] kv[4,8,160,128] ragged",
+            lambda: ad.attn_decode(q, kc, vc, cp),
+            lambda: attn_decode_ref(q, kc, vc, cp),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+            2 * q.numel() + 2 * 2 * 8 * 128 * n_valid + 4 * b * 32 * 128
+            + 4 * b, 4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2)
+
+    # selective scan: inputs at the mixer's scales (u the conv + silu
+    # output, dt = softplus in [1e-3, 0.1], A the S4D-real -(1..16), B and
+    # C the x_proj outputs, D = 1). y is bf16 (one bf16 ulp); the state is
+    # fp32 (summation order and exp's last bit only)
+    a = -torch.arange(1, n + 1, dtype=f32, device="cuda").repeat(din, 1)
+    dsk = torch.ones(din, dtype=f32, device="cuda")
+    u = F.silu(randn(1, t, din, dtype=f32)).to(torch.bfloat16)
+    dt = (torch.rand(1, t, din, generator=gen, device="cuda") * 0.099
+          + 1e-3).to(torch.bfloat16)
+    bm, cm = randn(1, t, n), randn(1, t, n)
+    h0 = randn(1, din, n, dtype=f32)
+    # (the engine's prefill hands the scan its zeroed cache state as h0)
+    for name, h_ in (("ssm_scan_no_h0", None), ("ssm_scan", h0)):
+        nbytes = (3 * 2 * t * din + 4 * din * n + 2 * 2 * t * n + 4 * din
+                  + 4 * din * n * (2 if h_ is not None else 1))
+        compare(name, f"u[1,{t},{din}] N={n}"
+                f"{' h0' if h_ is not None else ''}",
+                lambda h_=h_: ss.ssm_scan(u, dt, a, bm, cm, dsk, h_),
+                lambda h_=h_: selective_scan_ref(u, dt, a, bm, cm, dsk, h_),
+                None, nbytes, 9 * t * din * n, "float32", (1e-2, 1e-4),
+                (1e-2, 1e-4), representative=h_ is not None)
+    t1 = 57
+    whole = ss.ssm_scan(u, dt, a, bm, cm, dsk, h0)
+    y1, h1 = ss.ssm_scan(u[:, :t1].contiguous(), dt[:, :t1].contiguous(), a,
+                         bm[:, :t1].contiguous(), cm[:, :t1].contiguous(),
+                         dsk, h0)
+    y2, h2 = ss.ssm_scan(u[:, t1:].contiguous(), dt[:, t1:].contiguous(), a,
+                         bm[:, t1:].contiguous(), cm[:, t1:].contiguous(),
+                         dsk, h1)
+    assert torch.equal(torch.cat([y1, y2], 1), whole[0]), "split scan y"
+    assert torch.equal(h2, whole[1]), "split scan state"
+
+    # the Mamba decode step, fp32 throughout
+    xs, g = randn(b, din, dtype=f32), torch.rand(
+        b, din, generator=gen, device="cuda") * 0.099 + 1e-3
+    bd_, cd_ = randn(b, n, dtype=f32), randn(b, n, dtype=f32)
+    h = randn(b, din, n, dtype=f32)
+    compare("ssm_decode", f"x[{b},{din}] h[{b},{din},{n}] fp32",
+            lambda: sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h),
+            lambda: ssm_decode_ref(xs, g, a, bd_, cd_, dsk, h), None,
+            4 * (2 * b * din + din * n + 2 * b * n + din + b * din * n)
+            + 4 * (b * din + b * din * n), 8 * b * din * n, "float32",
+            (1e-4, 1e-4), (1e-4, 1e-4), representative=True)
+    print("library: none for ssm_scan and ssm_decode (no single PyTorch "
+          "call runs the selective-SSM recurrence)", flush=True)
+
+    # dropless MoE decode at h = 14336 (the down pass stages the hidden
+    # rows in chunks): 4 live slots, top-2 of 16; fp32 on both sides
+    e_, k2, hh = 16, 2, 14336
+    x = randn(b, d)
+    wg = randn(e_, d, hh, scale=d ** -0.5)
+    wu = randn(e_, d, hh, scale=d ** -0.5)
+    wd = randn(e_, hh, d, scale=hh ** -0.5)
+    probs = torch.softmax(randn(b, e_, dtype=f32), -1)
+    gate, idx = torch.topk(probs, k2, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True)
+    idx = idx.to(torch.int32)
+    touched = int(torch.unique(idx).numel())
+    compare("moe_decode_jamba", f"x[4,4096] top-2 of 16 experts "
+            f"[4096,14336] ({touched} experts read)",
+            lambda: md.moe_decode(x, idx, gate, wg, wu, wd),
+            lambda: moe_decode_ref(x, idx, gate, wg, wu, wd), None,
+            2 * 3 * touched * d * hh + 2 * x.numel() + 8 * b * k2
+            + 4 * b * d, 6 * b * k2 * d * hh, "bfloat16", 1e-4, 1e-4,
+            representative=True)
+
+    # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
+    full = {"ssm_decode": sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h),
+            "moe_decode": md.moe_decode(x, idx, gate, wg, wu, wd)}
+    for i in range(b):
+        one = slice(i, i + 1)
+        solo = {"ssm_decode": sd.ssm_decode(xs[one], g[one], a, bd_[one],
+                                            cd_[one], dsk, h[one]),
+                "moe_decode": md.moe_decode(x[one], idx[one], gate[one], wg,
+                                            wu, wd)}
+        assert torch.equal(full["ssm_decode"][0][one], solo["ssm_decode"][0]
+                           ), ("ssm_decode y", i)
+        assert torch.equal(full["ssm_decode"][1][one], solo["ssm_decode"][1]
+                           ), ("ssm_decode h", i)
+        assert torch.equal(full["moe_decode"][one], solo["moe_decode"]), \
+            ("moe_decode", i)
+    del wg, wu, wd
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("bitwise: ssm_decode and moe_decode (h = 14336) rows of a B = 4 "
+          "launch == their B = 1 launches; ssm_scan of 57 then 63 tokens "
+          "with the state carried == the scan of 120", flush=True)
+
+
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
                   length: int = 100, fp32_copy: bool = True,
-                  max_rel: float = 5e-2, max_mean_rel: float | None = None):
+                  max_rel: float | None = 5e-2,
+                  max_mean_rel: float | None = None,
+                  min_clear: int | None = None):
     """Last-position prefill logits of the kernel path against the plain
     policy on the same bf16 weights, and both against the plain policy
     computing in fp32 (the rounding-free yardstick): on an fp32 copy of
@@ -511,8 +706,10 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
     A prompt is clear when its plain top-2 gap is at least 5x the RMS
     logit difference of the plain bf16 path from fp32 (its rounding
     noise, which the kernels do not enter), and at least 0.1; the argmax
-    must agree on every clear prompt, and at least 1/16 of the prompts
-    (4 at least) must be clear. Near ties are reported."""
+    must agree on every clear prompt, and at least ``min_clear`` prompts
+    (default 1/16 of them, 4 at least) must be clear. Near ties are
+    reported. ``max_rel=None`` sets no bound on the kernel-vs-plain
+    distance (a model whose bf16 rounding noise swamps its logits)."""
     rng = torch.Generator().manual_seed(7)
     prompts = torch.randint(0, cfg.vocab_size, (n_prompts, length),
                             generator=rng, dtype=torch.int32).cuda()
@@ -537,7 +734,8 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
                               rel("plain", "fp32"))
     rms_pf = float((last["plain"] - last["fp32"]).pow(2).mean().sqrt())
     thr = max(0.1, 5 * rms_pf)
-    min_clear = max(4, n_prompts // 16)
+    if min_clear is None:
+        min_clear = max(4, n_prompts // 16)
     top2 = last["plain"].topk(2, dim=-1).values
     gap = top2[:, 0] - top2[:, 1]
     arg = {k: last[k].argmax(-1) for k in last}
@@ -555,7 +753,9 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
           f"{int((arg['kernels'] == arg['fp32']).sum())}/{n_prompts}; plain "
           f"top-2 gaps {[round(float(g), 3) for g in gap]}", flush=True)
     assert torch.isfinite(last["kernels"]).all(), "non-finite prefill logits"
-    assert float(rel_kp.max()) < max_rel, f"prefill logits differ: {rel_kp}"
+    if max_rel is not None:
+        assert float(rel_kp.max()) < max_rel, \
+            f"prefill logits differ: {rel_kp}"
     if max_mean_rel is not None:
         assert float(rel_kp.mean()) < max_mean_rel, \
             f"prefill logits differ on average: {rel_kp}"
@@ -564,6 +764,70 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
     assert int(clear.sum()) >= min_clear, f"too few clear prompts {gap}"
     assert bool((arg["kernels"] == arg["plain"])[clear].all()), \
         f"argmax differs on a clear prompt: {arg}, gaps {gap}"
+
+
+def check_layers(torch, lm, cfg, params, n_prompts: int = 16,
+                 length: int = 100):
+    """Teacher-forced, layer by layer: every layer takes the plain path's
+    hidden state as its input and runs three ways on it, through the
+    kernels, the plain policy, and the plain policy computing in fp32 on
+    the same bf16 weights; its update (output - input) is compared per
+    token (rel L2 over d_model). Unlike the last-position logits, no
+    layer inherits the rounding of the layers before it, so a model
+    whose bf16 paths drift apart with depth (a routing near-tie flips a
+    token's experts, a recurrence carries every perturbation forward) is
+    still held layer by layer. Per layer: all finite; the kernels' median
+    token no further from fp32 than 1.5x the plain path's, and under
+    5e-2 (a few bf16 steps); at most 2% of the tokens further than 0.1
+    from the plain path (a routing flip moves a token by ~1)."""
+    rng = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (n_prompts, length),
+                            generator=rng, dtype=torch.int32).cuda()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    paths = (("kernels", "auto", cfg), ("plain", "ref", cfg),
+             ("fp32", "ref", cfg32))
+    caches = {name: lm.init_cache(c, n_prompts, length, device="cuda")
+              for name, _, c in paths}
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).flatten()
+
+    worst = []
+    with torch.inference_mode():
+        x = lm._embed(params, prompts, cfg)
+        for i in range(cfg.num_layers):
+            spec, p = cfg.layer_spec(i), lm._layer(params, cfg, i)
+            upd = {}
+            for name, policy, c in paths:
+                xin = x.to(getattr(torch, c.dtype))
+                y = lm._apply_layer(p, xin, c, spec, policy,
+                                    caches[name].layer(i), "prefill")
+                upd[name] = y.float() - xin.float()
+                if name == "plain":
+                    x_next = y
+            r_kf, r_pf = rel(upd["kernels"], upd["fp32"]), \
+                rel(upd["plain"], upd["fp32"])
+            r_kp = rel(upd["kernels"], upd["plain"])
+            far = float((r_kp > 0.1).float().mean())
+            med_k, med_p = float(r_kf.median()), float(r_pf.median())
+            print(f"layer {i:2d} {spec.mixer:5s}+{spec.ffn:3s}: update rel "
+                  f"L2 vs fp32 median kernels {med_k:.3e} plain "
+                  f"{med_p:.3e}, mean {float(r_kf.mean()):.3e} / "
+                  f"{float(r_pf.mean()):.3e}; kernels vs plain median "
+                  f"{float(r_kp.median()):.3e}, > 0.1 on {far:.2%} of "
+                  f"{r_kp.numel()} tokens", flush=True)
+            assert all(bool(torch.isfinite(u).all()) for u in upd.values()), \
+                f"layer {i}: non-finite update"
+            assert med_k <= 1.5 * med_p and med_k < 5e-2, \
+                f"layer {i}: kernels' update off ({med_k} vs plain {med_p})"
+            assert far <= 0.02, f"layer {i}: {far:.2%} of tokens moved"
+            worst.append(med_k)
+            x = x_next
+    del caches
+    torch.cuda.empty_cache()
+    print(f"layers {cfg.name}: teacher-forced per-layer check passed on "
+          f"{n_prompts} prompts x {length} tokens; largest median update "
+          f"rel L2 of the kernels vs fp32 {max(worst):.3e}", flush=True)
 
 
 def _map(tree, fn):
@@ -622,18 +886,116 @@ def make_prompts(torch, vocab: int, seed: int = 11):
                           dtype=torch.int32).numpy() for n in lens]
 
 
+def serve_run(torch, runs, card, name, run_cfg, p, prompts, **engine_kw):
+    """Serve the 6 requests (24 new tokens each) with every launch counter
+    reset just before and read just after; the result goes to
+    ``runs[name]``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import xaif
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.scheduler import Request, serve
+
+    requests = [Request(rid=i, prompt=pr, max_new_tokens=24)
+                for i, pr in enumerate(prompts)]
+    engine = SlotEngine(RunConfig(arch=run_cfg), capacity=4, max_len=160,
+                        chunk=8, prompt_bucket=16, **engine_kw)
+    torch.cuda.synchronize()
+    xaif.reset_launch_counts()
+    report = serve(engine, p, requests)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in xaif.launch_counts().items() if n}
+    steps = engine.decode_calls * engine.chunk
+    assert len(report.served) == 6, [r.reject_reason for r in requests]
+    for r in requests:
+        assert len(r.tokens) == 24 and all(
+            0 <= t < run_cfg.vocab_size for t in r.tokens), (r.rid, r.tokens)
+    lat = report.latency_percentiles()
+    print(f"serve {name}: 6/6 served, 24 tokens each, "
+          f"{report.tokens_per_s:.1f} tok/s p50={lat['p50'] * 1e3:.0f}ms "
+          f"p99={lat['p99'] * 1e3:.0f}ms over {steps} decode steps "
+          f"(rounds) and {engine.prefill_calls} prefills; launches "
+          f"{launches}; stats {report.stats} on {card}", flush=True)
+    runs[name] = dict(tokens=[r.tokens for r in requests],
+                      launches=launches, steps=steps, report=report,
+                      prefills=engine.prefill_calls)
+    return runs[name]
+
+
+def run_jamba(torch, run_serve, t_start):
+    """Phases 9-10: jamba-v0.1-52b at full width cut to two super-blocks
+    (16 layers: 14 Mamba, 2 attention, 8 MoE of 16 experts x 14336 top-2,
+    8 dense MLPs; exit at layer 8; 26.05 B params, 48.5 GiB bf16). The
+    prefill of 64 prompts through the kernels, the plain policy and the
+    plain policy computing in fp32 on the same bf16 weights (an fp32 copy
+    would not fit beside them), end to end and layer by layer; then the
+    6-request serve: request 0 == ``generate`` bitwise, and every kernel of
+    the path launched in it."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, generate
+
+    jb = dataclasses.replace(get_arch("jamba-v0.1-52b"), num_layers=16)
+    t0 = time.perf_counter()
+    jparams = lm.init_lm(jb, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(jparams))
+    mixers = [jb.layer_spec(i).mixer for i in range(jb.num_layers)]
+    n_mamba, n_attn = mixers.count("mamba"), mixers.count("attn")
+    n_moe = sum(jb.layer_spec(i).ffn == "moe" for i in range(jb.num_layers))
+    print(f"{jb.name}: {jb.num_layers} of 32 layers (two super-blocks: "
+          f"{n_mamba} Mamba, {n_attn} attention, {n_moe} MoE of "
+          f"{jb.moe.num_experts} experts top-{jb.moe.top_k}) d_model="
+          f"{jb.d_model} {n_params / 1e9:.3f}B params ({jb.dtype}) "
+          f"initialised in {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    # End to end the two bf16 paths drift apart with depth on random
+    # weights (a routing near-tie, then the recurrence and attention carry
+    # the difference to the last token): the plain path's RMS logit
+    # distance from fp32 exceeds every prompt's top-2 gap, so no prompt is
+    # clear and no distance bound would hold (PERF.md). End to end the
+    # kernels must stay finite and no further from fp32 than 1.5x the plain
+    # path; layer by layer, teacher-forced, they are held to bf16 accuracy
+    check_prefill(torch, lm, jb, jparams, n_prompts=64, fp32_copy=False,
+                  max_rel=None, min_clear=0)
+    check_layers(torch, lm, jb, jparams)
+
+    prompts = make_prompts(torch, jb.vocab_size)
+    run = run_serve("jamba-contiguous", jb, jparams, prompts)
+    steps, prefills, lc = run["steps"], run["prefills"], run["launches"]
+    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode",
+                       "moe_decode", "entropy_exit", "ssm_scan",
+                       "ssm_decode"}, lc
+    assert lc["ssm_decode"] == n_mamba * steps, lc
+    assert lc["moe_decode"] == n_moe * steps, lc
+    assert lc["attn_decode"] == n_attn * steps, lc
+    assert lc["entropy_exit"] == steps, lc
+    assert lc["ssm_scan"] == n_mamba * prefills, lc
+    assert lc["attention"] == n_attn * prefills, lc
+    ref_toks, _ = generate(jb, jparams, prompts[0][None], 24)
+    assert ref_toks[0].tolist() == run["tokens"][0], (
+        "jamba engine tokens differ from generate", ref_toks[0].tolist(),
+        run["tokens"][0])
+    print(f"serve jamba-contiguous: request 0 == generate, bitwise; "
+          f"{n_mamba} ssm_decode, {n_moe} moe_decode, {n_attn} attn_decode "
+          f"a step, {n_mamba} ssm_scan and {n_attn} attention a prefill",
+          flush=True)
+    profile_decode(torch, jb.name, SlotEngine(jb, capacity=4, max_len=160,
+                                              chunk=8), jparams, prompts)
+    print(f"jamba phases done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+
+
 def main() -> int:
 
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs on a CUDA card")
-    from repro_torch.configs.base import RunConfig, get_arch
-    from repro_torch.core import xaif
+    from repro_torch.configs.base import get_arch
     from repro_torch.kernels import _build
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
-    from repro_torch.serve.scheduler import Request, serve
 
     # -- 1. setup -----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -663,36 +1025,9 @@ def main() -> int:
     prompts = make_prompts(torch, cfg.vocab_size)
     runs = {}
 
-    def serve_run(name, run_cfg, p, prompts, **engine_kw):
-        """Serve the 6 requests (24 new tokens each) with every launch
-        counter reset just before and read just after."""
-        requests = [Request(rid=i, prompt=pr, max_new_tokens=24)
-                    for i, pr in enumerate(prompts)]
-        engine = SlotEngine(RunConfig(arch=run_cfg), capacity=4, max_len=160,
-                            chunk=8, prompt_bucket=16, **engine_kw)
-        torch.cuda.synchronize()
-        xaif.reset_launch_counts()
-        report = serve(engine, p, requests)
-        torch.cuda.synchronize()
-        launches = {k: n for k, n in xaif.launch_counts().items() if n}
-        steps = engine.decode_calls * engine.chunk
-        assert len(report.served) == 6, [r.reject_reason for r in requests]
-        for r in requests:
-            assert len(r.tokens) == 24 and all(
-                0 <= t < run_cfg.vocab_size for t in r.tokens), (r.rid,
-                                                                 r.tokens)
-        lat = report.latency_percentiles()
-        print(f"serve {name}: 6/6 served, 24 tokens each, "
-              f"{report.tokens_per_s:.1f} tok/s p50={lat['p50'] * 1e3:.0f}ms "
-              f"p99={lat['p99'] * 1e3:.0f}ms over {steps} decode steps "
-              f"(rounds) and {engine.prefill_calls} prefills; launches "
-              f"{launches}; stats {report.stats} on {card}", flush=True)
-        runs[name] = dict(tokens=[r.tokens for r in requests],
-                          launches=launches, steps=steps, report=report,
-                          prefills=engine.prefill_calls)
-        return runs[name]
+    run_serve = functools.partial(serve_run, torch, runs, card)
 
-    plain = serve_run("contiguous", cfg, params, prompts)
+    plain = run_serve("contiguous", cfg, params, prompts)
     assert set(plain["launches"]) == {"gemm", "rmsnorm", "attention",
                                       "attn_decode", "entropy_exit"}, plain
     assert plain["launches"]["attn_decode"] == \
@@ -707,7 +1042,7 @@ def main() -> int:
 
     # -- 5. the paged engine: 24 usable pages for 4 slots that could ask
     #    for 40; tokens equal the contiguous engine's, bitwise -------------
-    paged = serve_run("paged", cfg, params, prompts, paged=True,
+    paged = run_serve("paged", cfg, params, prompts, paged=True,
                       page_size=16, num_pages=25)
     assert paged["tokens"] == plain["tokens"], "paged tokens differ"
     assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
@@ -720,8 +1055,8 @@ def main() -> int:
     # -- 6. greedy speculative decoding, against plain greedy on yi-9b
     #    without its exit heads (the same weights) -------------------------
     cfg_ne = dataclasses.replace(cfg, early_exit=None)
-    greedy = serve_run("plain-noexit", cfg_ne, params, prompts)
-    tied = serve_run("spec-tied-paged", cfg_ne, params, prompts, paged=True,
+    greedy = run_serve("plain-noexit", cfg_ne, params, prompts)
+    tied = run_serve("spec-tied-paged", cfg_ne, params, prompts, paged=True,
                      page_size=16, num_pages=25,
                      spec=SpecConfig(draft_arch=cfg_ne, k=3,
                                      share_params=True))
@@ -731,7 +1066,7 @@ def main() -> int:
     assert tied["launches"]["verify_decode_paged"] == \
         cfg.num_layers * tied["steps"], tied["launches"]
     draft = dataclasses.replace(cfg_ne, name="yi-9b-draft-2l", num_layers=2)
-    indep = serve_run("spec-draft2l-contiguous", cfg_ne, params, prompts,
+    indep = run_serve("spec-draft2l-contiguous", cfg_ne, params, prompts,
                       spec=SpecConfig(draft_arch=draft, k=3, draft_seed=1))
     assert indep["tokens"] == greedy["tokens"], "independent spec differs"
     assert indep["launches"]["verify_decode"] == \
@@ -778,7 +1113,7 @@ def main() -> int:
 
     # -- 8. serve deepseek: contiguous KV, greedy, request 0 == generate ---
     ds_prompts = make_prompts(torch, ds.vocab_size)
-    mla = serve_run("deepseek-contiguous", ds, dparams, ds_prompts)
+    mla = run_serve("deepseek-contiguous", ds, dparams, ds_prompts)
     steps, n_moe = mla["steps"], ds.num_layers - ds.first_k_dense
     assert set(mla["launches"]) == {
         "gemm", "gemm_heads", "rmsnorm", "attention", "attn_decode",
@@ -798,10 +1133,16 @@ def main() -> int:
     profile_decode(torch, ds.name, SlotEngine(ds, capacity=4, max_len=160,
                                               chunk=8), dparams, ds_prompts)
     print(f"serve deepseek-contiguous: request 0 == generate, bitwise; "
-          f"all phases done at {time.perf_counter() - t_start:.1f}s",
+          f"deepseek phases done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
-    # -- 9. the kernels line, the card, the verdict -------------------------
+    # -- 9-10. jamba-v0.1-52b, two super-blocks: deepseek's 29.4 GiB are
+    #    freed before jamba's 48.5 GiB are built -------------------------
+    del dparams, ref_toks
+    torch.cuda.empty_cache()
+    run_jamba(torch, run_serve, t_start)
+
+    # -- 11. the kernels line, the card, the verdict -------------------------
     replaces = {   # kernel: (what it replaces, source, run, counter)
         "gemm": ("kernels/gemm/gemm.py:48", "gemm", "contiguous", "gemm"),
         "rmsnorm": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm", "contiguous",
@@ -835,6 +1176,13 @@ def main() -> int:
         # no Pallas kernel: the absorbed decode's two fp32 einsums
         "gemm_heads": ("models/attention.py:549", "gemm",
                        "deepseek-contiguous", "gemm_heads"),
+        "ssm_scan": ("kernels/ssm_scan/ssm_scan.py:63", "ssm_scan",
+                     "jamba-contiguous", "ssm_scan"),
+        "ssm_decode": ("kernels/ssm_decode/ssm_decode.py:43", "ssm_decode",
+                       "jamba-contiguous", "ssm_decode"),
+        # moe_decode at jamba's h = 14336 (the chunked down pass)
+        "moe_decode_jamba": ("kernels/moe_decode/moe_decode.py:46",
+                             "moe_decode", "jamba-contiguous", "moe_decode"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",

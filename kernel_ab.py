@@ -1,18 +1,29 @@
 #!/usr/bin/env python3
-"""Hold this checkout's decode-attention kernel against another
-checkout's, on one CUDA card: bit for bit, and timed in turns.
+"""Hold one of this checkout's decode kernels against another checkout's,
+on one CUDA card: bit for bit, and timed in turns.
 
-    python3 kernel_ab.py --baseline DIR    # DIR: the root of another checkout
+    python3 kernel_ab.py --baseline DIR                        # attn_decode
+    python3 kernel_ab.py --baseline DIR --kernel moe_decode
 
-Builds ``DIR/src/repro_torch/csrc/attn_decode.cu`` with this checkout's nvcc
-flags into ``build/ab/`` and calls it through its C entry point (the same
-``attn_decode_launch`` signature); this checkout's ``attn_decode`` runs
-through its wrapper. At each shape (bf16, the serving path's GQA widths)
-both must give the same bits, and this checkout's ``attn_decode_paged`` on
-the same KV behind a shuffled page table must too. Then baseline, change,
-paged, paged, change, baseline are timed (median of 20 cold-L2 calls each,
-CUDA events): one JSON line per shape, then the card's name and power
-limit.
+DIR is the root of another checkout. Its ``csrc/<kernel>.cu`` is built
+with this checkout's nvcc flags into ``build/ab/`` and called through its
+C entry point (the same signature); this checkout's kernel runs through
+its wrapper.
+
+``attn_decode``: at each shape (bf16, the serving path's GQA widths) both
+must give the same bits, and this checkout's ``attn_decode_paged`` on the
+same KV behind a shuffled page table must too. Then baseline, change,
+paged, paged, change, baseline are timed.
+
+``moe_decode``: at deepseek-v2-lite-16b's serving shapes (d 2048, 64
+experts of 1408, top-6; 4 live slots, one slot, and a dead slot with a
+repeated expert) both must give the same bits; baseline, change, change,
+baseline are timed. At jamba-v0.1-52b's shape (d 4096, 16 experts of
+14336, top-2) the baseline's launch status is reported beside the
+change's time.
+
+Times are medians of 20 cold-L2 calls each (CUDA events): one JSON line
+per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -33,36 +44,54 @@ SHAPES = ((4, 160, (19, 75, 130, 159)),
 HQ, HKV, D, PS = 32, 4, 128, 16
 
 
-def build_baseline(baseline: Path) -> ctypes.CDLL:
+def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
     from repro_torch.kernels._build import NVCC_FLAGS, _nvcc
     csrc = baseline / "src" / "repro_torch" / "csrc"
-    out = ROOT / "build" / "ab" / "attn_decode_baseline.so"
+    out = ROOT / "build" / "ab" / f"{kernel}_baseline.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
-                    str(csrc / "attn_decode.cu")], check=True)
+                    str(csrc / f"{kernel}.cu")], check=True)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attn_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i,
-                                       ctypes.c_float, i, p]
-    lib.attn_decode_launch.restype = i
+    if kernel == "attn_decode":
+        lib.attn_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                           ctypes.c_float, i, p]
+        lib.attn_decode_launch.restype = i
+    else:
+        lib.moe_decode_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.moe_decode_launch.restype = i
+    lib.kernel_error_string.argtypes = [i]
+    lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True)
+    ap.add_argument("--kernel", choices=("attn_decode", "moe_decode"),
+                    default="attn_decode")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA card")
     from chip_smoke import Timer, card_line
+
+    base = build_baseline(args.baseline.resolve(), args.kernel)
+    timer = Timer(torch)
+    ab = ab_attn_decode if args.kernel == "attn_decode" else ab_moe_decode
+    rows = ab(torch, base, timer)
+    print(card_line())
+    ok = all(r["bitwise"] for r in rows)
+    print(json.dumps({"ok": ok, "kernel": args.kernel, "rows": len(rows)}))
+    return 0 if ok else 1
+
+
+def ab_attn_decode(torch, base, timer):
     from repro_torch.kernels._build import stream_ptr
     from repro_torch.kernels.attn_decode.ops import attn_decode
     from repro_torch.kernels.paged_attention.ops import attn_decode_paged
 
-    base = build_baseline(args.baseline.resolve())
-    timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for b, s, cps in SHAPES:
@@ -105,15 +134,87 @@ def main() -> int:
         t = [timer(fn, iters=20) for fn in (run_base, run_new, run_paged,
                                             run_paged, run_new, run_base)]
         row = dict(shape=f"q[{b},{HQ},{D}] kv[{b},{HKV},{s},{D}] "
-                   f"cache_pos {list(cps)}", bitwise=same,
-                   bitwise_paged=same_paged, baseline_ms=[t[0], t[5]],
-                   change_ms=[t[1], t[4]], paged_ms=[t[2], t[3]])
+                   f"cache_pos {list(cps)}", bitwise=same and same_paged,
+                   bitwise_contiguous=same, bitwise_paged=same_paged,
+                   baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
+                   paged_ms=[t[2], t[3]])
         print(json.dumps(row), flush=True)
         rows.append(row)
-    print(card_line())
-    ok = all(r["bitwise"] and r["bitwise_paged"] for r in rows)
-    print(json.dumps({"ok": ok, "rows": len(rows)}))
-    return 0 if ok else 1
+    return rows
+
+
+def ab_moe_decode(torch, base, timer):
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.moe_decode.ops import moe_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    def weights(e, d, h):
+        return (randn(e, d, h, scale=d ** -0.5),
+                randn(e, d, h, scale=d ** -0.5),
+                randn(e, h, d, scale=h ** -0.5))
+
+    def routing(b, e, k):
+        probs = torch.softmax(randn(b, e, dtype=f32), -1)
+        gate, idx = torch.topk(probs, k, dim=-1)
+        return (gate / gate.sum(-1, keepdim=True)).contiguous(), \
+            idx.to(torch.int32).contiguous()
+
+    def run_base(x, idx, gate, wg, wu, wd):
+        (b, d), k, (e, _, h) = x.shape, idx.shape[1], wg.shape
+        hidden = torch.empty(b * k, h, dtype=f32, device="cuda")
+        tok = torch.empty(b * k, d, dtype=f32, device="cuda")
+        out = torch.empty(b, d, dtype=f32, device="cuda")
+        rc = base.moe_decode_launch(
+            x.data_ptr(), idx.data_ptr(), gate.data_ptr(), wg.data_ptr(),
+            wu.data_ptr(), wd.data_ptr(), hidden.data_ptr(), tok.data_ptr(),
+            out.data_ptr(), b, k, e, d, h, 1, stream_ptr(x))
+        return rc, out
+
+    rows = []
+    w = weights(64, 2048, 1408)
+    gate, idx = routing(4, 64, 6)
+    dead_gate, dead_idx = gate.clone(), idx.clone()
+    dead_idx[0, 1] = dead_idx[0, 0]          # a repeated expert
+    dead_gate[3] = 0.0                       # a dead slot
+    cases = (("4 live slots", randn(4, 2048), gate, idx),
+             ("1 slot", randn(1, 2048), gate[:1].contiguous(),
+              idx[:1].contiguous()),
+             ("repeated expert, dead slot", randn(4, 2048), dead_gate,
+              dead_idx))
+    for what, x, g, i in cases:
+        rc, want = run_base(x, i, g, *w)
+        assert rc == 0, base.kernel_error_string(rc)
+        same = torch.equal(moe_decode(x, i, g, *w), want)
+        torch.cuda.synchronize()
+        t = [timer(fn, iters=20) for fn in (
+            lambda: run_base(x, i, g, *w), lambda: moe_decode(x, i, g, *w),
+            lambda: moe_decode(x, i, g, *w), lambda: run_base(x, i, g, *w))]
+        row = dict(shape=f"x[{x.shape[0]},2048] top-6 of 64 experts "
+                   f"[2048,1408], {what}", bitwise=same,
+                   baseline_ms=[t[0], t[3]], change_ms=[t[1], t[2]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    del w
+    torch.cuda.empty_cache()
+
+    # jamba's shape: the baseline stages whole hidden rows of 14336 in
+    # shared memory and cannot launch; the change runs
+    w = weights(16, 4096, 14336)
+    gate, idx = routing(4, 16, 2)
+    x = randn(4, 4096)
+    t = timer(lambda: moe_decode(x, idx, gate, *w), iters=20)
+    rc, _ = run_base(x, idx, gate, *w)
+    torch.cuda.synchronize()
+    status = "ok" if rc == 0 else base.kernel_error_string(rc).decode()
+    print(json.dumps(dict(shape="x[4,4096] top-2 of 16 experts [4096,14336]",
+                          baseline_launch=status, change_ms=t)), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 
 A copy of the JAX package's ``repro.configs.base`` dataclasses, cut to what
 the port serves today: decoder-only LMs with entropy early exits, dense
-(GQA + SwiGLU) or DeepSeek-style (MLA + top-k MoE after dense prefix
-layers).
+(GQA + SwiGLU), DeepSeek-style (MLA + top-k MoE after dense prefix
+layers) or hybrid (Jamba: Mamba and attention mixers in a period-8
+pattern, MLP and MoE channel mixers).
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
@@ -61,15 +62,26 @@ class MLAConfig:
     v_head_dim: int = 128
 
 
-MIXERS = ("attn",)
+@dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-1 selective SSM mixer."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2                    # d_inner = expand * d_model
+    dt_rank: int = 0                   # 0 => ceil(d_model / 16)
+
+
+MIXERS = ("attn", "mamba")
 FFNS = ("mlp", "moe")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 @dataclass(frozen=True)
 class BlockSpec:
     """One layer = (sequence mixer, channel mixer). The port runs attention
-    (GQA, or MLA when the arch has ``mla``) with a SwiGLU MLP or an MoE."""
+    (GQA, or MLA when the arch has ``mla``) or a Mamba mixer, with a SwiGLU
+    MLP or an MoE."""
 
     mixer: str
     ffn: str
@@ -100,6 +112,7 @@ class ArchConfig:
     qkv_bias: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
     early_exit: Optional[EarlyExitConfig] = None
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -114,6 +127,10 @@ class ArchConfig:
                 self.moe is not None):
             raise ValueError(f"{self.name}: MoE blocks need a MoEConfig "
                              f"and a MoEConfig needs MoE blocks")
+        if any(b.mixer == "mamba" for b in self.block_pattern) != (
+                self.mamba is not None):
+            raise ValueError(f"{self.name}: Mamba blocks need a MambaConfig "
+                             f"and a MambaConfig needs Mamba blocks")
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: num_heads % num_kv_heads != 0")
         if (self.num_layers - self.first_k_dense) % len(self.block_pattern):
@@ -127,6 +144,13 @@ class ArchConfig:
     @property
     def num_superblocks(self) -> int:
         return (self.num_layers - self.first_k_dense) // self.period
+
+    @property
+    def recurrent(self) -> bool:
+        """True when a layer carries recurrent state (a Mamba mixer): its
+        prefill must run at the exact prompt length, and the paged engine
+        and speculative decoding are not ported for it."""
+        return any(b.mixer != "attn" for b in self.block_pattern)
 
     def layer_spec(self, i: int) -> BlockSpec:
         """BlockSpec of absolute layer index i (prefix layers take the
@@ -155,6 +179,8 @@ class ArchConfig:
             changes["mla"] = MLAConfig(
                 kv_lora_rank=32, q_lora_rank=0, qk_nope_head_dim=16,
                 qk_rope_head_dim=8, v_head_dim=16)
+        if self.mamba is not None:
+            changes["mamba"] = dataclasses.replace(self.mamba, d_state=8)
         if self.early_exit is not None:
             # keep a single exit aligned to the reduced depth
             nl = changes["num_layers"]
@@ -195,6 +221,7 @@ def register_arch(fn):
 def _register_builtin() -> None:
     # each config module registers itself when imported
     from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401
+    from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
     from repro_torch.configs import yi_9b  # noqa: F401
 
 

@@ -2,7 +2,8 @@
 
 The JAX package dispatches each op (``gemm``, ``rmsnorm``, ``attention``,
 ``attn_decode``, ``attn_decode_paged``, ``verify_decode``,
-``verify_decode_paged``, ``entropy_exit``, ``moe_decode``) through
+``verify_decode_paged``, ``entropy_exit``, ``moe_decode``, ``ssm_scan``,
+``ssm_decode``) through
 ``repro.core.xaif`` to a pure-jnp ``ref`` backend or a Pallas TPU kernel.
 Here every op has
 
@@ -61,6 +62,8 @@ def _ensure_builtin_ops() -> None:
     from repro_torch.kernels.moe_decode import ops as _moe     # noqa: F401
     from repro_torch.kernels.paged_attention import ops as _pa  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _rn         # noqa: F401
+    from repro_torch.kernels.ssm_decode import ops as _sd      # noqa: F401
+    from repro_torch.kernels.ssm_scan import ops as _ss        # noqa: F401
     from repro_torch.kernels.verify_decode import ops as _vd   # noqa: F401
     _BUILTINS.append(True)
 

@@ -23,6 +23,10 @@
 //      [B * K, h] buffer.
 //   2. down: the same over (expert, tile of 64 output columns) with Wd_e:
 //      tok[a, c] = hidden[a] . Wd_e[:, c], to a scratch [B * K, d] buffer.
+//      The hidden rows are staged kHChunk columns at a time (at Jamba's h =
+//      14336 four whole rows would need 224 KiB of shared memory, past
+//      what a block may have beside the static arrays); each warp keeps its
+//      sums in registers across the chunks, in the same order.
 //   3. combine: out[b] = sum_j gate[b, j] * tok[b * K + j], j = 0 .. K-1 in
 //      order (the JAX ref's order); a zero gate adds nothing.
 //
@@ -39,6 +43,11 @@
 constexpr int kThreads = 256, kWarps = kThreads / 32, kTile = 64;
 constexpr int kMaxRows = 4;         // assignments a block computes at once
 constexpr int kMaxAssign = 2048;    // B * K a launch may carry
+// hidden columns the down pass stages in shared memory at a time: a
+// multiple of kWarps, so row k stays on warp k % 8 across the chunks
+// (4 x 2048 fp32 = 32 KiB beside 16 KiB of static shared memory)
+constexpr int kHChunk = 2048;
+static_assert(kHChunk % kWarps == 0, "a chunk must keep row k on warp k % 8");
 
 __device__ __forceinline__ void load2(const float* p, float& a, float& b) {
   const float2 v = *reinterpret_cast<const float2*>(p);
@@ -66,40 +75,60 @@ __device__ int collect(const int* __restrict__ idx,
   return *count;
 }
 
-// Partial products of up to kMaxRows input rows (staged in `in`, row
-// stride `len`) with the [len, n_cols] panel `w` at columns col0 .. col0 +
-// 63: warp w takes rows w, w + 8, ..., lane l columns col0 + 2l, + 2l + 1.
-// Leaves each warp's partial sums in red[warp][row][column].
+// Accumulates the partial products of up to kMaxRows input rows with the
+// [len, n_cols] panel `w` at columns col0 .. col0 + 63, over the panel
+// rows k0 .. k1 - 1, into the caller's registers: warp w takes rows k
+// with k % 8 == w (k0 must be a multiple of 8), lane l columns col0 + 2l
+// and + 2l + 1. The rows are staged in `in` (row r at in[r * stride + k -
+// k0]). Called over consecutive chunks of k, each acc[r][c] adds its
+// products in the one order k = w, w + 8, ... whatever the chunking.
 template <typename T>
-__device__ __forceinline__ void panel_partials(const float* in, int len,
-                                               int nr, const T* __restrict__ w,
-                                               int n_cols, int col0,
-                                               float (*red)[kMaxRows][kTile]) {
+__device__ __forceinline__ void panel_accumulate(const float* in, int stride,
+                                                 int k0, int k1, int nr,
+                                                 const T* __restrict__ w,
+                                                 int n_cols, int col0,
+                                                 float (&acc)[kMaxRows][2]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = col0 + 2 * lane;
-  float acc[kMaxRows][2];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r][0] = acc[r][1] = 0.f;
-  if (c < n_cols) {
+  if (c >= n_cols) return;
 #pragma unroll 4
-    for (int k = warp; k < len; k += kWarps) {
-      float w0, w1;
-      load2(w + (size_t)k * n_cols + c, w0, w1);
+  for (int k = k0 + warp; k < k1; k += kWarps) {
+    float w0, w1;
+    load2(w + (size_t)k * n_cols + c, w0, w1);
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < nr) {
-          const float xv = in[r * len + k];
-          acc[r][0] = fmaf(xv, w0, acc[r][0]);
-          acc[r][1] = fmaf(xv, w1, acc[r][1]);
-        }
+    for (int r = 0; r < kMaxRows; ++r) {
+      if (r < nr) {
+        const float xv = in[r * stride + k - k0];
+        acc[r][0] = fmaf(xv, w0, acc[r][0]);
+        acc[r][1] = fmaf(xv, w1, acc[r][1]);
       }
     }
   }
+}
+
+// Leaves each warp's partial sums in red[warp][row][column].
+__device__ __forceinline__ void store_partials(
+    const float (&acc)[kMaxRows][2], float (*red)[kMaxRows][kTile]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
     red[warp][r][2 * lane] = acc[r][0];
     red[warp][r][2 * lane + 1] = acc[r][1];
   }
+}
+
+// Partial products of the rows staged in `in` (row stride `len`) with the
+// whole [len, n_cols] panel, left in red[warp][row][column].
+template <typename T>
+__device__ __forceinline__ void panel_partials(const float* in, int len,
+                                               int nr, const T* __restrict__ w,
+                                               int n_cols, int col0,
+                                               float (*red)[kMaxRows][kTile]) {
+  float acc[kMaxRows][2];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) acc[r][0] = acc[r][1] = 0.f;
+  panel_accumulate(in, len, 0, len, nr, w, n_cols, col0, acc);
+  store_partials(acc, red);
 }
 
 // The warp partials of (row r, tile column c), added in warp order.
@@ -157,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ hidden,
                     const T* __restrict__ wd, float* __restrict__ tok, int BK,
                     int d, int h) {
-  extern __shared__ float hs[];                     // [kMaxRows, h]
+  extern __shared__ float hs[];                     // [kMaxRows, kHChunk]
   __shared__ int list[kMaxAssign];
   __shared__ int count;
   __shared__ float red[kWarps][kMaxRows][kTile];
@@ -165,15 +194,25 @@ __global__ void __launch_bounds__(kThreads)
   const int n = collect(idx, gate, BK, e, list, &count);
   if (n == 0) return;
   const T* wde = wd + (size_t)e * h * d;
+  const int hc = min(h, kHChunk);
   for (int a0 = 0; a0 < n; a0 += kMaxRows) {
     const int nr = min(kMaxRows, n - a0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * h; i += kThreads) {
-      const int r = i / h, k = i % h;
-      hs[i] = hidden[(size_t)list[a0 + r] * h + k];
+    float acc[kMaxRows][2];
+#pragma unroll
+    for (int r = 0; r < kMaxRows; ++r) acc[r][0] = acc[r][1] = 0.f;
+    // the hidden rows pass through shared memory kHChunk columns at a
+    // time; the accumulators stay in registers across the chunks
+    for (int k0 = 0; k0 < h; k0 += hc) {
+      const int k1 = min(h, k0 + hc), len = k1 - k0;
+      __syncthreads();                              // hs / red reusable
+      for (int i = threadIdx.x; i < nr * len; i += kThreads) {
+        const int r = i / len, k = i % len;
+        hs[r * hc + k] = hidden[(size_t)list[a0 + r] * h + k0 + k];
+      }
+      __syncthreads();
+      panel_accumulate(hs, hc, k0, k1, nr, wde, d, col0, acc);
     }
-    __syncthreads();
-    panel_partials(hs, h, nr, wde, d, col0, red);
+    store_partials(acc, red);
     __syncthreads();
     for (int i = threadIdx.x; i < nr * kTile; i += kThreads) {
       const int r = i / kTile, c = i % kTile;
@@ -209,7 +248,8 @@ static int launch(const void* x, const int* idx, const float* gate,
                   float* hidden, float* tok, float* out, int B, int K, int E,
                   int d, int h, cudaStream_t s) {
   const size_t up_smem = sizeof(float) * kMaxRows * d;
-  const size_t down_smem = sizeof(float) * kMaxRows * h;
+  const size_t down_smem =
+      sizeof(float) * kMaxRows * (h < kHChunk ? h : kHChunk);
   cudaError_t err = cudaFuncSetAttribute(
       moe_up_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)up_smem);

@@ -5,6 +5,8 @@ request-stream simulator over the continuous-batching slot engine.
         --requests 32 --capacity 8 --rate 4 [--threshold 0.9]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --device cpu
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency
@@ -19,8 +21,10 @@ draft arch (reduced, random weights) proposes N tokens per live slot per
 round and the target verifies them in one forward. Exit heads are stripped
 from target and draft (verification scores every position with full-model
 logits); ``--threshold`` is therefore rejected with ``--draft``. MLA
-archs (deepseek-v2-lite-16b) serve through the contiguous engine only:
-``--paged`` and ``--draft`` are rejected for them.
+archs (deepseek-v2-lite-16b) and archs with recurrent Mamba layers
+(jamba-v0.1-52b, prefilled at the exact prompt length) serve through the
+contiguous engine only: ``--paged`` and ``--draft`` are rejected for
+them.
 """
 from __future__ import annotations
 
@@ -72,6 +76,9 @@ def main(argv=None):
     if get_arch(args.arch).mla is not None and (args.paged or args.draft):
         ap.error(f"--arch {args.arch} is an MLA arch: the paged engine and "
                  f"speculative decoding are not ported for MLA yet")
+    if get_arch(args.arch).recurrent and args.paged:
+        ap.error(f"--arch {args.arch} has recurrent (Mamba) layers: "
+                 f"{lm.PAGED_HYBRID}")
     if args.spec_k is not None and not args.draft:
         ap.error("--spec-k requires --draft: k counts DRAFT proposals per "
                  "speculative round — name the draft arch")
@@ -82,6 +89,9 @@ def main(argv=None):
         if args.draft not in list_archs():
             ap.error(f"--draft {args.draft!r} is not a known arch "
                      f"(choices: {', '.join(list_archs())})")
+        if get_arch(args.arch).recurrent or get_arch(args.draft).recurrent:
+            ap.error(f"--draft: speculative decoding needs all-attention "
+                     f"target and draft archs: {lm.SPEC_RECURRENT}")
         if args.threshold is not None:
             ap.error("--draft cannot be combined with --threshold: "
                      "speculative serving strips the target's early-exit "

@@ -1,5 +1,6 @@
-"""Shared layer primitives: RMSNorm, rotary embeddings, the SwiGLU MLP and
-initializers (port of ``repro.models.layers``, dense path).
+"""Shared layer primitives: RMSNorm, rotary embeddings, the SwiGLU MLP, the
+depthwise causal conv of the Mamba mixer and initializers (port of
+``repro.models.layers``).
 
 Parameters are plain dicts of tensors, as the JAX package's pytrees, so
 ``convert.params_from_jax`` is copy-only. The perf-critical ops route
@@ -9,7 +10,7 @@ on the card.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -112,3 +113,37 @@ def apply_mlp(params, x: torch.Tensor, policy: str) -> torch.Tensor:
     u = xaif.call("gemm", policy, x, params["w_up"])
     # the product is taken in the activation dtype, as (g * u).astype(x.dtype)
     return xaif.call("gemm", policy, (g * u).to(x.dtype), params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Causal 1-D depthwise conv (Mamba front conv)
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen: torch.Generator, channels: int, kernel: int, dtype,
+                device) -> Dict[str, torch.Tensor]:
+    """w [K, C] ~ N(0, 1 / K), b [C] zeros."""
+    return {"w": normal_init(gen, (kernel, channels), kernel, dtype, device),
+            "b": torch.zeros(channels, dtype=dtype, device=device)}
+
+
+def apply_conv1d(params, x: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x [B, T, C]; state [B, K-1, C] carries the
+    left context for decode. Returns (y [B, T, C], new_state [B, K-1, C]).
+
+    The JAX order: the taps i = 0 .. K-1 are summed in fp32, then the
+    bias, then the cast to x's dtype. Plain element-wise work (as in
+    JAX): no kernel."""
+    w, b = params["w"], params["b"]
+    k, t = w.shape[0], x.shape[1]
+    if state is None:
+        state = torch.zeros(x.shape[0], k - 1, x.shape[-1], dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)          # [B, T+K-1, C]
+    y = xp[:, 0:t].float() * w[0].float()
+    for i in range(1, k):
+        y = y + xp[:, i:i + t].float() * w[i].float()
+    y = (y + b.float()).to(x.dtype)
+    return y, xp[:, xp.shape[1] - (k - 1):]

@@ -3,19 +3,23 @@ layers -> stacked layers (an early-exit head at each exit boundary) ->
 final norm -> unembed.
 
 Parameters keep the JAX package's tree: DeepSeek's ``first_k_dense``
-dense-MLP layers are a list ``params["prefix"]``; the other layers are
-stacked along a leading axis in ``params["slots"][0]`` (the port's block
-patterns have period 1, so the super-blocks are the layers), every matrix
-in the ``[K, N]`` layout, so loading JAX parameters is copy-only. A layer
-is attention (GQA, or MLA when the arch has ``mla``) followed by a SwiGLU
-MLP or an MoE.
+dense-MLP layers are a list ``params["prefix"]``; the other layers repeat
+the block pattern of period P, and ``params["slots"]`` holds one stack
+``[n_superblocks, ...]`` per pattern slot (layer i >= first_k_dense is
+row ``(i - kd) // P`` of slot ``(i - kd) % P``), every matrix in the
+``[K, N]`` layout, so loading JAX parameters is copy-only. A layer is a
+sequence mixer -- attention (GQA, or MLA when the arch has ``mla``) or a
+Mamba mixer -- followed by a SwiGLU MLP or an MoE.
 
-The cache holds every layer's state stacked along a leading axis in
-absolute layer order (prefix layers first): one ``[L, B, Hkv, S, D]``
-tensor each for K and V, or for MLA one ``[L, B, S, r]`` latent and one
-``[L, B, S, rd]`` rotary key (``LMCache``); or one ``[L, P, Hkv, ps, D]``
-page pool each for K and V with a ``[B, max_pages]`` page table
-(``PagedLMCache``, GQA only). Layer i reads and writes the view ``[i]``.
+The cache holds each kind of state stacked along a leading axis, layers in
+absolute order within their kind (prefix layers first): for the attention
+layers one ``[La, B, Hkv, S, D]`` tensor each for K and V, or for MLA one
+``[La, B, S, r]`` latent and one ``[La, B, S, rd]`` rotary key; for the
+Mamba layers a conv window ``[Lm, B, K-1, Din]`` and an fp32 SSM state
+``[Lm, B, Din, N]`` (``LMCache``). Or, for attention-only GQA archs, one
+``[L, P, Hkv, ps, D]`` page pool each for K and V with a ``[B,
+max_pages]`` page table (``PagedLMCache``). ``cache.layer(i)`` is layer
+i's view, read and written in place.
 """
 from __future__ import annotations
 
@@ -28,15 +32,25 @@ from repro_torch.core import xaif
 from repro_torch.core.device import resolve_device
 from repro_torch.core.early_exit import apply_exit_head, init_exit_head
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, init_rmsnorm, rmsnorm)
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.period != 1:
-        raise ValueError(f"{cfg.name}: the port runs period-1 block "
-                         f"patterns")
+PAGED_HYBRID = ("the paged hybrid engine (attention pages + slot-indexed "
+                "Mamba state) is a later slice: ROADMAP.md queue 1.3, "
+                "'paged hybrid engine', after paged MLA")
+SPEC_RECURRENT = ("verify cannot roll a recurrent state back to the "
+                  "accepted prefix; the JAX package refuses it too: "
+                  "ROADMAP.md queue 1.10, 'speculative decoding for "
+                  "recurrent archs'")
+
+
+def _check_attention_only(cfg: ArchConfig, what: str, why: str) -> None:
+    if cfg.recurrent:
+        raise ValueError(f"{cfg.name}: {what} is not ported for archs with "
+                         f"recurrent (Mamba) layers: {why}")
 
 
 def _check_gqa(cfg: ArchConfig, what: str) -> None:
@@ -54,8 +68,12 @@ def _check_gqa(cfg: ArchConfig, what: str) -> None:
 def _init_layer(gen: Optional[torch.Generator], spec: BlockSpec,
                 cfg: ArchConfig, dtype, device) -> Dict:
     d = cfg.d_model
-    mixer = (attn.init_mla(gen, cfg, dtype, device) if cfg.mla is not None
-             else attn.init_attention(gen, cfg, dtype, device))
+    if spec.mixer == "mamba":
+        mixer = mamba_mod.init_mamba(gen, cfg, dtype, device)
+    elif cfg.mla is not None:
+        mixer = attn.init_mla(gen, cfg, dtype, device)
+    else:
+        mixer = attn.init_attention(gen, cfg, dtype, device)
     ffn = (moe_mod.init_moe(gen, cfg, dtype, device) if spec.ffn == "moe"
            else init_mlp(gen, d, cfg.d_ff, dtype, device))
     return {"ln1": init_rmsnorm(d, device), "mixer": mixer,
@@ -97,7 +115,6 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
     ``convert.params_from_jax`` instead. MoE routers are fp32, as in JAX.
     ``device="meta"`` gives the tree's shapes and dtypes without
     allocating (a full-size config's layout, checked on any machine)."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     gen = (None if device.type == "meta"
@@ -108,8 +125,10 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
         params["prefix"] = [_init_layer(gen, cfg.layer_spec(i), cfg, dtype,
                                         device)
                             for i in range(cfg.first_k_dense)]
-    params["slots"] = (_stacked_layers(gen, cfg.block_pattern[0], cfg,
-                                       cfg.num_superblocks, dtype, device),)
+    params["slots"] = tuple(_stacked_layers(gen, spec, cfg,
+                                            cfg.num_superblocks, dtype,
+                                            device)
+                            for spec in cfg.block_pattern)
     params["embed"] = embed_init(gen, cfg.vocab_size, d, dtype, device)
     params["final_norm"] = init_rmsnorm(d, device)
     params["unembed"] = dense_init(gen, d, cfg.vocab_size, dtype, device)
@@ -122,11 +141,12 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
 
 
 def _layer(params, cfg: ArchConfig, i: int):
-    """Absolute layer i's parameters: a prefix layer, or views into the
-    stacked slot weights."""
+    """Absolute layer i's parameters: a prefix layer, or views into row
+    ``(i - kd) // P`` of pattern slot ``(i - kd) % P``'s stack."""
     if i < cfg.first_k_dense:
         return params["prefix"][i]
-    return _map(params["slots"][0], lambda t: t[i - cfg.first_k_dense])
+    sb, j = divmod(i - cfg.first_k_dense, cfg.period)
+    return _map(params["slots"][j], lambda t: t[sb])
 
 
 # ---------------------------------------------------------------------------
@@ -135,15 +155,17 @@ def _layer(params, cfg: ArchConfig, i: int):
 
 
 def _segments(cfg: ArchConfig) -> List[Tuple[int, int, Optional[int]]]:
-    """[(sb_start, sb_end, exit_index_or_None), ...] over the stacked
-    layers (super-blocks; prefix layers excluded)."""
+    """[(sb_start, sb_end, exit_index_or_None), ...] over the super-blocks
+    (prefix layers excluded): super-block s runs layers kd + s * P ..
+    kd + (s + 1) * P - 1. An exit must sit on a super-block boundary."""
     n = cfg.num_superblocks
     exits = []
     if cfg.early_exit is not None:
         for i, el in enumerate(cfg.early_exit.exit_layers):
-            sb = (el - cfg.first_k_dense) // cfg.period
-            if not 0 < sb <= n:
-                raise ValueError(f"{cfg.name}: exit layer {el} out of range")
+            sb, off = divmod(el - cfg.first_k_dense, cfg.period)
+            if not 0 < sb <= n or off:
+                raise ValueError(f"{cfg.name}: exit layer {el} is not on a "
+                                 f"super-block boundary in range")
             exits.append((sb, i))
     segs: List[Tuple[int, int, Optional[int]]] = []
     prev = 0
@@ -161,51 +183,77 @@ def _segments(cfg: ArchConfig) -> List[Tuple[int, int, Optional[int]]]:
 
 
 class LMCache(NamedTuple):
-    k: Optional[torch.Tensor]          # [L, B, Hkv, S, D] (GQA)
-    v: Optional[torch.Tensor]          # [L, B, Hkv, S, D] (GQA)
     pos: torch.Tensor                  # [B] int32 current lengths
-    c_kv: Optional[torch.Tensor] = None      # [L, B, S, r] (MLA)
-    k_rope: Optional[torch.Tensor] = None    # [L, B, S, rd] (MLA)
+    mixers: Tuple[str, ...]            # layer i's mixer, "attn" or "mamba"
+    k: Optional[torch.Tensor] = None         # [La, B, Hkv, S, D] (GQA)
+    v: Optional[torch.Tensor] = None         # [La, B, Hkv, S, D] (GQA)
+    c_kv: Optional[torch.Tensor] = None      # [La, B, S, r] (MLA)
+    k_rope: Optional[torch.Tensor] = None    # [La, B, S, rd] (MLA)
+    conv: Optional[torch.Tensor] = None      # [Lm, B, K-1, Din] (Mamba)
+    ssm: Optional[torch.Tensor] = None       # [Lm, B, Din, N] fp32 (Mamba)
 
-    def layer(self, i: int) -> Union[attn.KVCache, attn.MLACache]:
+    def layer(self, i: int
+              ) -> Union[attn.KVCache, attn.MLACache, mamba_mod.MambaState]:
+        """Layer i's view: row j of its kind's stacks, j = the number of
+        earlier layers of the same kind."""
+        kind = self.mixers[i]
+        j = self.mixers[:i].count(kind)
+        if kind == "mamba":
+            return mamba_mod.MambaState(self.conv[j], self.ssm[j])
         if self.c_kv is not None:
-            return attn.MLACache(self.c_kv[i], self.k_rope[i])
-        return attn.KVCache(self.k[i], self.v[i])
+            return attn.MLACache(self.c_kv[j], self.k_rope[j])
+        return attn.KVCache(self.k[j], self.v[j])
 
     @property
     def states(self) -> Tuple[torch.Tensor, ...]:
-        """The cached tensors present (K and V, or latent and rotary key),
-        each [L, B, ..., S, D]."""
+        """The attention tensors present (K and V, or latent and rotary
+        key), each [La, B, ..., S, D]."""
         return tuple(t for t in (self.k, self.v, self.c_kv, self.k_rope)
                      if t is not None)
+
+    @property
+    def recurrent(self) -> Tuple[torch.Tensor, ...]:
+        """The Mamba states present (conv window, SSM state), each
+        [Lm, B, ...] with no sequence axis."""
+        return tuple(t for t in (self.conv, self.ssm) if t is not None)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device="cuda") -> LMCache:
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    pos = torch.zeros(batch, dtype=torch.int32, device=device)
+    mixers = tuple(cfg.layer_spec(i).mixer for i in range(cfg.num_layers))
+    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
+    cache = LMCache(torch.zeros(batch, dtype=torch.int32, device=device),
+                    mixers)
+    if n_mamba:
+        st = mamba_mod.init_mamba_state(cfg, batch, dtype, device, n_mamba)
+        cache = cache._replace(conv=st.conv, ssm=st.ssm)
     if cfg.mla is not None:
         mc = attn.init_mla_cache(cfg, batch, max_len, dtype, device,
-                                 layers=cfg.num_layers)
-        return LMCache(None, None, pos, mc.c_kv, mc.k_rope)
+                                 layers=n_attn)
+        return cache._replace(c_kv=mc.c_kv, k_rope=mc.k_rope)
     kv = attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                            layers=cfg.num_layers)
-    return LMCache(kv.k, kv.v, pos)
+                            layers=n_attn)
+    return cache._replace(k=kv.k, v=kv.v)
 
 
 def fill_slot(cache: LMCache, src: LMCache, slot: int, length) -> LMCache:
-    """Insert a batch-1 prefilled ``src`` cache into row ``slot`` in place;
+    """Insert a batch-1 prefilled ``src`` cache into row ``slot`` in place:
+    its attention rows and its whole recurrent state (which must come
+    from an exact-length prefill: pad tokens would be folded into it);
     ``length`` (the TRUE prompt length) becomes the slot's position."""
     attn.fill_slot(cache.states, src.states, slot)
+    for dst, s in zip(cache.recurrent, src.recurrent):
+        dst[:, slot] = s[:, 0]
     cache.pos[slot] = length
     return cache
 
 
 def reset_slot(cache: LMCache, slot: int) -> LMCache:
-    """Retire row ``slot``: zero its cached states and length, in place."""
-    attn.reset_slot(cache.states, slot)
+    """Retire row ``slot``: zero its cached and recurrent states and its
+    length, in place."""
+    attn.reset_slot(cache.states + cache.recurrent, slot)
     cache.pos[slot] = 0
     return cache
 
@@ -232,7 +280,7 @@ class PagedLMCache(NamedTuple):
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
                      page_size: int, num_pages: int,
                      device="cuda") -> PagedLMCache:
-    _check_supported(cfg)
+    _check_attention_only(cfg, "the paged KV cache", PAGED_HYBRID)
     _check_gqa(cfg, "the paged KV cache")
     device = resolve_device(device)
     pools = attn.init_paged_kv_cache(cfg, num_pages, page_size,
@@ -276,12 +324,17 @@ def free_slot_paged(cache: PagedLMCache, slot: int) -> PagedLMCache:
 def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
                  policy: str, state, mode: str, cache_pos=None,
                  page_table=None, live=None):
-    """One layer: attention (``mode`` prefill / decode / verify) then the
-    MLP or MoE. ``live`` [B] bool (decode): slots that still matter —
-    dead ones are masked out of MoE routing."""
+    """One layer: the sequence mixer of ``spec`` (``mode`` prefill / decode
+    / verify) then the MLP or MoE. ``live`` [B] bool (decode): slots that
+    still matter — dead ones are masked out of MoE routing."""
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
-    if cfg.mla is not None:     # contiguous only: verify / paged refuse MLA
+    if spec.mixer == "mamba":   # contiguous only: verify / paged refuse it
+        if mode == "prefill":
+            out, _ = mamba_mod.apply_mamba(m, h, cfg, policy, state)
+        else:
+            out, _ = mamba_mod.apply_mamba_decode(m, h, cfg, policy, state)
+    elif cfg.mla is not None:   # contiguous only: verify / paged refuse MLA
         if mode == "prefill":
             out, _ = attn.apply_mla(m, h, cfg, policy, state)
         else:
@@ -352,8 +405,9 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
 
     ``lengths`` [B]: TRUE lengths of right-padded inputs — logits are taken
     at each sequence's last real token and the cache records the true
-    length, so one bucket serves every prompt length up to it (attention
-    archs only: an MoE would route the pad tokens, so MoE archs are
+    length, so one bucket serves every prompt length up to it (all-attention
+    archs without an MoE only: an MoE would route the pad tokens and a
+    Mamba layer would fold them into its state, so such archs are
     prefilled at their exact length)."""
     x = _embed(params, tokens, cfg)
     b, t = tokens.shape
@@ -390,8 +444,9 @@ def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
                cache_pos=cache.pos, page_table=page_table, live=live)
     x = _run_layers(params, x, range(kd), **run)
     exit_lg: List[torch.Tensor] = []
+    p = cfg.period
     for start, end, exit_i in _segments(cfg):
-        x = _run_layers(params, x, range(kd + start, kd + end), **run)
+        x = _run_layers(params, x, range(kd + start * p, kd + end * p), **run)
         if exit_i is not None and with_exits:
             exit_lg.append(_exit_logits(params, x, exit_i, cfg, policy)[:, 0])
     logits = _head(params, x, cfg, policy)[:, 0]
@@ -407,8 +462,10 @@ def forward_verify(params, tokens: torch.Tensor, cfg: ArchConfig,
     to its own staircase window, so logits row i is bitwise what the i-th
     sequential ``forward_decode`` step would produce. Returns (logits
     [B, K1, V], cache) with ``pos`` UNCHANGED: the caller advances it by
-    the accepted count. Early exits are not consulted. GQA archs only (the
-    JAX package refuses verify for MLA too)."""
+    the accepted count. Early exits are not consulted. All-attention GQA
+    archs only (the JAX package refuses verify for MLA and recurrent
+    mixers too)."""
+    _check_attention_only(cfg, "speculative verify", SPEC_RECURRENT)
     _check_gqa(cfg, "speculative verify")
     page_table = (cache.page_table if isinstance(cache, PagedLMCache)
                   else None)

@@ -4,7 +4,9 @@ slot-based continuous-batching engine and the one-request reference loop
 
   * The cache's batch dimension is a fixed set of SLOTS (``capacity``). A
     request is admitted by a bucketed batch-1 prefill (exact-length for
-    MoE archs) written into a free slot row (``lm.fill_slot``); prompt
+    MoE and recurrent archs) written into a free slot row
+    (``lm.fill_slot``: attention KV rows and, for Mamba layers, the whole
+    conv window and SSM state); prompt
     length and occupancy are slot STATE (per-slot ``pos``/budget/done),
     never tensor shape. Decode masks dead slots out of MoE routing.
   * Decode runs in chunks of ``chunk`` steps over the whole slot batch:
@@ -150,10 +152,12 @@ class SlotEngine:
 
     ``prompt_bucket``: prompts are right-padded up to the next multiple of
     this for prefill (the pad is masked by the per-slot lengths), so the
-    prefill shapes come from a small set of buckets. MoE archs prefill at
-    the exact prompt length instead, as the JAX engine does: pad tokens
-    would route into the experts, and the capacity per group scales with
-    the padded length, so padding would change which tokens drop.
+    prefill shapes come from a small set of buckets. Only all-attention
+    archs without an MoE pad, as in the JAX engine: MoE and recurrent
+    archs prefill at the exact prompt length. Pad tokens would route into
+    the experts (the capacity per group scales with the padded length, so
+    padding would change which tokens drop), and a Mamba layer would fold
+    them into its recurrent state.
     ``chunk``: decode steps
     (speculative rounds under ``spec``) per chunk between two host fetches.
 
@@ -165,9 +169,10 @@ class SlotEngine:
     ``spec``: greedy speculative decoding. The target may carry no exit
     heads (verification scores every position with full-model logits) and
     the draft must share its vocabulary; both must be GQA archs (the JAX
-    package refuses verify for MLA). The paged engine is GQA-only too:
-    paged MLA waits for a later slice. Sampling (``temperature > 0``) is
-    not ported.
+    package refuses verify for MLA) without recurrent layers (JAX refuses
+    those too). The paged engine is for all-attention GQA archs: paged MLA
+    and the paged hybrid engine wait for later slices. Sampling
+    (``temperature > 0``) is not ported.
     """
 
     def __init__(self, run: Union[RunConfig, ArchConfig], capacity: int,
@@ -185,6 +190,10 @@ class SlotEngine:
             raise ValueError(f"{cfg.name}: the paged engine is not ported "
                              f"for MLA archs yet (paged precise decode "
                              f"attention waits for a later slice)")
+        if paged and cfg.recurrent:
+            raise ValueError(f"{cfg.name}: the paged engine is not ported "
+                             f"for archs with recurrent (Mamba) layers: "
+                             f"{lm.PAGED_HYBRID}")
         self.spec = spec
         self.draft_cfg: Optional[ArchConfig] = None
         if spec is not None:
@@ -196,6 +205,10 @@ class SlotEngine:
             dcfg = spec.draft_arch
             if isinstance(dcfg, str):
                 dcfg = get_arch(dcfg)
+            if cfg.recurrent or dcfg.recurrent:
+                raise ValueError(f"speculative decoding needs all-attention "
+                                 f"target and draft archs: "
+                                 f"{lm.SPEC_RECURRENT}")
             if cfg.mla is not None or dcfg.mla is not None:
                 raise ValueError("speculative decoding needs GQA target and "
                                  "draft archs: verify is not defined for "
@@ -216,7 +229,8 @@ class SlotEngine:
         self.capacity = capacity
         self.max_len = max_len
         self.chunk = chunk
-        self.prompt_bucket = prompt_bucket if cfg.moe is None else 1
+        pad_safe = not cfg.recurrent and cfg.moe is None
+        self.prompt_bucket = prompt_bucket if pad_safe else 1
         self.device = resolve_device(device)
         self.paged = paged
         self.page_size = page_size

@@ -174,7 +174,8 @@ def test_ops_get_contiguous_inputs(monkeypatch):
     raise otherwise). Check on the CPU that the model hands every op
     contiguous inputs, at batch > 1, ragged lengths, decode and verify,
     on a contiguous and on a paged cache, and through the MLA + MoE layers
-    of the reduced deepseek-v2-lite-16b (prefill and decode with a live
+    of the reduced deepseek-v2-lite-16b and the Mamba + attention + MoE
+    layers of the reduced jamba-v0.1-52b (prefill and decode with a live
     mask)."""
     seen = []
     for name in xaif.ops():
@@ -209,5 +210,11 @@ def test_ops_get_contiguous_inputs(monkeypatch):
     cache = lm.init_cache(dcfg, 3, 12, device="cpu")
     _, cache = lm.forward_prefill(dp, tokens, dcfg, "auto", cache)
     lm.forward_decode(dp, tokens[:, :1], dcfg, "auto", cache,
+                      live=torch.tensor([True, False, True]))
+    jcfg = port_arch("jamba-v0.1-52b").reduced()
+    jp = lm.init_lm(jcfg, device="cpu")
+    cache = lm.init_cache(jcfg, 3, 12, device="cpu")
+    _, cache = lm.forward_prefill(jp, tokens, jcfg, "auto", cache)
+    lm.forward_decode(jp, tokens[:, :1], jcfg, "auto", cache,
                       live=torch.tensor([True, False, True]))
     assert set(seen) == set(xaif.ops())

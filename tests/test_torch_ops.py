@@ -160,6 +160,7 @@ def test_plain_ops_keep_jax_names():
     products, plain einsums in JAX)."""
     assert xaif.ops() == ("attention", "attn_decode", "attn_decode_paged",
                           "entropy_exit", "gemm", "gemm_heads", "moe_decode",
-                          "rmsnorm", "verify_decode", "verify_decode_paged")
+                          "rmsnorm", "ssm_decode", "ssm_scan",
+                          "verify_decode", "verify_decode_paged")
     with pytest.raises(ValueError):
         xaif.call("gemm", "pallas", torch.zeros(2, 2), torch.zeros(2, 2))
