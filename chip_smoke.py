@@ -33,7 +33,11 @@ Phases (any failure raises; nothing is caught):
      exact-length MoE prefill): request 0 equals ``generate`` bitwise, and
      the launch counters show moe_decode, precise attn_decode (its
      counter is attn_decode's: no GQA decode runs on deepseek), gemm_heads
-     and the (192, 128) flash attention on every layer;
+     and the (192, 128) flash attention on every layer; then the same 6
+     requests through the paged engine (latent pages of 16, a pool of 24
+     usable pages): tokens equal the contiguous run's per request,
+     bitwise, precise attn_decode_paged on all 27 layers every step and
+     no attn_decode;
   9. jamba-v0.1-52b at full width, cut to two super-blocks (16 of its 32
      layers: 14 Mamba, 2 attention, 8 MoE of 16 experts x 14336 top-2;
      bf16, random weights; deepseek's weights freed first): 64 prompts
@@ -45,7 +49,11 @@ Phases (any failure raises; nothing is caught):
      equals ``generate`` bitwise, and the launch counters show ssm_decode
      on the 14 Mamba layers, moe_decode on the 8 MoE layers and
      attn_decode on the 2 attention layers every step, ssm_scan and flash
-     attention on them every prefill;
+     attention on them every prefill; then the paged hybrid engine (KV
+     pages of 16 for the 2 attention layers beside slot-indexed Mamba
+     state, 24 usable pages): tokens equal the contiguous run's, bitwise,
+     attn_decode_paged on the 2 attention layers and ssm_decode on the 14
+     Mamba layers every step, no attn_decode;
  11. one JSON line listing the kernels, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
 
@@ -53,10 +61,15 @@ Phase 2 also holds deepseek's and jamba's kernels at their serving shapes
 and asserts, bitwise, that row b of a B = 4 launch of moe_decode (at h =
 1408 and 14336), precise attn_decode, gemm_heads and ssm_decode equals
 its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
-state carried equals the scan of T1 + T2. Each serve run resets every
-launch counter just before it and reads them just after; a kernel's
-``launches`` in the JSON line come from the run of its path (phase 4, 5,
-6, 8 or 10).
+state carried equals the scan of T1 + T2; and the precise (MLA) paged
+decode kernel against its plain version, bitwise against the contiguous
+precise kernel on the same latent at page sizes 16 and 32, row b of a B =
+4 launch against its B = 1 launch, with NaN on -1 pages and past
+cache_pos kept out. Each serve run resets every launch counter just
+before it and reads them just after; a kernel's ``launches`` in the JSON
+line come from the run of its path (phase 4, 5, 6, 8 or 10). Each model
+also has one decode chunk timed and traced per engine (``decode step``
+lines), paged beside contiguous.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -241,6 +254,7 @@ def check_kernels(torch, timer):
 
     check_paged_and_verify(torch, compare, randn, gen)
     check_mla_moe(torch, compare, randn, gen)
+    check_paged_mla(torch, compare, randn, gen)
     check_jamba(torch, compare, randn, gen)
 
     # entropy: fp32 sums in another order; the result is O(1). Library:
@@ -522,6 +536,91 @@ def check_mla_moe(torch, compare, randn, gen):
     print("bitwise: moe_decode, attn_decode (precise) and gemm_heads rows "
           "of a B = 4 launch == their B = 1 launches; NaN past cache_pos "
           "leaves precise decode unchanged", flush=True)
+
+
+def check_paged_mla(torch, compare, randn, gen):
+    """Phase 2 for the precise (MLA) paged decode kernel at deepseek's
+    decode shapes: B = 4, 16 heads, latent 512 + rotary 64, cache_pos (19,
+    75, 130, 159) of 160, pages of 16 from a pool in shuffled order whose
+    scratch page 0 and one page no sequence owns hold NaN. Bitwise: (a)
+    the paged kernel == the contiguous precise kernel on the same latent,
+    at page sizes 16 and 32; (b) row b of a B = 4 launch == its B = 1
+    launch; (c) NaN past cache_pos in a sequence's own pages never reaches
+    the output (nor does the NaN of -1 pages, in every launch here)."""
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    f32 = torch.float32
+    b, h, r, rd, s = 4, 16, 512, 64, 160
+    cps = (19, 75, 130, 159)
+    cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+    n_valid = sum(c + 1 for c in cps)
+    qa, q2 = randn(b, h, r, dtype=f32, scale=0.5), randn(b, h, rd, dtype=f32)
+    lat, kr = randn(b, 1, s, r), randn(b, 1, s, rd)
+    scale = (128 + rd) ** -0.5
+
+    def pages(ps):
+        """lat / kr scattered into NaN-filled pools behind a shuffled page
+        table (-1 past each sequence's last page)."""
+        need = [c // ps + 1 for c in cps]
+        n_pool = sum(need) + 2               # + the scratch page + one unused
+        perm = (torch.randperm(n_pool - 1, generator=gen, device="cuda") + 1
+                ).tolist()
+        table = torch.full((b, s // ps), -1, dtype=torch.int32)
+        cpool = torch.full((n_pool, 1, ps, r), float("nan"),
+                           dtype=lat.dtype, device="cuda")
+        kpool = torch.full((n_pool, 1, ps, rd), float("nan"),
+                           dtype=kr.dtype, device="cuda")
+        at = 0
+        for i, n in enumerate(need):
+            ids = perm[at:at + n]
+            at += n
+            table[i, :n] = torch.tensor(ids)
+            cpool[ids, 0] = lat[i, 0, :n * ps].reshape(n, ps, r)
+            kpool[ids, 0] = kr[i, 0, :n * ps].reshape(n, ps, rd)
+        return cpool, kpool, table.cuda(), sum(need)
+
+    def paged(cpool, kpool, table, rows=slice(None)):
+        return pa.attn_decode_paged(qa[rows], cpool, cpool, table[rows],
+                                    cp[rows], scale=scale, q2=q2[rows],
+                                    k2_pages=kpool, precise=True)
+
+    cpool, kpool, table, n_pages = pages(16)
+    compare("attn_decode_paged_mla",
+            "q[4,16,512]+[4,16,64] pages[28,1,16,512]+[28,1,16,64]",
+            lambda: paged(cpool, kpool, table),
+            lambda: paged_attention_ref(qa, cpool, cpool, table, cp,
+                                        scale=scale, q2=q2, k2_pages=kpool,
+                                        precise=True), None,
+            4 * (qa.numel() + q2.numel()) + 2 * (r + rd) * n_valid
+            + 4 * b * h * r + 4 * b + 4 * n_pages,
+            2 * h * (2 * r + rd) * n_valid, "float32", 1e-4, 1e-4,
+            representative=True)
+    print("library: none for attn_decode_paged_mla (no single PyTorch call "
+          "reads a latent through a page table)", flush=True)
+
+    contiguous = ad.attn_decode(qa, lat, lat, cp, scale=scale, q2=q2, k2=kr,
+                                precise=True)
+    for ps in (16, 32):
+        pools = pages(ps)[:3]
+        full = paged(*pools)
+        assert torch.equal(full, contiguous), f"(a) paged ps={ps}"
+        for i in range(b):
+            assert torch.equal(full[i:i + 1], paged(*pools, rows=slice(
+                i, i + 1))), f"(b) row {i} ps={ps}"
+    cnan, knan = cpool.clone(), kpool.clone()
+    for i, c in enumerate(cps):
+        for p in range(c + 1, (c // 16 + 1) * 16):   # own pages, past c
+            pid = int(table[i, p // 16])
+            cnan[pid, 0, p % 16] = float("nan")
+            knan[pid, 0, p % 16] = float("nan")
+    assert torch.equal(paged(cnan, knan, table), contiguous), "(c) NaN"
+    torch.cuda.synchronize()
+    print("bitwise: attn_decode_paged (precise) == attn_decode (precise) on "
+          "the same latent at page sizes 16 and 32; rows of a B = 4 launch "
+          "== their B = 1 launches; NaN on -1 pages, unowned pages and "
+          "past cache_pos leaves it unchanged", flush=True)
 
 
 def check_jamba(torch, compare, randn, gen):
@@ -839,8 +938,9 @@ def _map(tree, fn):
 
 
 def profile_decode(torch, name, engine, params, prompts):
-    """Where a decode step's time goes: fill every slot, then time one
-    chunk of ``engine.chunk`` steps by the host clock around a
+    """Where a decode step's time goes: fill every slot (on a paged engine,
+    with every page its three chunks need), then time one chunk of
+    ``engine.chunk`` steps by the host clock around a
     synchronize (ms per step), and trace one more chunk with
     torch.profiler for the device time per step by kernel and the
     device's busy share of the untraced step. A measurement, not a check:
@@ -848,10 +948,23 @@ def profile_decode(torch, name, engine, params, prompts):
     measured."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serve.paging import PageAllocator
+
     cache, st = engine.init_state()
+    new = 3 * engine.chunk + 1
+    alloc = (PageAllocator(engine.num_pages, engine.capacity,
+                           engine.max_pages, engine.page_size)
+             if engine.paged else None)
     for slot in range(engine.capacity):
+        ids = None
+        if alloc is not None:     # every page the three chunks will need
+            t = len(prompts[slot])
+            ids = alloc.admit(slot, engine._bucket(t), t, new)
+            alloc.ensure(slot, t + new - 1)
         cache, st, _ = engine.prefill_into(params, cache, st, prompts[slot],
-                                           slot, 3 * engine.chunk + 1)
+                                           slot, new, page_ids=ids)
+    if alloc is not None:
+        cache = engine.set_page_table(cache, alloc.table)
     cache, st, _ = engine.decode(params, cache, st)          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -921,6 +1034,60 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, **engine_kw):
     return runs[name]
 
 
+def serve_deepseek(torch, run_serve, ds, dparams, t_start):
+    """Phase 8: the 6-request serve on deepseek through the contiguous
+    engine (request 0 == ``generate`` bitwise; every kernel of the path
+    launched on every layer), then through the paged MLA engine (tokens ==
+    the contiguous run's, bitwise; precise attn_decode_paged on every
+    layer), each with one decode chunk timed and traced."""
+    from repro_torch.serve.engine import SlotEngine, generate
+
+    # -- 8. serve deepseek: contiguous KV, greedy, request 0 == generate ---
+    ds_prompts = make_prompts(torch, ds.vocab_size)
+    mla = run_serve("deepseek-contiguous", ds, dparams, ds_prompts)
+    steps, n_moe = mla["steps"], ds.num_layers - ds.first_k_dense
+    assert set(mla["launches"]) == {
+        "gemm", "gemm_heads", "rmsnorm", "attention", "attn_decode",
+        "moe_decode", "entropy_exit"}, mla["launches"]
+    # every attn_decode launch of this run is a precise (MLA) one
+    assert mla["launches"]["attn_decode"] == ds.num_layers * steps, \
+        mla["launches"]
+    assert mla["launches"]["moe_decode"] == n_moe * steps, mla["launches"]
+    assert mla["launches"]["gemm_heads"] == 2 * ds.num_layers * steps, \
+        mla["launches"]
+    assert mla["launches"]["attention"] == \
+        ds.num_layers * mla["prefills"], mla["launches"]
+    ref_toks, _ = generate(ds, dparams, ds_prompts[0][None], 24)
+    assert ref_toks[0].tolist() == mla["tokens"][0], (
+        "deepseek engine tokens differ from generate", ref_toks[0].tolist(),
+        mla["tokens"][0])
+    profile_decode(torch, ds.name, SlotEngine(ds, capacity=4, max_len=160,
+                                              chunk=8), dparams, ds_prompts)
+    print("serve deepseek-contiguous: request 0 == generate, bitwise",
+          flush=True)
+
+    # -- 8b. the paged MLA engine: latent pages, 24 usable for 4 slots that
+    #    could ask for 40; tokens equal the contiguous engine's, bitwise --
+    mla_paged = run_serve("deepseek-paged", ds, dparams, ds_prompts,
+                          paged=True, page_size=16, num_pages=25)
+    lc, steps = mla_paged["launches"], mla_paged["steps"]
+    assert mla_paged["tokens"] == mla["tokens"], "paged MLA tokens differ"
+    assert mla_paged["report"].stats["peak_pages"] <= 24, \
+        mla_paged["report"].stats
+    assert set(lc) == {"gemm", "gemm_heads", "rmsnorm", "attention",
+                       "attn_decode_paged", "moe_decode", "entropy_exit"}, lc
+    assert lc["attn_decode_paged"] == ds.num_layers * steps, lc
+    profile_decode(torch, f"{ds.name} paged", SlotEngine(
+        ds, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
+        dparams, ds_prompts)
+    print(f"serve deepseek-paged: tokens == contiguous engine, bitwise, per "
+          f"request; {ds.num_layers} precise attn_decode_paged a step, no "
+          f"attn_decode; peak "
+          f"{int(mla_paged['report'].stats['peak_pages'])} of 24 pages; "
+          f"deepseek phases done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+
+
 def run_jamba(torch, run_serve, t_start):
     """Phases 9-10: jamba-v0.1-52b at full width cut to two super-blocks
     (16 layers: 14 Mamba, 2 attention, 8 MoE of 16 experts x 14336 top-2,
@@ -929,7 +1096,8 @@ def run_jamba(torch, run_serve, t_start):
     plain policy computing in fp32 on the same bf16 weights (an fp32 copy
     would not fit beside them), end to end and layer by layer; then the
     6-request serve: request 0 == ``generate`` bitwise, and every kernel of
-    the path launched in it."""
+    the path launched in it; then the same requests through the paged
+    hybrid engine, token for token equal to the contiguous run."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, generate
@@ -982,8 +1150,28 @@ def run_jamba(torch, run_serve, t_start):
           flush=True)
     profile_decode(torch, jb.name, SlotEngine(jb, capacity=4, max_len=160,
                                               chunk=8), jparams, prompts)
-    print(f"jamba phases done at {time.perf_counter() - t_start:.1f}s",
-          flush=True)
+
+    # the paged hybrid engine: KV pages for the 2 attention layers beside
+    # the slot-indexed Mamba state; tokens equal the contiguous engine's
+    paged = run_serve("jamba-paged", jb, jparams, prompts, paged=True,
+                      page_size=16, num_pages=25)
+    lc, steps = paged["launches"], paged["steps"]
+    assert paged["tokens"] == run["tokens"], "paged jamba tokens differ"
+    assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
+    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode_paged",
+                       "moe_decode", "entropy_exit", "ssm_scan",
+                       "ssm_decode"}, lc
+    assert lc["attn_decode_paged"] == n_attn * steps, lc
+    assert lc["ssm_decode"] == n_mamba * steps, lc
+    assert lc["moe_decode"] == n_moe * steps, lc
+    profile_decode(torch, f"{jb.name} paged", SlotEngine(
+        jb, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
+        jparams, prompts)
+    print(f"serve jamba-paged: tokens == contiguous engine, bitwise, per "
+          f"request; {n_attn} attn_decode_paged and {n_mamba} ssm_decode a "
+          f"step, no attn_decode; peak "
+          f"{int(paged['report'].stats['peak_pages'])} of 24 pages; jamba "
+          f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
 def main() -> int:
@@ -1111,34 +1299,12 @@ def main() -> int:
     del cut_params
     torch.cuda.empty_cache()
 
-    # -- 8. serve deepseek: contiguous KV, greedy, request 0 == generate ---
-    ds_prompts = make_prompts(torch, ds.vocab_size)
-    mla = run_serve("deepseek-contiguous", ds, dparams, ds_prompts)
-    steps, n_moe = mla["steps"], ds.num_layers - ds.first_k_dense
-    assert set(mla["launches"]) == {
-        "gemm", "gemm_heads", "rmsnorm", "attention", "attn_decode",
-        "moe_decode", "entropy_exit"}, mla["launches"]
-    # every attn_decode launch of this run is a precise (MLA) one
-    assert mla["launches"]["attn_decode"] == ds.num_layers * steps, \
-        mla["launches"]
-    assert mla["launches"]["moe_decode"] == n_moe * steps, mla["launches"]
-    assert mla["launches"]["gemm_heads"] == 2 * ds.num_layers * steps, \
-        mla["launches"]
-    assert mla["launches"]["attention"] == \
-        ds.num_layers * mla["prefills"], mla["launches"]
-    ref_toks, _ = generate(ds, dparams, ds_prompts[0][None], 24)
-    assert ref_toks[0].tolist() == mla["tokens"][0], (
-        "deepseek engine tokens differ from generate", ref_toks[0].tolist(),
-        mla["tokens"][0])
-    profile_decode(torch, ds.name, SlotEngine(ds, capacity=4, max_len=160,
-                                              chunk=8), dparams, ds_prompts)
-    print(f"serve deepseek-contiguous: request 0 == generate, bitwise; "
-          f"deepseek phases done at {time.perf_counter() - t_start:.1f}s",
-          flush=True)
+    # -- 8. serve deepseek: contiguous, then paged ----------------------
+    serve_deepseek(torch, run_serve, ds, dparams, t_start)
 
     # -- 9-10. jamba-v0.1-52b, two super-blocks: deepseek's 29.4 GiB are
     #    freed before jamba's 48.5 GiB are built -------------------------
-    del dparams, ref_toks
+    del dparams
     torch.cuda.empty_cache()
     run_jamba(torch, run_serve, t_start)
 
@@ -1183,6 +1349,11 @@ def main() -> int:
         # moe_decode at jamba's h = 14336 (the chunked down pass)
         "moe_decode_jamba": ("kernels/moe_decode/moe_decode.py:46",
                              "moe_decode", "jamba-contiguous", "moe_decode"),
+        # precise mode: every attn_decode_paged launch of the deepseek
+        # paged run
+        "attn_decode_paged_mla": (
+            "kernels/paged_attention/paged_attention.py:73",
+            "paged_attention_mla", "deepseek-paged", "attn_decode_paged"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",

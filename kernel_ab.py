@@ -4,6 +4,7 @@ on one CUDA card: bit for bit, and timed in turns.
 
     python3 kernel_ab.py --baseline DIR                        # attn_decode
     python3 kernel_ab.py --baseline DIR --kernel moe_decode
+    python3 kernel_ab.py --baseline DIR --kernel attn_decode_mla
 
 DIR is the root of another checkout. Its ``csrc/<kernel>.cu`` is built
 with this checkout's nvcc flags into ``build/ab/`` and called through its
@@ -14,6 +15,12 @@ its wrapper.
 must give the same bits, and this checkout's ``attn_decode_paged`` on the
 same KV behind a shuffled page table must too. Then baseline, change,
 paged, paged, change, baseline are timed.
+
+``attn_decode_mla`` (the precise, MLA mode of decode attention): at
+deepseek-v2-lite-16b's widths (16 heads, latent 512 + rotary 64, fp32
+queries, bf16 latent) both must give the same bits, and this checkout's
+precise ``attn_decode_paged`` on the same latent behind a shuffled page
+table must too. Timed as ``attn_decode``.
 
 ``moe_decode``: at deepseek-v2-lite-16b's serving shapes (d 2048, 64
 experts of 1408, top-6; 4 live slots, one slot, and a dead slot with a
@@ -57,6 +64,10 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
         lib.attn_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, p]
         lib.attn_decode_launch.restype = i
+    elif kernel == "attn_decode_mla":
+        lib.attn_decode_mla_launch.argtypes = [p] * 6 + [
+            i, i, i, ctypes.c_float, i, p]
+        lib.attn_decode_mla_launch.restype = i
     else:
         lib.moe_decode_launch.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.moe_decode_launch.restype = i
@@ -68,7 +79,8 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True)
-    ap.add_argument("--kernel", choices=("attn_decode", "moe_decode"),
+    ap.add_argument("--kernel", choices=("attn_decode", "attn_decode_mla",
+                                         "moe_decode"),
                     default="attn_decode")
     args = ap.parse_args()
 
@@ -79,7 +91,8 @@ def main() -> int:
 
     base = build_baseline(args.baseline.resolve(), args.kernel)
     timer = Timer(torch)
-    ab = ab_attn_decode if args.kernel == "attn_decode" else ab_moe_decode
+    ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
+          "moe_decode": ab_moe_decode}[args.kernel]
     rows = ab(torch, base, timer)
     print(card_line())
     ok = all(r["bitwise"] for r in rows)
@@ -135,6 +148,69 @@ def ab_attn_decode(torch, base, timer):
                                             run_paged, run_new, run_base)]
         row = dict(shape=f"q[{b},{HQ},{D}] kv[{b},{HKV},{s},{D}] "
                    f"cache_pos {list(cps)}", bitwise=same and same_paged,
+                   bitwise_contiguous=same, bitwise_paged=same_paged,
+                   baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
+                   paged_ms=[t[2], t[3]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def ab_mla(torch, base, timer):
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.attn_decode.ops import attn_decode
+    from repro_torch.kernels.paged_attention.ops import attn_decode_paged
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, r, rd = 16, 512, 64
+    scale = (128 + rd) ** -0.5
+    rows = []
+    for b, s, cps in SHAPES:
+        def randn(*shape, dtype=torch.bfloat16, sc=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda") * sc
+                    ).to(dtype)
+        q = randn(b, h, r, dtype=torch.float32, sc=0.5)
+        q2 = randn(b, h, rd, dtype=torch.float32)
+        lat, kr = randn(b, 1, s, r), randn(b, 1, s, rd)
+        cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+
+        def run_base(q=q, q2=q2, lat=lat, kr=kr, cp=cp, b=b, s=s):
+            out = torch.empty(b, h, r, dtype=torch.float32, device="cuda")
+            rc = base.attn_decode_mla_launch(
+                q.data_ptr(), q2.data_ptr(), lat.data_ptr(), kr.data_ptr(),
+                cp.data_ptr(), out.data_ptr(), b, h, s, scale, 1,
+                stream_ptr(q))
+            assert rc == 0, rc
+            return out
+
+        def run_new(q=q, q2=q2, lat=lat, kr=kr, cp=cp):
+            return attn_decode(q, lat, lat, cp, scale=scale, q2=q2, k2=kr,
+                               precise=True)
+
+        # the same latent as pools behind a shuffled page table
+        np_ = s // PS
+        perm = torch.randperm(b * np_, generator=gen, device="cuda") + 1
+        table = perm.view(b, np_).to(torch.int32)
+        cpool = torch.zeros(b * np_ + 1, 1, PS, r, dtype=torch.bfloat16,
+                            device="cuda")
+        kpool = torch.zeros(b * np_ + 1, 1, PS, rd, dtype=torch.bfloat16,
+                            device="cuda")
+        cpool[perm] = lat.view(b * np_, 1, PS, r)
+        kpool[perm] = kr.view(b * np_, 1, PS, rd)
+
+        def run_paged(q=q, q2=q2, cpool=cpool, kpool=kpool, table=table,
+                      cp=cp):
+            return attn_decode_paged(q, cpool, cpool, table, cp, scale=scale,
+                                     q2=q2, k2_pages=kpool, precise=True)
+
+        want = run_base()
+        same = torch.equal(run_new(), want)
+        same_paged = torch.equal(run_paged(), want)
+        torch.cuda.synchronize()
+        t = [timer(fn, iters=20) for fn in (run_base, run_new, run_paged,
+                                            run_paged, run_new, run_base)]
+        row = dict(shape=f"q[{b},{h},{r}]+[{b},{h},{rd}] latent[{b},1,{s},"
+                   f"{r}] cache_pos {list(cps)}", bitwise=same and same_paged,
                    bitwise_contiguous=same, bitwise_paged=same_paged,
                    baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
                    paged_ms=[t[2], t[3]])

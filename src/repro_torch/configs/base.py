@@ -148,8 +148,9 @@ class ArchConfig:
     @property
     def recurrent(self) -> bool:
         """True when a layer carries recurrent state (a Mamba mixer): its
-        prefill must run at the exact prompt length, and the paged engine
-        and speculative decoding are not ported for it."""
+        prefill must run at the exact prompt length, the paged engine keeps
+        that state slot-indexed beside the attention pages, and
+        speculative decoding is refused for it."""
         return any(b.mixer != "attn" for b in self.block_pattern)
 
     def layer_spec(self, i: int) -> BlockSpec:

@@ -77,32 +77,49 @@ def check_contiguous(name: str, q: torch.Tensor, k: torch.Tensor,
     return code
 
 
-def _attn_decode_precise(q: torch.Tensor, c: torch.Tensor,
-                    cache_pos: torch.Tensor, scale: float, q2: torch.Tensor,
-                    k2: torch.Tensor) -> torch.Tensor:
-    """Precise (MLA absorbed) decode on the card: q fp32 [B, H, 512], q2
-    fp32 [B, H, 64], the latent c [B, 1, S, 512] (K and V at once) and the
-    rotary key k2 [B, 1, S, 64] in the model dtype, cache_pos [B] int32 ->
-    fp32 [B, H, 512]."""
-    name = "attn_decode(precise)"
-    require_cuda(name, q, c, cache_pos, q2, k2)
+def check_precise(name: str, q: torch.Tensor, q2: torch.Tensor,
+                  c: torch.Tensor, k2: torch.Tensor, cache_pos: torch.Tensor,
+                  *more: torch.Tensor) -> int:
+    """Validate what both precise (MLA) kernels take; returns the dtype code.
+    q fp32 [B, H, 512] and q2 fp32 [B, H, 64], at most 16 heads; the latent
+    c [N, 1, R, 512] (K and V at once) and the rotary key k2 [N, 1, R, 64]
+    in one dtype, N x R being sequences x positions or pool pages x page
+    size; cache_pos [B] int32. ``more`` must lie on the card too."""
+    require_cuda(name, q, c, cache_pos, q2, k2, *more)
     code = dtype_code(name, c)
     if q.dtype != torch.float32 or q2.dtype != torch.float32:
         raise TypeError(f"{name}: q and q2 must be float32")
     if k2.dtype != c.dtype or cache_pos.dtype != torch.int32:
         raise TypeError(f"{name}: k2 must share the latent's dtype and "
                         f"cache_pos be int32")
-    b, h, _ = q.shape
-    s = c.shape[2]
+    b, h = q.shape[0], q.shape[1]
+    n, r = c.shape[0], c.shape[2] if c.dim() == 4 else -1
     if (q.shape != (b, h, MLA_LATENT) or q2.shape != (b, h, MLA_ROPE)
-            or c.shape != (b, 1, s, MLA_LATENT)
-            or k2.shape != (b, 1, s, MLA_ROPE) or cache_pos.shape != (b,)
+            or c.shape != (n, 1, r, MLA_LATENT)
+            or k2.shape != (n, 1, r, MLA_ROPE) or cache_pos.shape != (b,)
             or h > MLA_MAX_HEADS):
         raise ValueError(f"{name}: q {tuple(q.shape)}, q2 {tuple(q2.shape)}, "
                          f"latent {tuple(c.shape)}, k2 {tuple(k2.shape)}, "
                          f"cache_pos {tuple(cache_pos.shape)} (the kernel "
                          f"takes a {MLA_LATENT}-d latent, a {MLA_ROPE}-d "
                          f"rotary key and at most {MLA_MAX_HEADS} heads)")
+    return code
+
+
+def _attn_decode_precise(q: torch.Tensor, c: torch.Tensor,
+                         cache_pos: torch.Tensor, scale: float,
+                         q2: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
+    """Precise (MLA absorbed) decode on the card: q fp32 [B, H, 512], q2
+    fp32 [B, H, 64], the latent c [B, 1, S, 512] (K and V at once) and the
+    rotary key k2 [B, 1, S, 64] in the model dtype, cache_pos [B] int32 ->
+    fp32 [B, H, 512]."""
+    name = "attn_decode(precise)"
+    code = check_precise(name, q, q2, c, k2, cache_pos)
+    b, h, _ = q.shape
+    s = c.shape[2]
+    if c.shape[0] != b:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and a latent "
+                         f"{tuple(c.shape)} of another batch")
     out = torch.empty(b, h, MLA_LATENT, dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out

@@ -15,6 +15,23 @@ from typing import Optional
 import torch
 
 
+def precise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, scale: float,
+                      q2: Optional[torch.Tensor] = None,
+                      k2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The precise mode on one latent head, shared by the contiguous and the
+    paged plain versions (so the two agree bit for bit on the same latent):
+    q [B, Hq, D]; k [B, S, D]; v [B, S, Dv]; valid [B, S] bool; q2 [B, Hq,
+    rd] / k2 [B, S, rd] (optional). Returns fp32 [B, Hq, Dv]."""
+    logits = torch.einsum("bhd,bsd->bhs", q.float(), k.float())
+    if q2 is not None:
+        logits = logits + torch.einsum("bhd,bsd->bhs", q2.float(),
+                                       k2.float())
+    logits = (logits * scale).masked_fill(~valid[:, None, :], -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bsd->bhd", p, v.float())
+
+
 def attn_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cache_pos: torch.Tensor, scale: Optional[float] = None,
                     q2: Optional[torch.Tensor] = None,
@@ -32,13 +49,8 @@ def attn_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if precise:
         if hkv != 1:
             raise ValueError("precise mode is the MLA path: one latent head")
-        logits = torch.einsum("bhd,bsd->bhs", q.float(), k[:, 0].float())
-        if q2 is not None:
-            logits = logits + torch.einsum("bhd,bsd->bhs", q2.float(),
-                                           k2[:, 0].float())
-        logits = (logits * scale).masked_fill(~valid[:, None, :], -1e30)
-        p = torch.softmax(logits, dim=-1)
-        return torch.einsum("bhs,bsd->bhd", p, v[:, 0].float())
+        return precise_attention(q, k[:, 0], v[:, 0], valid, scale, q2,
+                                 None if k2 is None else k2[:, 0])
     qg = (q.reshape(b, hkv, g, d) * scale).to(k.dtype)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg.float(), k.float())
     logits = logits.masked_fill(~valid[:, None, None, :], -1e30)

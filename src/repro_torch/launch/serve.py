@@ -6,7 +6,7 @@ request-stream simulator over the continuous-batching slot engine.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch jamba-v0.1-52b --device cpu
+        --arch jamba-v0.1-52b --device cpu --paged
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency
@@ -15,16 +15,18 @@ at t=0 (closed loop). Runs on the card by default; ``--device cpu`` runs
 the plain PyTorch path.
 
 ``--paged`` serves through the paged KV engine: pages of ``--page-size``
-positions from a pool of ``--num-pages``, admission by free pages.
+positions from a pool of ``--num-pages``, admission by free pages. It
+serves every arch: GQA K/V pages, MLA latent pages (deepseek-v2-lite-16b)
+and, for archs with recurrent Mamba layers (jamba-v0.1-52b, prefilled at
+the exact prompt length), attention pages beside slot-indexed Mamba
+state.
 ``--draft ARCH --spec-k N`` turns on greedy speculative decoding: the
 draft arch (reduced, random weights) proposes N tokens per live slot per
 round and the target verifies them in one forward. Exit heads are stripped
 from target and draft (verification scores every position with full-model
-logits); ``--threshold`` is therefore rejected with ``--draft``. MLA
-archs (deepseek-v2-lite-16b) and archs with recurrent Mamba layers
-(jamba-v0.1-52b, prefilled at the exact prompt length) serve through the
-contiguous engine only: ``--paged`` and ``--draft`` are rejected for
-them.
+logits); ``--threshold`` is therefore rejected with ``--draft``.
+``--draft`` is rejected for MLA archs and archs with recurrent layers, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -73,12 +75,10 @@ def main(argv=None):
     if not args.paged and (args.num_pages is not None
                            or args.page_size != 16):
         ap.error("--page-size/--num-pages require --paged")
-    if get_arch(args.arch).mla is not None and (args.paged or args.draft):
-        ap.error(f"--arch {args.arch} is an MLA arch: the paged engine and "
-                 f"speculative decoding are not ported for MLA yet")
-    if get_arch(args.arch).recurrent and args.paged:
-        ap.error(f"--arch {args.arch} has recurrent (Mamba) layers: "
-                 f"{lm.PAGED_HYBRID}")
+    if get_arch(args.arch).mla is not None and args.draft:
+        ap.error(f"--arch {args.arch} is an MLA arch: speculative decoding "
+                 f"needs a GQA target (verify is not defined for MLA, as "
+                 f"in the JAX package)")
     if args.spec_k is not None and not args.draft:
         ap.error("--spec-k requires --draft: k counts DRAFT proposals per "
                  "speculative round — name the draft arch")

@@ -15,11 +15,12 @@ GQA has four execution modes over one parameter set:
     window of the i-th sequential decode step.
 
 MLA caches only the compressed latent and the shared rotary key
-(``MLACache``). Prefill decompresses K/V per head and runs the flash
-``attention`` op at (q/k, v) head dims (192, 128); decode uses the absorbed
-formulation: the query is projected into latent space (``gemm_heads``),
-the precise mode of ``attn_decode`` attends the latent directly, and the
-pooled latent is decompressed per head (``gemm_heads`` again).
+(``MLACache``, or in pages ``PagedMLACache``). Prefill decompresses K/V
+per head and runs the flash ``attention`` op at (q/k, v) head dims (192,
+128); decode uses the absorbed formulation: the query is projected into
+latent space (``gemm_heads``), the precise mode of ``attn_decode`` (or of
+``attn_decode_paged``) attends the latent directly, and the pooled latent
+is decompressed per head (``gemm_heads`` again).
 
 K/V rows are written in place (the JAX package builds new caches with
 ``.at[].set``); nothing else holds the old cache, so the update saves a
@@ -175,22 +176,25 @@ def _to_pages(x: torch.Tensor, seq_axis: int, page_size: int,
     return x.reshape(n_pages, page_size, *x.shape[1:])
 
 
-def fill_pages(paged: PagedKVCache, src: KVCache,
-               page_ids: torch.Tensor) -> PagedKVCache:
-    """Scatter a batch-1 prefilled contiguous cache (src [L, 1, Hkv, T, D])
-    into the pool pages ``page_ids`` [ceil(T / ps)] of every layer, in
-    place. Junk beyond the true length is masked at read time by the
-    per-slot position, so a bucketed prefill's padded tail needs no
-    special handling."""
-    ps = paged.k_pages.shape[-2]
+def fill_pages(paged, src, page_ids: torch.Tensor):
+    """Scatter a batch-1 prefilled contiguous cache into the pool pages
+    ``page_ids`` [ceil(T / ps)] of every layer, in place: GQA K and V (src
+    a pair [L, 1, Hkv, T, D] into a ``PagedKVCache``) or MLA latents and
+    rotary keys (src a pair [L, 1, T, d] into a ``PagedMLACache``). Junk
+    beyond the true length is masked at read time by the per-slot
+    position, so a bucketed prefill's padded tail needs no special
+    handling."""
     n_pages = page_ids.shape[0]
     ids = page_ids.long()
-
-    def chop(a):      # [L, 1, Hkv, T, D] -> [L, n_pages, Hkv, ps, D]
-        return _to_pages(a[:, 0], 2, ps, n_pages).permute(2, 0, 3, 1, 4)
-
-    paged.k_pages[:, ids] = chop(src.k).to(paged.k_pages.dtype)
-    paged.v_pages[:, ids] = chop(src.v).to(paged.v_pages.dtype)
+    ps = paged[0].shape[-2]
+    mla = isinstance(paged, PagedMLACache)
+    for dst, a in zip(paged, src):
+        if mla:       # [L, 1, T, d] -> [L, n_pages, ps, d]
+            pages = _to_pages(a[:, 0], 1, ps, n_pages).permute(2, 0, 1, 3)
+        else:         # [L, 1, Hkv, T, D] -> [L, n_pages, Hkv, ps, D]
+            pages = _to_pages(a[:, 0], 2, ps, n_pages).permute(
+                2, 0, 3, 1, 4)
+        dst[:, ids] = pages.to(dst.dtype)
     return paged
 
 
@@ -200,8 +204,8 @@ def _current_page(page_table: torch.Tensor, cache_pos: torch.Tensor,
 
     THE dead-slot routing invariant lives here: entries of -1 (dead/empty
     slots) are routed to the scratch page 0, whose contents are never
-    validly read. The page index is clamped to the table, as the JAX
-    gather clamps it."""
+    validly read. Both pool layouts (GQA and MLA) share it. The page index
+    is clamped to the table, as the JAX gather clamps it."""
     b, np_ = page_table.shape
     pos = cache_pos.long()
     pid = page_table[torch.arange(b, device=pos.device),
@@ -382,6 +386,54 @@ def apply_mla(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
     return xaif.call("gemm", policy, out, params["wo"]), cache
 
 
+class PagedMLACache(NamedTuple):
+    """Latent page pools (page 0 the scratch page, as ``PagedKVCache``)."""
+    c_kv_pages: torch.Tensor     # [(L,) P, ps, kv_lora_rank]
+    k_rope_pages: torch.Tensor   # [(L,) P, ps, rope_dim]
+
+
+def init_paged_mla_cache(cfg: ArchConfig, num_pages: int, page_size: int,
+                         dtype, device, layers: int) -> PagedMLACache:
+    """Zeroed latent pools [layers, P, ps, r] and rotary pools [layers, P,
+    ps, rd]."""
+    m = cfg.mla
+    return PagedMLACache(
+        torch.zeros(layers, num_pages, page_size, m.kv_lora_rank,
+                    dtype=dtype, device=device),
+        torch.zeros(layers, num_pages, page_size, m.qk_rope_head_dim,
+                    dtype=dtype, device=device))
+
+
+def _mla_decode_in(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                   cache_pos: torch.Tensor):
+    """The absorbed decode's inputs: the new latent row [B, r] and rotary
+    key row [B, rd], the query projected into latent space (``gemm_heads``,
+    fp32 [B, H, r]) and the rotary query (fp32 [B, H, rd])."""
+    m = cfg.mla
+    h = cfg.num_heads
+    positions = cache_pos[:, None]
+    c_new, kr_new = _mla_latent(params, x, cfg, policy, positions)
+    q_nope, q_rope = _mla_queries(params, x, cfg, policy, positions)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_abs = xaif.call("gemm_heads", policy,
+                      q_nope[:, :, 0].float().contiguous(), w_uk,
+                      True)                                  # [B, H, r]
+    return (c_new[:, 0], kr_new[:, 0], q_abs,
+            q_rope[:, :, 0].float().contiguous())
+
+
+def _mla_decode_out(params, pooled: torch.Tensor, x: torch.Tensor,
+                    cfg: ArchConfig, policy: str) -> torch.Tensor:
+    """Decompress the pooled latent per head (``gemm_heads``) and project
+    out."""
+    m = cfg.mla
+    b, h = x.shape[0], cfg.num_heads
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = xaif.call("gemm_heads", policy, pooled, w_uv, False)  # [B, H, dv]
+    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
+    return xaif.call("gemm", policy, out, params["wo"])
+
+
 def apply_mla_decode(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
                      cache: MLACache, cache_pos: torch.Tensor
                      ) -> Tuple[torch.Tensor, MLACache]:
@@ -394,26 +446,39 @@ def apply_mla_decode(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
     the second score component) and returns the pooled latent, which is
     decompressed per head. x [B, 1, d]; cache_pos [B] int32 = the new
     token's position; the new latent row is written in place."""
-    m = cfg.mla
-    b = x.shape[0]
-    h = cfg.num_heads
-    positions = cache_pos[:, None]
-    c_new, kr_new = _mla_latent(params, x, cfg, policy, positions)
-    q_nope, q_rope = _mla_queries(params, x, cfg, policy, positions)
-    bidx = torch.arange(b, device=x.device)
+    c_new, kr_new, q_abs, q_rope = _mla_decode_in(params, x, cfg, policy,
+                                                  cache_pos)
+    bidx = torch.arange(x.shape[0], device=x.device)
     pos = cache_pos.long()
-    cache.c_kv[bidx, pos] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[bidx, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
-    w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
-    q_abs = xaif.call("gemm_heads", policy,
-                      q_nope[:, :, 0].float().contiguous(), w_uk,
-                      True)                                  # [B, H, r]
+    cache.c_kv[bidx, pos] = c_new.to(cache.c_kv.dtype)
+    cache.k_rope[bidx, pos] = kr_new.to(cache.k_rope.dtype)
     latent = cache.c_kv[:, None]
     pooled = xaif.call("attn_decode", policy, q_abs, latent, latent,
-                       cache_pos, scale=_mla_scale(cfg),
-                       q2=q_rope[:, :, 0].float().contiguous(),
+                       cache_pos, scale=_mla_scale(cfg), q2=q_rope,
                        k2=cache.k_rope[:, None], precise=True)  # [B, H, r]
-    w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-    out = xaif.call("gemm_heads", policy, pooled, w_uv, False)  # [B, H, dv]
-    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
-    return xaif.call("gemm", policy, out, params["wo"]), cache
+    return _mla_decode_out(params, pooled, x, cfg, policy), cache
+
+
+def apply_mla_decode_paged(params, x: torch.Tensor, cfg: ArchConfig,
+                           policy: str, state: PagedMLACache,
+                           cache_pos: torch.Tensor,
+                           page_table: torch.Tensor
+                           ) -> Tuple[torch.Tensor, PagedMLACache]:
+    """``apply_mla_decode`` against one layer's latent pools [P, ps, r] /
+    [P, ps, rd] behind ``page_table`` [B, NP] (-1 = unallocated). The new
+    latent and rotary rows are appended into each sequence's current page
+    (a dead slot's into the scratch page 0), then the precise mode of
+    ``attn_decode_paged`` attends the latent pages: bitwise
+    ``apply_mla_decode`` when NP * ps equals the contiguous extent."""
+    c_new, kr_new, q_abs, q_rope = _mla_decode_in(params, x, cfg, policy,
+                                                  cache_pos)
+    safe, off = _current_page(page_table, cache_pos,
+                              state.c_kv_pages.shape[-2])
+    state.c_kv_pages[safe, off] = c_new.to(state.c_kv_pages.dtype)
+    state.k_rope_pages[safe, off] = kr_new.to(state.k_rope_pages.dtype)
+    latent = state.c_kv_pages[:, None]                   # [P, 1, ps, r]
+    pooled = xaif.call("attn_decode_paged", policy, q_abs, latent, latent,
+                       page_table, cache_pos, scale=_mla_scale(cfg),
+                       q2=q_rope, k2_pages=state.k_rope_pages[:, None],
+                       precise=True)                     # [B, H, r]
+    return _mla_decode_out(params, pooled, x, cfg, policy), state

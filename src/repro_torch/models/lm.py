@@ -16,10 +16,11 @@ absolute order within their kind (prefix layers first): for the attention
 layers one ``[La, B, Hkv, S, D]`` tensor each for K and V, or for MLA one
 ``[La, B, S, r]`` latent and one ``[La, B, S, rd]`` rotary key; for the
 Mamba layers a conv window ``[Lm, B, K-1, Din]`` and an fp32 SSM state
-``[Lm, B, Din, N]`` (``LMCache``). Or, for attention-only GQA archs, one
-``[L, P, Hkv, ps, D]`` page pool each for K and V with a ``[B,
-max_pages]`` page table (``PagedLMCache``). ``cache.layer(i)`` is layer
-i's view, read and written in place.
+``[Lm, B, Din, N]`` (``LMCache``). The paged cache (``PagedLMCache``) holds
+the attention layers' state in page pools instead, ``[La, P, Hkv, ps, D]``
+for K and V or ``[La, P, ps, r]`` / ``[La, P, ps, rd]`` for MLA, behind one
+``[B, max_pages]`` page table, beside the same slot-indexed Mamba state.
+``cache.layer(i)`` is layer i's view, read and written in place.
 """
 from __future__ import annotations
 
@@ -38,9 +39,6 @@ from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, init_rmsnorm, rmsnorm)
 
 
-PAGED_HYBRID = ("the paged hybrid engine (attention pages + slot-indexed "
-                "Mamba state) is a later slice: ROADMAP.md queue 1.3, "
-                "'paged hybrid engine', after paged MLA")
 SPEC_RECURRENT = ("verify cannot roll a recurrent state back to the "
                   "accepted prefix; the JAX package refuses it too: "
                   "ROADMAP.md queue 1.10, 'speculative decoding for "
@@ -55,9 +53,8 @@ def _check_attention_only(cfg: ArchConfig, what: str, why: str) -> None:
 
 def _check_gqa(cfg: ArchConfig, what: str) -> None:
     if cfg.mla is not None:
-        raise ValueError(f"{cfg.name}: {what} is not ported for MLA archs "
-                         f"yet (the JAX package runs it through the paged "
-                         f"precise mode, which waits for a later slice)")
+        raise ValueError(f"{cfg.name}: {what} is not defined for MLA archs "
+                         f"(the JAX package refuses it too)")
 
 
 # ---------------------------------------------------------------------------
@@ -260,47 +257,86 @@ def reset_slot(cache: LMCache, slot: int) -> LMCache:
 
 # ----- paged cache ----------------------------------------------------------
 #
-# Attention KV lives in fixed-size PAGES: one pool per layer (stacked
-# [L, P, Hkv, ps, D]) and ONE [capacity, max_pages] page table shared by all
-# layers maps slot-local page j to the pool page holding positions
-# [j*ps, (j+1)*ps). Page 0 is the reserved scratch page. The host owns
-# allocation (serve/paging.py).
+# Attention state lives in fixed-size PAGES: one pool per attention layer
+# (stacked [La, P, ...]) and ONE [capacity, max_pages] page table shared by
+# all layers maps slot-local page j to the pool page holding positions
+# [j*ps, (j+1)*ps). Page 0 is the reserved scratch page. Recurrent (Mamba)
+# state is O(1) per slot and stays slot-indexed. The host owns allocation
+# (serve/paging.py).
 
 
 class PagedLMCache(NamedTuple):
-    k_pages: torch.Tensor      # [L, P, Hkv, ps, D]
-    v_pages: torch.Tensor      # [L, P, Hkv, ps, D]
-    pos: torch.Tensor          # [B] int32 current lengths
-    page_table: torch.Tensor   # [B, max_pages] int32; -1 = unallocated
+    pos: torch.Tensor                  # [B] int32 current lengths
+    page_table: torch.Tensor           # [B, max_pages] int32; -1 = none
+    mixers: Tuple[str, ...]            # layer i's mixer, "attn" or "mamba"
+    k_pages: Optional[torch.Tensor] = None       # [La, P, Hkv, ps, D] (GQA)
+    v_pages: Optional[torch.Tensor] = None       # [La, P, Hkv, ps, D] (GQA)
+    c_kv_pages: Optional[torch.Tensor] = None    # [La, P, ps, r] (MLA)
+    k_rope_pages: Optional[torch.Tensor] = None  # [La, P, ps, rd] (MLA)
+    conv: Optional[torch.Tensor] = None      # [Lm, B, K-1, Din] (Mamba)
+    ssm: Optional[torch.Tensor] = None       # [Lm, B, Din, N] fp32 (Mamba)
 
-    def layer(self, i: int) -> attn.PagedKVCache:
-        return attn.PagedKVCache(self.k_pages[i], self.v_pages[i])
+    def layer(self, i: int) -> Union[attn.PagedKVCache, attn.PagedMLACache,
+                                     mamba_mod.MambaState]:
+        """Layer i's view: row j of its kind's stacks, j = the number of
+        earlier layers of the same kind."""
+        kind = self.mixers[i]
+        j = self.mixers[:i].count(kind)
+        if kind == "mamba":
+            return mamba_mod.MambaState(self.conv[j], self.ssm[j])
+        if self.c_kv_pages is not None:
+            return attn.PagedMLACache(self.c_kv_pages[j],
+                                      self.k_rope_pages[j])
+        return attn.PagedKVCache(self.k_pages[j], self.v_pages[j])
+
+    @property
+    def pools(self) -> Union[attn.PagedKVCache, attn.PagedMLACache]:
+        """The attention layers' pools, stacked [La, P, ...]."""
+        if self.c_kv_pages is not None:
+            return attn.PagedMLACache(self.c_kv_pages, self.k_rope_pages)
+        return attn.PagedKVCache(self.k_pages, self.v_pages)
+
+    @property
+    def recurrent(self) -> Tuple[torch.Tensor, ...]:
+        """The Mamba states present, each [Lm, B, ...]."""
+        return tuple(t for t in (self.conv, self.ssm) if t is not None)
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
                      page_size: int, num_pages: int,
                      device="cuda") -> PagedLMCache:
-    _check_attention_only(cfg, "the paged KV cache", PAGED_HYBRID)
-    _check_gqa(cfg, "the paged KV cache")
     device = resolve_device(device)
-    pools = attn.init_paged_kv_cache(cfg, num_pages, page_size,
-                                     getattr(torch, cfg.dtype), device,
-                                     layers=cfg.num_layers)
+    dtype = getattr(torch, cfg.dtype)
+    mixers = tuple(cfg.layer_spec(i).mixer for i in range(cfg.num_layers))
+    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
     max_pages = -(-max_len // page_size)
-    return PagedLMCache(
-        pools.k_pages, pools.v_pages,
+    cache = PagedLMCache(
         torch.zeros(batch, dtype=torch.int32, device=device),
-        torch.full((batch, max_pages), -1, dtype=torch.int32, device=device))
+        torch.full((batch, max_pages), -1, dtype=torch.int32, device=device),
+        mixers)
+    if n_mamba:
+        st = mamba_mod.init_mamba_state(cfg, batch, dtype, device, n_mamba)
+        cache = cache._replace(conv=st.conv, ssm=st.ssm)
+    if cfg.mla is not None:
+        mc = attn.init_paged_mla_cache(cfg, num_pages, page_size, dtype,
+                                       device, layers=n_attn)
+        return cache._replace(c_kv_pages=mc.c_kv_pages,
+                              k_rope_pages=mc.k_rope_pages)
+    pools = attn.init_paged_kv_cache(cfg, num_pages, page_size, dtype,
+                                     device, layers=n_attn)
+    return cache._replace(k_pages=pools.k_pages, v_pages=pools.v_pages)
 
 
 def fill_slot_paged(cache: PagedLMCache, src: LMCache, slot: int, length,
                     page_ids: torch.Tensor) -> PagedLMCache:
     """Admit a batch-1 contiguous prefill into row ``slot`` in place: its
-    KV is scattered into the host-allocated ``page_ids`` (one per bucket
-    page, in position order) and the slot's page-table row is rewritten to
-    exactly these pages."""
-    attn.fill_pages(attn.PagedKVCache(cache.k_pages, cache.v_pages),
-                    attn.KVCache(src.k, src.v), page_ids)
+    attention state is scattered into the host-allocated ``page_ids`` (one
+    per bucket page, in position order), its recurrent state lands in the
+    slot row as ``fill_slot`` writes it, and the slot's page-table row is
+    rewritten to exactly these pages."""
+    attn.fill_pages(cache.pools, src.states, page_ids)
+    for dst, s in zip(cache.recurrent, src.recurrent):
+        dst[:, slot] = s[:, 0]
     n = page_ids.shape[0]
     cache.page_table[slot] = -1
     cache.page_table[slot, :n] = page_ids.to(torch.int32)
@@ -309,10 +345,12 @@ def fill_slot_paged(cache: PagedLMCache, src: LMCache, slot: int, length,
 
 
 def free_slot_paged(cache: PagedLMCache, slot: int) -> PagedLMCache:
-    """Retire row ``slot``: zero its length and page-table row, in place.
-    Pool pages keep their bytes; junk is masked at read time."""
+    """Retire row ``slot``: zero its length, recurrent state and page-table
+    row, in place. Pool pages keep their bytes; junk is masked at read
+    time."""
     cache.pos[slot] = 0
     cache.page_table[slot] = -1
+    attn.reset_slot(cache.recurrent, slot)
     return cache
 
 
@@ -329,17 +367,20 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
     still matter — dead ones are masked out of MoE routing."""
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
-    if spec.mixer == "mamba":   # contiguous only: verify / paged refuse it
+    if spec.mixer == "mamba":   # slot-indexed state, paged cache or not
         if mode == "prefill":
             out, _ = mamba_mod.apply_mamba(m, h, cfg, policy, state)
         else:
             out, _ = mamba_mod.apply_mamba_decode(m, h, cfg, policy, state)
-    elif cfg.mla is not None:   # contiguous only: verify / paged refuse MLA
+    elif cfg.mla is not None:   # prefill or decode: verify refuses MLA
         if mode == "prefill":
             out, _ = attn.apply_mla(m, h, cfg, policy, state)
-        else:
+        elif page_table is None:
             out, _ = attn.apply_mla_decode(m, h, cfg, policy, state,
                                            cache_pos)
+        else:
+            out, _ = attn.apply_mla_decode_paged(m, h, cfg, policy, state,
+                                                 cache_pos, page_table)
     elif mode == "prefill":
         out, _ = attn.apply_attention_prefill(m, h, cfg, policy, state)
     elif mode == "decode" and page_table is None:
@@ -430,7 +471,8 @@ def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
                    live: Optional[torch.Tensor] = None):
     """One decode step. tokens [B, 1]. ``cache`` is an LMCache (contiguous
     KV or MLA latents) or a PagedLMCache (page pools attended through the
-    page table: the same numerics). Cached rows are written in place.
+    page table: the same numerics), each with slot-indexed Mamba state.
+    Cached rows are written in place.
     ``live`` [B] bool (optional): the serve engine's occupied, not-done
     slots; dead slots are masked out of MoE routing, which on the dropless
     decode path never changes a live slot's output. Returns (final_logits

@@ -13,10 +13,11 @@ slot-based continuous-batching engine and the one-request reference loop
     greedy argmax, the early-exit merge and the statistics stay on the
     device, and the scheduler fetches (tokens, slot state) to the host once
     per chunk.
-  * Paged KV (``paged=True``): attention KV lives in fixed-size pages from
-    a pool of ``num_pages`` (page 0 is the scratch page, never allocated);
-    one ``[capacity, max_pages]`` page table, shared by every layer, is
-    rewritten by the host between chunks (``serve/paging.py``).
+  * Paged KV (``paged=True``): attention state (GQA K/V or MLA latents)
+    lives in fixed-size pages from a pool of ``num_pages`` (page 0 is the
+    scratch page, never allocated); one ``[capacity, max_pages]`` page
+    table, shared by every attention layer, is rewritten by the host
+    between chunks (``serve/paging.py``). Mamba state stays slot-indexed.
   * Greedy speculative decoding (``spec=SpecConfig(...)``): per round a
     draft model proposes ``k`` tokens per slot, ONE target
     ``forward_verify`` scores all of them, and each slot accepts a
@@ -161,18 +162,19 @@ class SlotEngine:
     ``chunk``: decode steps
     (speculative rounds under ``spec``) per chunk between two host fetches.
 
-    ``paged``: attention KV in pages of ``page_size`` positions from a pool
-    of ``num_pages`` (default: the contiguous worst case, capacity x
+    ``paged``: attention state in pages of ``page_size`` positions from a
+    pool of ``num_pages`` (default: the contiguous worst case, capacity x
     ceil(max_len / page_size), + 1 scratch page; shrink it to trade
-    worst-case headroom for admission concurrency).
+    worst-case headroom for admission concurrency), for every arch: GQA
+    K/V pages, MLA latent pages (the precise mode of ``attn_decode_paged``)
+    and, beside the attention pages, slot-indexed Mamba state. An
+    exact-length prefill books ceil(prompt / page_size) pages.
 
     ``spec``: greedy speculative decoding. The target may carry no exit
     heads (verification scores every position with full-model logits) and
     the draft must share its vocabulary; both must be GQA archs (the JAX
     package refuses verify for MLA) without recurrent layers (JAX refuses
-    those too). The paged engine is for all-attention GQA archs: paged MLA
-    and the paged hybrid engine wait for later slices. Sampling
-    (``temperature > 0``) is not ported.
+    those too). Sampling (``temperature > 0``) is not ported.
     """
 
     def __init__(self, run: Union[RunConfig, ArchConfig], capacity: int,
@@ -186,14 +188,6 @@ class SlotEngine:
         if temperature > 0.0:
             raise NotImplementedError("sampling (temperature > 0) is not "
                                       "ported yet; the engine is greedy")
-        if paged and cfg.mla is not None:
-            raise ValueError(f"{cfg.name}: the paged engine is not ported "
-                             f"for MLA archs yet (paged precise decode "
-                             f"attention waits for a later slice)")
-        if paged and cfg.recurrent:
-            raise ValueError(f"{cfg.name}: the paged engine is not ported "
-                             f"for archs with recurrent (Mamba) layers: "
-                             f"{lm.PAGED_HYBRID}")
         self.spec = spec
         self.draft_cfg: Optional[ArchConfig] = None
         if spec is not None:
@@ -391,15 +385,17 @@ class SlotEngine:
     @torch.inference_mode()
     def scrub_slot_kv(self, cache, slot: int, page_ids=None):
         """Zero a quarantined slot's KV (its row, or on a paged engine its
-        ``page_ids``) before it is reused: masked softmax weights are
-        exactly 0 and 0 * NaN = NaN, so poisoned KV would leak into its
-        next occupant."""
+        ``page_ids`` in every attention pool, GQA or MLA) before it is
+        reused: masked softmax weights are exactly 0 and 0 * NaN = NaN, so
+        poisoned KV would leak into its next occupant. A paged slot's
+        recurrent state is left to the next ``fill_slot_paged``, which
+        rewrites it whole."""
         if not self.paged:
             return lm.reset_slot(cache, slot)
         ids = torch.as_tensor(list(page_ids or ()), dtype=torch.long,
                               device=self.device)
-        cache.k_pages[:, ids] = 0
-        cache.v_pages[:, ids] = 0
+        for pool in cache.pools:
+            pool[:, ids] = 0
         return cache
 
     # -- decode ------------------------------------------------------------

@@ -463,32 +463,54 @@ def test_fill_and_reset_slot_write_the_recurrent_rows():
 
 
 def test_paged_and_spec_refused_for_recurrent_archs():
+    """The paged engine serves recurrent archs (attention pages beside the
+    slot-indexed Mamba state); speculative decoding and verify stay
+    refused for them, as in JAX."""
     _, pcfg = _configs()
     yi = port_arch("yi-9b").reduced(early_exit=None)
-    with pytest.raises(ValueError, match="paged hybrid engine"):
-        SlotEngine(pcfg, capacity=2, max_len=16, device="cpu", paged=True)
+    engine = SlotEngine(pcfg, capacity=2, max_len=16, device="cpu",
+                        paged=True, page_size=4)
+    assert engine.prompt_bucket == 1
+    cache, _ = engine.init_state()
+    n_attn = cache.mixers.count("attn")
+    n_mamba = cache.mixers.count("mamba")
+    assert n_attn and n_mamba
+    assert cache.k_pages.shape[:2] == (n_attn, 9)
+    assert cache.conv.shape[:2] == cache.ssm.shape[:2] == (n_mamba, 2)
     for target, draft in ((dataclasses.replace(pcfg, early_exit=None), yi),
                           (yi, dataclasses.replace(pcfg, early_exit=None))):
         with pytest.raises(ValueError, match="speculative decoding for "
                                              "recurrent archs"):
             SlotEngine(target, capacity=2, max_len=16, device="cpu",
                        spec=SpecConfig(draft_arch=draft, k=2))
-    with pytest.raises(ValueError, match="paged hybrid engine"):
-        lm.init_paged_cache(pcfg, 2, 16, 4, 9, device="cpu")
     pp = lm.init_lm(pcfg, device="cpu")
-    cache = lm.init_cache(pcfg, 2, 16, device="cpu")
-    with pytest.raises(ValueError, match="recurrent"):
-        lm.forward_verify(pp, torch.zeros(2, 3, dtype=torch.int32), pcfg,
-                          "auto", cache)
+    for cache in (lm.init_cache(pcfg, 2, 16, device="cpu"),
+                  lm.init_paged_cache(pcfg, 2, 16, 4, 9, device="cpu")):
+        with pytest.raises(ValueError, match="recurrent"):
+            lm.forward_verify(pp, torch.zeros(2, 3, dtype=torch.int32), pcfg,
+                              "auto", cache)
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--paged"], "paged hybrid engine"),
-    (["--draft", "yi-9b"], "speculative decoding for recurrent"),
+    pytest.param(["--paged"], None, id="flags0-paged hybrid engine"),
+    pytest.param(["--draft", "yi-9b"], "speculative decoding for recurrent",
+                 id="flags1-speculative decoding for recurrent"),
 ])
 def test_launcher_refuses_paged_and_spec_for_jamba(flags, match, capsys):
+    """``--paged`` serves jamba through the paged hybrid engine; ``--draft``
+    is refused for a recurrent target."""
+    argv = ["--arch", ARCH, "--device", "cpu"] + flags
+    if match is None:
+        report = launcher.main(argv + ["--requests", "2", "--capacity", "2",
+                                       "--new-tokens", "3",
+                                       "--prompt-len-min", "5",
+                                       "--prompt-len-max", "5",
+                                       "--max-len", "16"])
+        assert report.completion_rate == 1.0
+        assert "pages: peak" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit):
-        launcher.main(["--arch", ARCH, "--device", "cpu"] + flags)
+        launcher.main(argv)
     assert match in capsys.readouterr().err
 
 

@@ -272,21 +272,28 @@ def test_slot_engine_tokens_equal_generate(dtype):
 
 
 def test_paged_spec_and_verify_raise_for_mla():
+    """The paged engine serves MLA (latent page pools, no GQA pools);
+    speculative decoding and verify stay refused for MLA, as in JAX."""
     _, pcfg = _configs()
-    with pytest.raises(ValueError, match="paged"):
-        SlotEngine(pcfg, capacity=2, max_len=16, device="cpu", paged=True)
+    engine = SlotEngine(pcfg, capacity=2, max_len=16, device="cpu",
+                        paged=True, page_size=4)
+    cache, _ = engine.init_state()
+    m = pcfg.mla
+    assert cache.c_kv_pages.shape == (pcfg.num_layers, 9, 4, m.kv_lora_rank)
+    assert cache.k_rope_pages.shape == (pcfg.num_layers, 9, 4,
+                                        m.qk_rope_head_dim)
+    assert cache.k_pages is None and cache.conv is None
     with pytest.raises(ValueError, match="MLA"):
         SlotEngine(dataclasses.replace(pcfg, early_exit=None), capacity=2,
                    max_len=16, device="cpu",
                    spec=SpecConfig(draft_arch=port_arch("yi-9b").reduced(
                        early_exit=None), k=2))
-    with pytest.raises(ValueError, match="MLA"):
-        lm.init_paged_cache(pcfg, 2, 16, 4, 9, device="cpu")
     pp = lm.init_lm(pcfg, device="cpu")
-    cache = lm.init_cache(pcfg, 2, 16, device="cpu")
-    with pytest.raises(ValueError, match="MLA"):
-        lm.forward_verify(pp, torch.zeros(2, 3, dtype=torch.int32), pcfg,
-                          "auto", cache)
+    for cache in (lm.init_cache(pcfg, 2, 16, device="cpu"),
+                  lm.init_paged_cache(pcfg, 2, 16, 4, 9, device="cpu")):
+        with pytest.raises(ValueError, match="MLA"):
+            lm.forward_verify(pp, torch.zeros(2, 3, dtype=torch.int32), pcfg,
+                              "auto", cache)
 
 
 # ---------------------------------------------------------------------------

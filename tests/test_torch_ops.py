@@ -129,14 +129,18 @@ def test_attn_decode_matches_jax(dtype):
 
 
 def test_attn_decode_precise_mode_not_ported():
-    """The contiguous precise (MLA) mode is ported (tests/test_torch_mla.py
-    holds it against JAX); the paged precise mode is not yet and raises."""
-    z = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError):
-        paged_attention_ref(z, torch.zeros(2, 1, 4, 8),
-                            torch.zeros(2, 1, 4, 8),
-                            torch.ones(1, 2, dtype=torch.int32),
-                            torch.zeros(1, dtype=torch.int32), precise=True)
+    """Both precise (MLA) modes are ported, contiguous and paged
+    (tests/test_torch_mla.py and tests/test_torch_paged_hybrid.py hold
+    them against JAX): on the latent of one page the paged plain version
+    equals the contiguous one bit for bit."""
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 8), np.float32))
+    lat = torch.from_numpy(rng.standard_normal((2, 1, 4, 8), np.float32))
+    cp = torch.tensor([2], dtype=torch.int32)
+    got = paged_attention_ref(q, lat, lat, torch.ones(1, 1, dtype=torch.int32),
+                              cp, precise=True)
+    want = attn_decode_ref(q, lat[1:], lat[1:], cp, precise=True)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -110,11 +110,20 @@ def test_paged_ref_bitwise_equals_contiguous_ref(dtype):
 
 
 def test_paged_precise_mode_not_ported():
-    z = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError):
-        paged_attention_ref(z, torch.zeros(2, 1, 4, 8), torch.zeros(2, 1, 4, 8),
-                            torch.zeros(1, 1, dtype=torch.int32),
-                            torch.zeros(1, dtype=torch.int32), precise=True)
+    """The precise (MLA) mode of the plain version, once refused, runs:
+    one latent head that is K and V, fp32 out, and a -1 page inside the
+    window masked (its positions weighted 0, so the result is that of the
+    table without it)."""
+    rng = np.random.default_rng(9)
+    lat = torch.from_numpy(rng.standard_normal((4, 1, 4, 8), np.float32))
+    q = torch.from_numpy(rng.standard_normal((1, 2, 8), np.float32))
+    cp = torch.tensor([7], dtype=torch.int32)
+    table = torch.tensor([[2, -1]], dtype=torch.int32)
+    out = paged_attention_ref(q, lat, lat, table, cp, precise=True)
+    assert out.dtype == torch.float32 and out.shape == (1, 2, 8)
+    short = paged_attention_ref(q, lat, lat, table[:, :1], cp - 4,
+                                precise=True)
+    torch.testing.assert_close(out, short, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["attn_decode_paged", "verify_decode",
