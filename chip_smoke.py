@@ -54,20 +54,32 @@ Phases (any failure raises; nothing is caught):
      state, 24 usable pages): tokens equal the contiguous run's, bitwise,
      attn_decode_paged on the 2 attention layers and ssm_decode on the 14
      Mamba layers every step, no attn_decode;
- 11. one JSON line listing the kernels, the card's name and power limit,
+ 11. xlstm-350m at full width and full depth (24 layers: 21 mLSTM with
+     head dim 512, 3 sLSTM, no attention layer; bf16, random weights;
+     jamba's weights freed first): 64 prompts prefilled through the
+     kernels, the plain policy and the plain policy on an fp32 weight
+     copy, and 16 prompts teacher-forced layer by layer;
+ 12. the 6-request serve of phase 4 on xlstm (slot-indexed mLSTM and sLSTM
+     state, greedy, exact-length prefill): request 0 equals ``generate``
+     bitwise, the launch counters are exactly gemm, gemm_heads, rmsnorm,
+     entropy_exit and ssm_decode (its mLSTM mode on the 21 mLSTM layers
+     every step); then the paged engine (no pool: 24 usable pages are
+     accounted, nothing is stored in them): tokens equal the contiguous
+     run's, bitwise;
+ 13. one JSON line listing the kernels, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
 
-Phase 2 also holds deepseek's and jamba's kernels at their serving shapes
-and asserts, bitwise, that row b of a B = 4 launch of moe_decode (at h =
-1408 and 14336), precise attn_decode, gemm_heads and ssm_decode equals
-its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
+Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
+serving shapes and asserts, bitwise, that row b of a B = 4 launch of
+moe_decode (at h = 1408 and 14336), precise attn_decode, gemm_heads (both
+layouts), ssm_decode and mlstm_decode equals its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
 state carried equals the scan of T1 + T2; and the precise (MLA) paged
 decode kernel against its plain version, bitwise against the contiguous
 precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
 cache_pos kept out. Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
-line come from the run of its path (phase 4, 5, 6, 8 or 10). Each model
+line come from the run of its path (phase 4, 5, 6, 8, 10 or 12). Each model
 also has one decode chunk timed and traced per engine (``decode step``
 lines), paged beside contiguous.
 
@@ -90,6 +102,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
               "float32": 67e12}    # CUDA cores, no TF32
+# xlstm-350m's prefill, kernels against plain: bounds on the rel L2 of the
+# last-position logits (max, mean over 64 prompts), 2x the readings of the
+# first run on the H100 (max 0.397, mean 0.273; PERF.md)
+XLSTM_PREFILL = (0.79, 0.55)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -109,7 +125,14 @@ def card_line() -> str:
 
 class Timer:
     """Median time of one call with a cold L2 (a 128 MiB buffer is
-    written between calls), by CUDA events around each call."""
+    written between calls), by CUDA events around each call. A ~0.5 ms
+    spin of the device (``torch.cuda._sleep``) is queued before the start
+    event, so the host's work before the first launch (a wrapper's checks
+    and allocations) overlaps it and stays out of the reading: the time is
+    the device's, from the first kernel of the call to the end of the
+    last."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -124,6 +147,7 @@ class Timer:
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s.record()
             fn()
             e.record()
@@ -256,6 +280,7 @@ def check_kernels(torch, timer):
     check_mla_moe(torch, compare, randn, gen)
     check_paged_mla(torch, compare, randn, gen)
     check_jamba(torch, compare, randn, gen)
+    check_xlstm(torch, compare, randn, gen)
 
     # entropy: fp32 sums in another order; the result is O(1). Library:
     # the entropy of torch.distributions.Categorical over log V
@@ -785,6 +810,103 @@ def check_jamba(torch, compare, randn, gen):
           "with the state carried == the scan of 120", flush=True)
 
 
+def check_xlstm(torch, compare, randn, gen):
+    """Phase 2 for xlstm-350m's kernels at its serving shapes (B = 4
+    slots, d_model 1024, 4 heads; mLSTM d_in 2048, head dim 512; sLSTM
+    head dim 256, gated FFN of 1365): the mLSTM decode step, the decode
+    GEMMs (the FFN's K = 1365 and N = 2730 take the element-wise load
+    path) and the head-major ``gemm_heads`` of the block-diagonal q/k/v
+    (bf16) and sLSTM recurrent (fp32) weights. Bitwise: row b of a B = 4
+    launch of mlstm_decode and head-major gemm_heads == its B = 1
+    launch."""
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_heads_ref, gemm_ref
+    from repro_torch.kernels.ssm_decode import ops as sd
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+
+    f32 = torch.float32
+    b, h, dh, d = 4, 4, 512, 1024
+
+    # the decode GEMMs at M = 4 (per step: up_proj, down_proj and the fp32
+    # gate projection in 21 layers; wx, w_ff1, w_ff2 in 3; the unembedding
+    # twice with the exit head): bf16, one bf16 ulp; fp32 summation order
+    for k, n in ((1024, 4096), (2048, 1024), (1024, 2730), (1365, 1024),
+                 (1024, 50304)):
+        x, w = randn(b, k), randn(k, n, scale=k ** -0.5)
+        compare("gemm", f"M=4 K={k} N={n} none",
+                lambda x=x, w=w: gm.gemm(x, w),
+                lambda x=x, w=w: gemm_ref(x, w),
+                lambda x=x, w=w: torch.matmul(x, w),
+                2 * (b * k + k * n + b * n), 2 * b * k * n, "bfloat16", 1e-2,
+                1e-2)
+    x, w = randn(b, 2048, dtype=f32), randn(2048, 8, dtype=f32,
+                                             scale=2048 ** -0.5)
+    compare("gemm", "M=4 K=2048 N=8 none fp32 (w_if)",
+            lambda: gm.gemm(x, w), lambda: gemm_ref(x, w),
+            lambda: torch.matmul(x, w), 4 * (b * 2048 + 2048 * 8 + b * 8),
+            2 * b * 2048 * 8, "float32", 1e-4, 1e-4)
+
+    # head-major per-head products: fp32 on both sides, summation order
+    heads = {}
+    for name, kk, nn, wdt in (("gemm_heads_qkv", dh, dh, torch.bfloat16),
+                              ("gemm_heads_wr", 256, 1024, f32)):
+        xh = randn(b, h, kk, dtype=f32)
+        wh = randn(h, kk, nn, dtype=wdt, scale=kk ** -0.5)
+        heads[name] = (xh, wh)
+        compare("gemm_heads", f"x[{b},{h},{kk}] w[{h},{kk},{nn}] "
+                f"{'bf16' if wdt != f32 else 'fp32'} head-major",
+                lambda xh=xh, wh=wh: gm.gemm_heads(xh, wh, head_major=True),
+                lambda xh=xh, wh=wh: gemm_heads_ref(xh, wh, head_major=True),
+                lambda xh=xh, wh=wh: torch.einsum("mhk,hkn->mhn", xh,
+                                                  wh.float()),
+                4 * xh.numel() + wh.element_size() * wh.numel()
+                + 4 * b * h * nn, 2 * b * h * kk * nn, "float32", 1e-4, 1e-4)
+
+    # the mLSTM step at the cell's scales (k scaled by dh^-1/2 as the
+    # mixer scales it, a forget gate near sigmoid(3)); m spread over
+    # [-4, 2] so that some heads divide by |q . n'| and some by exp(-m').
+    # fp32 on both sides: h is held relative to its largest value (a
+    # head's output scales with 1 / its denominator), the state to 1e-4
+    q, v = randn(b, h, dh, dtype=f32), randn(b, h, dh, dtype=f32)
+    k = randn(b, h, dh, dtype=f32, scale=dh ** -0.5)
+    li = randn(b, h, dtype=f32)
+    lf = torch.nn.functional.logsigmoid(3 + randn(b, h, dtype=f32))
+    m = torch.rand(b, h, generator=gen, device="cuda") * 6 - 4
+    c = randn(b, h, dh, dh, dtype=f32, scale=4 * dh ** -0.5)
+    n = randn(b, h, dh, dtype=f32, scale=4 * dh ** -0.5)
+    args = (q, k, v, li, lf, m, c, n)
+    want = ssm_decode_ref(*args)
+    h_scale = float(want[0].abs().max())
+    nbytes = 4 * (2 * c.numel() + 3 * q.numel() + 3 * m.numel() + n.numel()
+                  + 2 * q.numel() + m.numel())
+    def flat(out):                  # (h, (C', n', m')) -> (h, C', n', m')
+        return (out[0],) + out[1]
+
+    compare("mlstm_decode", f"q[{b},{h},{dh}] C[{b},{h},{dh},{dh}] fp32",
+            lambda: flat(sd.ssm_decode(*args)),
+            lambda: flat(ssm_decode_ref(*args)), None,
+            nbytes, 5 * c.numel(), "float32", (1e-4,) * 4,
+            (1e-4 * h_scale, 1e-4, 1e-4, 1e-4), representative=True)
+    print("library: none for mlstm_decode (no single PyTorch call runs the "
+          "mLSTM recurrence)", flush=True)
+
+    # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
+    full = flat(sd.ssm_decode(*args))
+    full_heads = {name: gm.gemm_heads(xh, wh, head_major=True)
+                  for name, (xh, wh) in heads.items()}
+    for i in range(b):
+        one = slice(i, i + 1)
+        solo = flat(sd.ssm_decode(*(a[one] for a in args)))
+        for j, (got, ref) in enumerate(zip(full, solo)):
+            assert torch.equal(got[one], ref), ("mlstm_decode", i, j)
+        for name, (xh, wh) in heads.items():
+            assert torch.equal(full_heads[name][one], gm.gemm_heads(
+                xh[one], wh, head_major=True)), (name, i)
+    torch.cuda.synchronize()
+    print("bitwise: mlstm_decode (h, C', n', m') and head-major gemm_heads "
+          "rows of a B = 4 launch == their B = 1 launches", flush=True)
+
+
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
                   length: int = 100, fp32_copy: bool = True,
                   max_rel: float | None = 5e-2,
@@ -1174,6 +1296,77 @@ def run_jamba(torch, run_serve, t_start):
           f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
+def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
+    """Phases 11-12: xlstm-350m at full width and full depth (24 layers:
+    21 mLSTM with head dim 512, 3 sLSTM; no attention layer; exit at layer
+    8; 0.33 B params). The prefill of 64 prompts through the kernels, the
+    plain policy and the plain policy on an fp32 weight copy, end to end
+    (kernels-vs-plain rel L2 max / mean under ``prefill_bounds``) and
+    layer by layer; then the 6-request serve: request 0 == ``generate``
+    bitwise, every decode step through the mLSTM kernel on all 21 mLSTM
+    layers and no attention op; then the same requests through the paged
+    engine (no pool: pages are accounted, nothing is stored in them),
+    token for token equal to the contiguous run."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, generate
+
+    xl = get_arch("xlstm-350m")
+    t0 = time.perf_counter()
+    params = lm.init_lm(xl, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    mixers = [xl.layer_spec(i).mixer for i in range(xl.num_layers)]
+    n_ml, n_sl = mixers.count("mlstm"), mixers.count("slstm")
+    print(f"{xl.name}: {xl.num_layers} layers ({n_ml} mLSTM, {n_sl} sLSTM) "
+          f"d_model={xl.d_model} {n_params / 1e9:.3f}B params ({xl.dtype}) "
+          f"initialised in {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    # End to end the two bf16 paths drift apart through 24 recurrent layers
+    # on random weights, as jamba's do: the plain path's RMS logit
+    # distance from fp32 (0.44) exceeds every prompt's top-2 gap, so no
+    # prompt is clear. End to end the kernels are held to finite logits,
+    # the distance bounds and 1.5x plain's distance from fp32; layer by
+    # layer, teacher-forced, to bf16 accuracy
+    check_prefill(torch, lm, xl, params, n_prompts=64,
+                  max_rel=prefill_bounds[0], max_mean_rel=prefill_bounds[1],
+                  min_clear=0)
+    check_layers(torch, lm, xl, params)
+
+    prompts = make_prompts(torch, xl.vocab_size)
+    run = run_serve("xlstm-contiguous", xl, params, prompts)
+    steps, lc = run["steps"], run["launches"]
+    assert set(lc) == {"gemm", "gemm_heads", "rmsnorm", "entropy_exit",
+                       "ssm_decode"}, lc
+    assert lc["ssm_decode"] == n_ml * steps, lc
+    assert lc["entropy_exit"] == steps, lc
+    ref_toks, _ = generate(xl, params, prompts[0][None], 24)
+    assert ref_toks[0].tolist() == run["tokens"][0], (
+        "xlstm engine tokens differ from generate", ref_toks[0].tolist(),
+        run["tokens"][0])
+    print(f"serve xlstm-contiguous: request 0 == generate, bitwise; {n_ml} "
+          f"mlstm_decode (ssm_decode) a step, no attention op", flush=True)
+    profile_decode(torch, xl.name, SlotEngine(xl, capacity=4, max_len=160,
+                                              chunk=8), params, prompts)
+
+    paged = run_serve("xlstm-paged", xl, params, prompts, paged=True,
+                      page_size=16, num_pages=25)
+    lc, steps = paged["launches"], paged["steps"]
+    assert paged["tokens"] == run["tokens"], "paged xlstm tokens differ"
+    assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
+    assert set(lc) == {"gemm", "gemm_heads", "rmsnorm", "entropy_exit",
+                       "ssm_decode"}, lc
+    assert lc["ssm_decode"] == n_ml * steps, lc
+    profile_decode(torch, f"{xl.name} paged", SlotEngine(
+        xl, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
+        params, prompts)
+    print(f"serve xlstm-paged: tokens == contiguous engine, bitwise, per "
+          f"request; {n_ml} mlstm_decode a step, no pool; peak "
+          f"{int(paged['report'].stats['peak_pages'])} of 24 pages; xlstm "
+          f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
+
 def main() -> int:
 
     import torch
@@ -1308,6 +1501,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_jamba(torch, run_serve, t_start)
 
+    # -- 11-12. xlstm-350m, full depth: jamba's weights (local to
+    #    run_jamba) are freed first ----------------------------------------
+    torch.cuda.empty_cache()
+    run_xlstm(torch, run_serve, t_start)
+
     # -- 11. the kernels line, the card, the verdict -------------------------
     replaces = {   # kernel: (what it replaces, source, run, counter)
         "gemm": ("kernels/gemm/gemm.py:48", "gemm", "contiguous", "gemm"),
@@ -1354,6 +1552,10 @@ def main() -> int:
         "attn_decode_paged_mla": (
             "kernels/paged_attention/paged_attention.py:73",
             "paged_attention_mla", "deepseek-paged", "attn_decode_paged"),
+        # the mLSTM mode of ssm_decode: every ssm_decode launch of the
+        # xlstm run
+        "mlstm_decode": ("kernels/ssm_decode/ssm_decode.py:104",
+                         "mlstm_decode", "xlstm-contiguous", "ssm_decode"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",

@@ -3,8 +3,9 @@
 A copy of the JAX package's ``repro.configs.base`` dataclasses, cut to what
 the port serves today: decoder-only LMs with entropy early exits, dense
 (GQA + SwiGLU), DeepSeek-style (MLA + top-k MoE after dense prefix
-layers) or hybrid (Jamba: Mamba and attention mixers in a period-8
-pattern, MLP and MoE channel mixers).
+layers), hybrid (Jamba: Mamba and attention mixers in a period-8
+pattern, MLP and MoE channel mixers) or recurrent (xLSTM: mLSTM and sLSTM
+mixers with no channel mixer).
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
@@ -72,16 +73,28 @@ class MambaConfig:
     dt_rank: int = 0                   # 0 => ceil(d_model / 16)
 
 
-MIXERS = ("attn", "mamba")
-FFNS = ("mlp", "moe")
-FAMILIES = ("dense", "moe", "hybrid")
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM cell parameters (mLSTM + sLSTM blocks)."""
+
+    mlstm_proj_factor: float = 2.0     # up-projection in mLSTM blocks
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv_kernel: int = 4
+    chunk_size: int = 64               # chunkwise-parallel mLSTM chunk length
+
+
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+FFNS = ("mlp", "moe", "none")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
+XLSTM_MIXERS = ("mlstm", "slstm")
 
 
 @dataclass(frozen=True)
 class BlockSpec:
     """One layer = (sequence mixer, channel mixer). The port runs attention
-    (GQA, or MLA when the arch has ``mla``) or a Mamba mixer, with a SwiGLU
-    MLP or an MoE."""
+    (GQA, or MLA when the arch has ``mla``), a Mamba, mLSTM or sLSTM mixer,
+    with a SwiGLU MLP, an MoE or no channel mixer (``"none"``: xLSTM blocks
+    carry their own projections)."""
 
     mixer: str
     ffn: str
@@ -95,7 +108,7 @@ class BlockSpec:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                        # "dense" or "moe"
+    family: str                        # one of FAMILIES
     num_layers: int
     d_model: int
     num_heads: int
@@ -113,6 +126,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     early_exit: Optional[EarlyExitConfig] = None
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -131,6 +145,10 @@ class ArchConfig:
                 self.mamba is not None):
             raise ValueError(f"{self.name}: Mamba blocks need a MambaConfig "
                              f"and a MambaConfig needs Mamba blocks")
+        if any(b.mixer in XLSTM_MIXERS for b in self.block_pattern) != (
+                self.xlstm is not None):
+            raise ValueError(f"{self.name}: xLSTM blocks need an XLSTMConfig "
+                             f"and an XLSTMConfig needs xLSTM blocks")
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: num_heads % num_kv_heads != 0")
         if (self.num_layers - self.first_k_dense) % len(self.block_pattern):
@@ -147,10 +165,10 @@ class ArchConfig:
 
     @property
     def recurrent(self) -> bool:
-        """True when a layer carries recurrent state (a Mamba mixer): its
-        prefill must run at the exact prompt length, the paged engine keeps
-        that state slot-indexed beside the attention pages, and
-        speculative decoding is refused for it."""
+        """True when a layer carries recurrent state (a Mamba, mLSTM or
+        sLSTM mixer): its prefill must run at the exact prompt length, the
+        paged engine keeps that state slot-indexed beside the attention
+        pages (if any), and speculative decoding is refused for it."""
         return any(b.mixer != "attn" for b in self.block_pattern)
 
     def layer_spec(self, i: int) -> BlockSpec:
@@ -182,6 +200,8 @@ class ArchConfig:
                 qk_rope_head_dim=8, v_head_dim=16)
         if self.mamba is not None:
             changes["mamba"] = dataclasses.replace(self.mamba, d_state=8)
+        if self.xlstm is not None:
+            changes["xlstm"] = dataclasses.replace(self.xlstm, chunk_size=16)
         if self.early_exit is not None:
             # keep a single exit aligned to the reduced depth
             nl = changes["num_layers"]
@@ -223,6 +243,7 @@ def _register_builtin() -> None:
     # each config module registers itself when imported
     from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401
     from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
+    from repro_torch.configs import xlstm_350m  # noqa: F401
     from repro_torch.configs import yi_9b  # noqa: F401
 
 

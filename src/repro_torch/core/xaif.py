@@ -16,8 +16,10 @@ Here every op has
 An op's kernel wrapper may launch one of several kernels (``attn_decode``
 launches the GQA kernel or, in precise mode, the MLA kernel); its counter
 counts them all. The port adds one op the JAX package has not:
-``gemm_heads``, the per-head fp32 products of MLA's absorbed decode (plain
-einsums in JAX).
+``gemm_heads``, the per-head fp32 products of MLA's absorbed decode and of
+the xLSTM mixers' block-diagonal weights (plain einsums in JAX). The
+``ssm_decode`` op has two modes, Mamba and mLSTM, each with its own kernel
+behind the one wrapper and counter.
 
 ``call(op, policy, *args)`` picks the backend from the device of the first
 tensor argument: CUDA tensors launch the kernel, CPU tensors run the plain

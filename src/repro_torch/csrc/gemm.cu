@@ -151,14 +151,17 @@ __global__ void __launch_bounds__(128)
 // ---------------------------------------------------------------------------
 // fp32: FMA on the CUDA cores, 256 threads, each a 4 x 4 block of outputs.
 // One kernel serves the fused GEMM (H = 1, row-major) and the per-head
-// products of MLA's absorbed decode: for each head h (grid.z),
-// out_h [M, N] = act(x_h [M, K] @ W_h [K, N] + bias), x fp32, W fp32 or
-// bf16 read in place through strides (no transposed copy). The heads
-// replace the JAX package's two fp32 einsums of the absorbed decode
+// products of MLA's absorbed decode and of the xLSTM mixers: for each
+// head h (grid.z), out_h [M, N] = act(x_h [M, K] @ W_h [K, N] + bias), x
+// fp32, W fp32 or bf16 read in place through strides (no transposed
+// copy). The heads replace the JAX package's per-head einsums, plain XLA
+// ops there: the two fp32 einsums of the absorbed decode
 // (models/attention.py apply_mla_decode: "bhd,lhd->bhl" and
-// "bhl,lhd->bhd"), plain XLA ops there; cuBLAS picks its algorithm by M
-// and could give a B = 4 row other bits than the B = 1 row, while here the
-// tile and the K order are the same for every M and every H.
+// "bhl,lhd->bhd") and the block-diagonal q/k/v and recurrent products of
+// models/xlstm.py ("bthd,hde->bhte", "bhd,hde->bhe", w [H, K, N]). cuBLAS
+// picks its algorithm by M and could give a B = 4 row other bits than the
+// B = 1 row, while here the tile and the K order are the same for every M
+// and every H.
 // ---------------------------------------------------------------------------
 
 constexpr int FBK = 16;
@@ -241,23 +244,31 @@ static void gemm_f32_run(const float* x, const TW* w, const float* bias,
                                                     act, lay);
 }
 
-// x fp32 [M, H, K]; w [L, H, D] (dtype of w: 0 fp32, 1 bf16); out fp32.
-// transpose_w = 1: K = D, out [M, H, L], W_h[k][n] = w[n, h, k];
-// transpose_w = 0: K = L, out [M, H, D], W_h[k][n] = w[k, h, n].
+// The layouts of w in gemm_heads_launch.
+enum HeadLayout { kLHD = 0, kLHDTransposed = 1, kHeadMajor = 2 };
+
+// x fp32 [M, H, K]; w of dtype wdtype (0 fp32, 1 bf16); out fp32 [M, H, N].
+// layout kLHD: w [L, H, D], K = L, N = D, W_h[k][n] = w[k, h, n];
+// layout kLHDTransposed: w [L, H, D], K = D, N = L, W_h[k][n] = w[n, h, k];
+// layout kHeadMajor: w [H, L, D], K = L, N = D, W_h[k][n] = w[h, k, n]
+// (the block-diagonal per-head projections of the xLSTM mixers).
 KERNEL_API int gemm_heads_launch(const void* x, const void* w, void* out,
-                                 int M, int H, int L, int D, int transpose_w,
+                                 int M, int H, int L, int D, int layout,
                                  int wdtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K = transpose_w ? D : L, N = transpose_w ? L : D;
-  const Layout lay{K, D, N, H * K, H * D, H * N};
+  const bool kfast = layout == kLHDTransposed;
+  const int K = kfast ? D : L, N = kfast ? L : D;
+  const Layout lay = layout == kHeadMajor
+                         ? Layout{K, (long long)L * D, N, H * K, D, H * N}
+                         : Layout{K, D, N, H * K, H * D, H * N};
   auto xf = static_cast<const float*>(x);
   auto o = static_cast<float*>(out);
   if (wdtype == kBF16)
     gemm_f32_run(xf, static_cast<const __nv_bfloat16*>(w), nullptr, o, M, N,
-                 K, H, kNone, transpose_w, lay, s);
+                 K, H, kNone, kfast, lay, s);
   else
     gemm_f32_run(xf, static_cast<const float*>(w), nullptr, o, M, N, K, H,
-                 kNone, transpose_w, lay, s);
+                 kNone, kfast, lay, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """Wrappers of the GEMM kernels (``csrc/gemm.cu``) and their XAIF ops: the
 fused GEMM, and ``gemm_heads``, the per-head fp32 products of MLA's
-absorbed decode."""
+absorbed decode and of the xLSTM mixers' block-diagonal weights."""
 from __future__ import annotations
 
 import ctypes
@@ -62,29 +62,37 @@ def gemm(x: torch.Tensor, w: torch.Tensor,
 gemm.launches = 0
 
 
-def gemm_heads(x: torch.Tensor, w: torch.Tensor,
-               transpose_w: bool) -> torch.Tensor:
+def gemm_heads(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False,
+               head_major: bool = False) -> torch.Tensor:
     """Per-head fp32 products on the card, one launch for all heads.
-    x fp32 [M, H, K]; w [L, H, D] (fp32 or bf16, read in place).
-    ``transpose_w``: out[m, h, l] = sum_d x[m, h, d] w[l, h, d] (K = D);
-    else out[m, h, d] = sum_l x[m, h, l] w[l, h, d] (K = L). fp32 out."""
+    x fp32 [M, H, K]; w fp32 or bf16, read in place, in one of three
+    layouts: w [L, H, D] with ``transpose_w``: out[m, h, l] = sum_d
+    x[m, h, d] w[l, h, d] (K = D); w [L, H, D]: out[m, h, d] = sum_l
+    x[m, h, l] w[l, h, d] (K = L); w [H, K, N] with ``head_major``:
+    out[m, h, n] = sum_k x[m, h, k] w[h, k, n]. fp32 out."""
     require_cuda("gemm_heads", x, w)
     if x.dtype != torch.float32:
         raise TypeError(f"gemm_heads: x must be float32, got {x.dtype}")
     wcode = dtype_code("gemm_heads", w)
     m, h, k = x.shape
-    l_, hw, d = w.shape
-    if hw != h or k != (d if transpose_w else l_):
+    if head_major:
+        hw, l_, d = w.shape
+        n = d
+    else:
+        l_, hw, d = w.shape
+        n = l_ if transpose_w else d
+    if (hw != h or k != (d if transpose_w else l_)
+            or (head_major and transpose_w)):
         raise ValueError(f"gemm_heads: x {tuple(x.shape)} against w "
-                         f"{tuple(w.shape)} (transpose_w={transpose_w})")
-    out = torch.empty(m, h, l_ if transpose_w else d, dtype=torch.float32,
-                      device=x.device)
+                         f"{tuple(w.shape)} (transpose_w={transpose_w}, "
+                         f"head_major={head_major})")
+    out = torch.empty(m, h, n, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     lib = _lib()
+    layout = 2 if head_major else int(transpose_w)   # csrc/gemm.cu HeadLayout
     rc = lib.gemm_heads_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
-                               h, l_, d, int(transpose_w), wcode,
-                               stream_ptr(x))
+                               h, l_, d, layout, wcode, stream_ptr(x))
     gemm_heads.launches += 1
     check(lib, rc, "gemm_heads")
     return out

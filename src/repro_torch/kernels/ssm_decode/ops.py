@@ -1,6 +1,7 @@
-"""Wrapper of the Mamba decode kernel (``csrc/ssm_decode.cu``) and the
-``ssm_decode`` op. The op's mLSTM mode (``x`` rank 3) has its plain
-version only: its kernel waits for the xLSTM slice."""
+"""Wrapper of the recurrent decode kernels and the ``ssm_decode`` op, in
+two modes told apart by the rank of ``x`` (as the plain version,
+``ref.py``): the Mamba step (``csrc/ssm_decode.cu``) and the mLSTM step
+(``csrc/mlstm_decode.cu``). One launch counter counts both."""
 from __future__ import annotations
 
 import ctypes
@@ -25,15 +26,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _mlstm_lib() -> ctypes.CDLL:
+    lib = library("mlstm_decode")
+    if lib.mlstm_decode_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mlstm_decode_launch.argtypes = [p] * 12 + [i] * 3 + [p]
+        lib.mlstm_decode_launch.restype = i
+    return lib
+
+
 def ssm_decode(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor, c: torch.Tensor, m: torch.Tensor,
                h: torch.Tensor, n: Optional[torch.Tensor] = None):
-    """Mamba mode, on the card: x, g [B, Din]; a [Din, N]; b, c [B, N]; m
-    [Din]; h [B, Din, N], all fp32 -> (y [B, Din], h_new [B, Din, N])."""
-    if n is not None or x.dim() != 2:
-        raise NotImplementedError(
-            "ssm_decode: the mLSTM mode has no CUDA kernel yet (ROADMAP.md "
-            "queue 1.4, xlstm-350m)")
+    """On the card. Mamba mode (``x`` rank 2, no ``n``): x, g [B, Din]; a
+    [Din, N]; b, c [B, N]; m [Din]; h [B, Din, N], all fp32 -> (y [B, Din],
+    h_new [B, Din, N]). mLSTM mode (``x`` rank 3, with ``n``): see
+    :func:`mlstm_decode`."""
+    if (n is not None) != (x.dim() == 3) or x.dim() not in (2, 3):
+        raise ValueError(f"ssm_decode: x of rank {x.dim()} "
+                         f"{'with' if n is not None else 'without'} n: the "
+                         f"Mamba mode takes x [B, Din] and no n, the mLSTM "
+                         f"mode x [B, H, dh] and n")
+    if n is not None:
+        return mlstm_decode(x, g, a, b, c, m, h, n)
     require_cuda("ssm_decode", x, g, a, b, c, m, h)
     if any(t.dtype != torch.float32 for t in (x, g, a, b, c, m, h)):
         raise TypeError("ssm_decode: the Mamba mode takes float32 tensors")
@@ -64,6 +79,44 @@ def ssm_decode(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     ssm_decode.launches += 1
     check(lib, rc, "ssm_decode")
     return y, h_new
+
+
+def mlstm_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 li: torch.Tensor, lf: torch.Tensor, m: torch.Tensor,
+                 c: torch.Tensor, n: torch.Tensor):
+    """The mLSTM mode of ``ssm_decode``, on the card: q, k, v [B, H, dh];
+    li, lf, m [B, H]; c [B, H, dh, dh]; n [B, H, dh], all fp32 -> (h [B,
+    H, dh], (c_new, n_new, m_new)), new tensors. Counted in
+    ``ssm_decode.launches``."""
+    require_cuda("ssm_decode", q, k, v, li, lf, m, c, n)
+    if any(t.dtype != torch.float32 for t in (q, k, v, li, lf, m, c, n)):
+        raise TypeError("ssm_decode: the mLSTM mode takes float32 tensors")
+    bsz, hh, dh = q.shape
+    if (k.shape != q.shape or v.shape != q.shape or n.shape != q.shape
+            or any(t.shape != (bsz, hh) for t in (li, lf, m))
+            or c.shape != (bsz, hh, dh, dh)):
+        raise ValueError(f"ssm_decode: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, li "
+                         f"{tuple(li.shape)}, lf {tuple(lf.shape)}, m "
+                         f"{tuple(m.shape)}, c {tuple(c.shape)}, n "
+                         f"{tuple(n.shape)}")
+    if dh % 4 or c.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("ssm_decode: the mLSTM mode reads c and v 4 values "
+                         "at a time: dh % 4 == 0, 16-byte aligned c and v")
+    h_out = torch.empty_like(q)
+    c_new, n_new, m_new = (torch.empty_like(c), torch.empty_like(n),
+                           torch.empty_like(m))
+    if h_out.numel() == 0:
+        return h_out, (c_new, n_new, m_new)
+    lib = _mlstm_lib()
+    rc = lib.mlstm_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
+        lf.data_ptr(), m.data_ptr(), c.data_ptr(), n.data_ptr(),
+        h_out.data_ptr(), c_new.data_ptr(), n_new.data_ptr(),
+        m_new.data_ptr(), bsz, hh, dh, stream_ptr(q))
+    ssm_decode.launches += 1
+    check(lib, rc, "ssm_decode (mLSTM)")
+    return h_out, (c_new, n_new, m_new)
 
 
 ssm_decode.launches = 0

@@ -6,8 +6,10 @@ JAX ``ssm_decode_ref``), in two modes told apart by the rank of ``x``:
   [Din, N], ``b`` / ``c`` = [B, N], ``m`` = d_skip [Din], ``h`` = the SSM
   state [B, Din, N], all fp32. Returns (y [B, Din], h_new [B, Din, N]).
 * mLSTM (``x`` [B, H, dh], with the normalizer state ``n``): the
-  matrix-LSTM cell step. Returns (h_out [B, H, dh], (c_new, n_new,
-  m_new)). No kernel runs it yet.
+  matrix-LSTM cell step. ``x``, ``g``, ``a`` = q, k, v [B, H, dh]; ``b``,
+  ``c`` = the input and forget log-gates [B, H]; ``m`` = the stabilizer
+  [B, H]; ``h`` = the cell state [B, H, dh, dh]; ``n`` [B, H, dh], all
+  fp32. Returns (h_out [B, H, dh], (c_new, n_new, m_new)).
 """
 from __future__ import annotations
 

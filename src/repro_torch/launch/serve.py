@@ -7,6 +7,8 @@ request-stream simulator over the continuous-batching slot engine.
         --arch deepseek-v2-lite-16b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-v0.1-52b --device cpu --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch xlstm-350m --device cpu [--paged]
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency
@@ -17,9 +19,10 @@ the plain PyTorch path.
 ``--paged`` serves through the paged KV engine: pages of ``--page-size``
 positions from a pool of ``--num-pages``, admission by free pages. It
 serves every arch: GQA K/V pages, MLA latent pages (deepseek-v2-lite-16b)
-and, for archs with recurrent Mamba layers (jamba-v0.1-52b, prefilled at
-the exact prompt length), attention pages beside slot-indexed Mamba
-state.
+and, for archs with recurrent layers (prefilled at the exact prompt
+length), attention pages beside slot-indexed Mamba state
+(jamba-v0.1-52b), or no pool at all beside slot-indexed mLSTM and sLSTM
+state (xlstm-350m: pages are accounted, nothing is stored in them).
 ``--draft ARCH --spec-k N`` turns on greedy speculative decoding: the
 draft arch (reduced, random weights) proposes N tokens per live slot per
 round and the target verifies them in one forward. Exit heads are stripped

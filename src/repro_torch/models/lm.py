@@ -8,19 +8,26 @@ the block pattern of period P, and ``params["slots"]`` holds one stack
 ``[n_superblocks, ...]`` per pattern slot (layer i >= first_k_dense is
 row ``(i - kd) // P`` of slot ``(i - kd) % P``), every matrix in the
 ``[K, N]`` layout, so loading JAX parameters is copy-only. A layer is a
-sequence mixer -- attention (GQA, or MLA when the arch has ``mla``) or a
-Mamba mixer -- followed by a SwiGLU MLP or an MoE.
+sequence mixer -- attention (GQA, or MLA when the arch has ``mla``), a
+Mamba, an mLSTM or an sLSTM mixer -- followed by a SwiGLU MLP, an MoE or
+nothing (``ffn == "none"``: an xLSTM layer has no ``ln2`` and no ``ffn``,
+as in JAX).
 
 The cache holds each kind of state stacked along a leading axis, layers in
 absolute order within their kind (prefix layers first): for the attention
 layers one ``[La, B, Hkv, S, D]`` tensor each for K and V, or for MLA one
 ``[La, B, S, r]`` latent and one ``[La, B, S, rd]`` rotary key; for the
 Mamba layers a conv window ``[Lm, B, K-1, Din]`` and an fp32 SSM state
-``[Lm, B, Din, N]`` (``LMCache``). The paged cache (``PagedLMCache``) holds
+``[Lm, B, Din, N]``; for the mLSTM layers an ``MLSTMState`` of stacks (c
+``[Lml, B, H, dh, dh]``, n ``[Lml, B, H, dh]``, m ``[Lml, B, H]`` fp32, conv
+``[Lml, B, K-1, d_in]``), for the sLSTM layers an ``SLSTMState`` (c, n, h, m
+``[Ls, B, d]`` fp32) (``LMCache``). The paged cache (``PagedLMCache``) holds
 the attention layers' state in page pools instead, ``[La, P, Hkv, ps, D]``
 for K and V or ``[La, P, ps, r]`` / ``[La, P, ps, rd]`` for MLA, behind one
-``[B, max_pages]`` page table, beside the same slot-indexed Mamba state.
-``cache.layer(i)`` is layer i's view, read and written in place.
+``[B, max_pages]`` page table, beside the same slot-indexed recurrent
+state. An arch with no attention layer has no attention tensors and no
+pools at all. ``cache.layer(i)`` is layer i's view, read and written in
+place.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.core.early_exit import apply_exit_head, init_exit_head
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, init_rmsnorm, rmsnorm)
 
@@ -48,7 +56,7 @@ SPEC_RECURRENT = ("verify cannot roll a recurrent state back to the "
 def _check_attention_only(cfg: ArchConfig, what: str, why: str) -> None:
     if cfg.recurrent:
         raise ValueError(f"{cfg.name}: {what} is not ported for archs with "
-                         f"recurrent (Mamba) layers: {why}")
+                         f"recurrent (Mamba or xLSTM) layers: {why}")
 
 
 def _check_gqa(cfg: ArchConfig, what: str) -> None:
@@ -67,14 +75,21 @@ def _init_layer(gen: Optional[torch.Generator], spec: BlockSpec,
     d = cfg.d_model
     if spec.mixer == "mamba":
         mixer = mamba_mod.init_mamba(gen, cfg, dtype, device)
+    elif spec.mixer == "mlstm":
+        mixer = xlstm_mod.init_mlstm(gen, cfg, dtype, device)
+    elif spec.mixer == "slstm":
+        mixer = xlstm_mod.init_slstm(gen, cfg, dtype, device)
     elif cfg.mla is not None:
         mixer = attn.init_mla(gen, cfg, dtype, device)
     else:
         mixer = attn.init_attention(gen, cfg, dtype, device)
-    ffn = (moe_mod.init_moe(gen, cfg, dtype, device) if spec.ffn == "moe"
-           else init_mlp(gen, d, cfg.d_ff, dtype, device))
-    return {"ln1": init_rmsnorm(d, device), "mixer": mixer,
-            "ln2": init_rmsnorm(d, device), "ffn": ffn}
+    p = {"ln1": init_rmsnorm(d, device), "mixer": mixer}
+    if spec.ffn != "none":
+        p["ln2"] = init_rmsnorm(d, device)
+        p["ffn"] = (moe_mod.init_moe(gen, cfg, dtype, device)
+                    if spec.ffn == "moe"
+                    else init_mlp(gen, d, cfg.d_ff, dtype, device))
+    return p
 
 
 def _map(tree, fn):
@@ -179,24 +194,60 @@ def _segments(cfg: ArchConfig) -> List[Tuple[int, int, Optional[int]]]:
 # ---------------------------------------------------------------------------
 
 
+def _recurrent_view(cache, kind: str, j: int):
+    """Row j of the stacks of a recurrent kind (``mamba``, ``mlstm`` or
+    ``slstm``): that layer's state, views read and written in place."""
+    if kind == "mamba":
+        return mamba_mod.MambaState(cache.conv[j], cache.ssm[j])
+    stack = cache.mlstm if kind == "mlstm" else cache.slstm
+    return type(stack)(*(t[j] for t in stack))
+
+
+def _recurrent_stacks(cache) -> Tuple[torch.Tensor, ...]:
+    """The recurrent stacks present (Mamba conv window and SSM state, the
+    mLSTM and sLSTM states), each [L, B, ...] with no sequence axis."""
+    return (tuple(t for t in (cache.conv, cache.ssm) if t is not None)
+            + tuple(cache.mlstm or ()) + tuple(cache.slstm or ()))
+
+
+def _init_recurrent(cfg: ArchConfig, mixers: Tuple[str, ...], batch: int,
+                    dtype, device) -> Dict[str, Any]:
+    """The zeroed slot-indexed recurrent stacks of ``mixers``, as cache
+    fields."""
+    fields: Dict[str, Any] = {}
+    n_mamba, n_ml, n_sl = (mixers.count("mamba"), mixers.count("mlstm"),
+                           mixers.count("slstm"))
+    if n_mamba:
+        st = mamba_mod.init_mamba_state(cfg, batch, dtype, device, n_mamba)
+        fields.update(conv=st.conv, ssm=st.ssm)
+    if n_ml:
+        fields["mlstm"] = xlstm_mod.init_mlstm_state(cfg, batch, dtype,
+                                                     device, n_ml)
+    if n_sl:
+        fields["slstm"] = xlstm_mod.init_slstm_state(cfg, batch, device,
+                                                     n_sl)
+    return fields
+
+
 class LMCache(NamedTuple):
     pos: torch.Tensor                  # [B] int32 current lengths
-    mixers: Tuple[str, ...]            # layer i's mixer, "attn" or "mamba"
+    mixers: Tuple[str, ...]            # layer i's mixer (a MIXERS name)
     k: Optional[torch.Tensor] = None         # [La, B, Hkv, S, D] (GQA)
     v: Optional[torch.Tensor] = None         # [La, B, Hkv, S, D] (GQA)
     c_kv: Optional[torch.Tensor] = None      # [La, B, S, r] (MLA)
     k_rope: Optional[torch.Tensor] = None    # [La, B, S, rd] (MLA)
     conv: Optional[torch.Tensor] = None      # [Lm, B, K-1, Din] (Mamba)
     ssm: Optional[torch.Tensor] = None       # [Lm, B, Din, N] fp32 (Mamba)
+    mlstm: Optional[xlstm_mod.MLSTMState] = None   # stacks [Lml, B, ...]
+    slstm: Optional[xlstm_mod.SLSTMState] = None   # stacks [Ls, B, d]
 
-    def layer(self, i: int
-              ) -> Union[attn.KVCache, attn.MLACache, mamba_mod.MambaState]:
+    def layer(self, i: int):
         """Layer i's view: row j of its kind's stacks, j = the number of
         earlier layers of the same kind."""
         kind = self.mixers[i]
         j = self.mixers[:i].count(kind)
-        if kind == "mamba":
-            return mamba_mod.MambaState(self.conv[j], self.ssm[j])
+        if kind != "attn":
+            return _recurrent_view(self, kind, j)
         if self.c_kv is not None:
             return attn.MLACache(self.c_kv[j], self.k_rope[j])
         return attn.KVCache(self.k[j], self.v[j])
@@ -204,15 +255,16 @@ class LMCache(NamedTuple):
     @property
     def states(self) -> Tuple[torch.Tensor, ...]:
         """The attention tensors present (K and V, or latent and rotary
-        key), each [La, B, ..., S, D]."""
+        key), each [La, B, ..., S, D]; none without attention layers."""
         return tuple(t for t in (self.k, self.v, self.c_kv, self.k_rope)
                      if t is not None)
 
     @property
     def recurrent(self) -> Tuple[torch.Tensor, ...]:
-        """The Mamba states present (conv window, SSM state), each
-        [Lm, B, ...] with no sequence axis."""
-        return tuple(t for t in (self.conv, self.ssm) if t is not None)
+        """The recurrent states present (Mamba conv window and SSM state,
+        the mLSTM and sLSTM states), each [L, B, ...] with no sequence
+        axis."""
+        return _recurrent_stacks(self)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -220,12 +272,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     mixers = tuple(cfg.layer_spec(i).mixer for i in range(cfg.num_layers))
-    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
+    n_attn = mixers.count("attn")
     cache = LMCache(torch.zeros(batch, dtype=torch.int32, device=device),
-                    mixers)
-    if n_mamba:
-        st = mamba_mod.init_mamba_state(cfg, batch, dtype, device, n_mamba)
-        cache = cache._replace(conv=st.conv, ssm=st.ssm)
+                    mixers, **_init_recurrent(cfg, mixers, batch, dtype,
+                                              device))
+    if not n_attn:
+        return cache
     if cfg.mla is not None:
         mc = attn.init_mla_cache(cfg, batch, max_len, dtype, device,
                                  layers=n_attn)
@@ -260,46 +312,53 @@ def reset_slot(cache: LMCache, slot: int) -> LMCache:
 # Attention state lives in fixed-size PAGES: one pool per attention layer
 # (stacked [La, P, ...]) and ONE [capacity, max_pages] page table shared by
 # all layers maps slot-local page j to the pool page holding positions
-# [j*ps, (j+1)*ps). Page 0 is the reserved scratch page. Recurrent (Mamba)
-# state is O(1) per slot and stays slot-indexed. The host owns allocation
-# (serve/paging.py).
+# [j*ps, (j+1)*ps). Page 0 is the reserved scratch page. Recurrent (Mamba,
+# mLSTM, sLSTM) state is O(1) per slot and stays slot-indexed. An arch with
+# no attention layer has no pool: the host still accounts its pages, as
+# the JAX engine does, and the page table is kept, but nothing is stored
+# in pages. The host owns allocation (serve/paging.py).
 
 
 class PagedLMCache(NamedTuple):
     pos: torch.Tensor                  # [B] int32 current lengths
     page_table: torch.Tensor           # [B, max_pages] int32; -1 = none
-    mixers: Tuple[str, ...]            # layer i's mixer, "attn" or "mamba"
+    mixers: Tuple[str, ...]            # layer i's mixer (a MIXERS name)
     k_pages: Optional[torch.Tensor] = None       # [La, P, Hkv, ps, D] (GQA)
     v_pages: Optional[torch.Tensor] = None       # [La, P, Hkv, ps, D] (GQA)
     c_kv_pages: Optional[torch.Tensor] = None    # [La, P, ps, r] (MLA)
     k_rope_pages: Optional[torch.Tensor] = None  # [La, P, ps, rd] (MLA)
     conv: Optional[torch.Tensor] = None      # [Lm, B, K-1, Din] (Mamba)
     ssm: Optional[torch.Tensor] = None       # [Lm, B, Din, N] fp32 (Mamba)
+    mlstm: Optional[xlstm_mod.MLSTMState] = None   # stacks [Lml, B, ...]
+    slstm: Optional[xlstm_mod.SLSTMState] = None   # stacks [Ls, B, d]
 
-    def layer(self, i: int) -> Union[attn.PagedKVCache, attn.PagedMLACache,
-                                     mamba_mod.MambaState]:
+    def layer(self, i: int):
         """Layer i's view: row j of its kind's stacks, j = the number of
         earlier layers of the same kind."""
         kind = self.mixers[i]
         j = self.mixers[:i].count(kind)
-        if kind == "mamba":
-            return mamba_mod.MambaState(self.conv[j], self.ssm[j])
+        if kind != "attn":
+            return _recurrent_view(self, kind, j)
         if self.c_kv_pages is not None:
             return attn.PagedMLACache(self.c_kv_pages[j],
                                       self.k_rope_pages[j])
         return attn.PagedKVCache(self.k_pages[j], self.v_pages[j])
 
     @property
-    def pools(self) -> Union[attn.PagedKVCache, attn.PagedMLACache]:
-        """The attention layers' pools, stacked [La, P, ...]."""
+    def pools(self) -> Union[attn.PagedKVCache, attn.PagedMLACache,
+                             Tuple[()]]:
+        """The attention layers' pools, stacked [La, P, ...]; an empty
+        tuple when the arch has no attention layer."""
         if self.c_kv_pages is not None:
             return attn.PagedMLACache(self.c_kv_pages, self.k_rope_pages)
-        return attn.PagedKVCache(self.k_pages, self.v_pages)
+        if self.k_pages is not None:
+            return attn.PagedKVCache(self.k_pages, self.v_pages)
+        return ()
 
     @property
     def recurrent(self) -> Tuple[torch.Tensor, ...]:
-        """The Mamba states present, each [Lm, B, ...]."""
-        return tuple(t for t in (self.conv, self.ssm) if t is not None)
+        """The recurrent states present, each [L, B, ...]."""
+        return _recurrent_stacks(self)
 
 
 def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -308,15 +367,14 @@ def init_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     mixers = tuple(cfg.layer_spec(i).mixer for i in range(cfg.num_layers))
-    n_attn, n_mamba = mixers.count("attn"), mixers.count("mamba")
+    n_attn = mixers.count("attn")
     max_pages = -(-max_len // page_size)
     cache = PagedLMCache(
         torch.zeros(batch, dtype=torch.int32, device=device),
         torch.full((batch, max_pages), -1, dtype=torch.int32, device=device),
-        mixers)
-    if n_mamba:
-        st = mamba_mod.init_mamba_state(cfg, batch, dtype, device, n_mamba)
-        cache = cache._replace(conv=st.conv, ssm=st.ssm)
+        mixers, **_init_recurrent(cfg, mixers, batch, dtype, device))
+    if not n_attn:
+        return cache
     if cfg.mla is not None:
         mc = attn.init_paged_mla_cache(cfg, num_pages, page_size, dtype,
                                        device, layers=n_attn)
@@ -333,8 +391,10 @@ def fill_slot_paged(cache: PagedLMCache, src: LMCache, slot: int, length,
     attention state is scattered into the host-allocated ``page_ids`` (one
     per bucket page, in position order), its recurrent state lands in the
     slot row as ``fill_slot`` writes it, and the slot's page-table row is
-    rewritten to exactly these pages."""
-    attn.fill_pages(cache.pools, src.states, page_ids)
+    rewritten to exactly these pages. An arch with no attention layer
+    stores nothing in pages: only the table row is written."""
+    if src.states:
+        attn.fill_pages(cache.pools, src.states, page_ids)
     for dst, s in zip(cache.recurrent, src.recurrent):
         dst[:, slot] = s[:, 0]
     n = page_ids.shape[0]
@@ -359,19 +419,27 @@ def free_slot_paged(cache: PagedLMCache, slot: int) -> PagedLMCache:
 # ---------------------------------------------------------------------------
 
 
+# recurrent mixer: (prefill, decode), each (params, x, cfg, policy, state)
+_RECURRENT = {
+    "mamba": (mamba_mod.apply_mamba, mamba_mod.apply_mamba_decode),
+    "mlstm": (xlstm_mod.apply_mlstm, xlstm_mod.apply_mlstm_decode),
+    "slstm": (xlstm_mod.apply_slstm, xlstm_mod.apply_slstm_decode),
+}
+
+
 def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
                  policy: str, state, mode: str, cache_pos=None,
                  page_table=None, live=None):
     """One layer: the sequence mixer of ``spec`` (``mode`` prefill / decode
-    / verify) then the MLP or MoE. ``live`` [B] bool (decode): slots that
-    still matter — dead ones are masked out of MoE routing."""
+    / verify) then the MLP, the MoE or nothing (``ffn == "none"``).
+    ``live`` [B] bool (decode): slots that still matter — dead ones are
+    masked out of MoE routing."""
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
-    if spec.mixer == "mamba":   # slot-indexed state, paged cache or not
-        if mode == "prefill":
-            out, _ = mamba_mod.apply_mamba(m, h, cfg, policy, state)
-        else:
-            out, _ = mamba_mod.apply_mamba_decode(m, h, cfg, policy, state)
+    if spec.mixer in _RECURRENT:    # slot-indexed state, paged cache or not
+        prefill, decode = _RECURRENT[spec.mixer]
+        fn = prefill if mode == "prefill" else decode
+        out, _ = fn(m, h, cfg, policy, state)
     elif cfg.mla is not None:   # prefill or decode: verify refuses MLA
         if mode == "prefill":
             out, _ = attn.apply_mla(m, h, cfg, policy, state)
@@ -396,6 +464,8 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
         out, _ = attn.apply_attention_verify_paged(m, h, cfg, policy, state,
                                                    cache_pos, page_table)
     x = x + out
+    if spec.ffn == "none":
+        return x
     h2 = rmsnorm(p["ln2"], x, policy, cfg.norm_eps)
     if spec.ffn != "moe":
         return x + apply_mlp(p["ffn"], h2, policy)
@@ -448,7 +518,7 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
     at each sequence's last real token and the cache records the true
     length, so one bucket serves every prompt length up to it (all-attention
     archs without an MoE only: an MoE would route the pad tokens and a
-    Mamba layer would fold them into its state, so such archs are
+    recurrent layer would fold them into its state, so such archs are
     prefilled at their exact length)."""
     x = _embed(params, tokens, cfg)
     b, t = tokens.shape
@@ -471,7 +541,8 @@ def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
                    live: Optional[torch.Tensor] = None):
     """One decode step. tokens [B, 1]. ``cache`` is an LMCache (contiguous
     KV or MLA latents) or a PagedLMCache (page pools attended through the
-    page table: the same numerics), each with slot-indexed Mamba state.
+    page table: the same numerics), each with slot-indexed recurrent
+    state.
     Cached rows are written in place.
     ``live`` [B] bool (optional): the serve engine's occupied, not-done
     slots; dead slots are masked out of MoE routing, which on the dropless

@@ -5,8 +5,9 @@ slot-based continuous-batching engine and the one-request reference loop
   * The cache's batch dimension is a fixed set of SLOTS (``capacity``). A
     request is admitted by a bucketed batch-1 prefill (exact-length for
     MoE and recurrent archs) written into a free slot row
-    (``lm.fill_slot``: attention KV rows and, for Mamba layers, the whole
-    conv window and SSM state); prompt
+    (``lm.fill_slot``: attention KV rows and, for recurrent layers, the
+    whole state: Mamba conv window and SSM state, mLSTM and sLSTM cells);
+    prompt
     length and occupancy are slot STATE (per-slot ``pos``/budget/done),
     never tensor shape. Decode masks dead slots out of MoE routing.
   * Decode runs in chunks of ``chunk`` steps over the whole slot batch:
@@ -17,7 +18,9 @@ slot-based continuous-batching engine and the one-request reference loop
     lives in fixed-size pages from a pool of ``num_pages`` (page 0 is the
     scratch page, never allocated); one ``[capacity, max_pages]`` page
     table, shared by every attention layer, is rewritten by the host
-    between chunks (``serve/paging.py``). Mamba state stays slot-indexed.
+    between chunks (``serve/paging.py``). Recurrent state stays
+    slot-indexed; an arch with no attention layer (xLSTM) keeps no pool,
+    and the host still accounts its pages.
   * Greedy speculative decoding (``spec=SpecConfig(...)``): per round a
     draft model proposes ``k`` tokens per slot, ONE target
     ``forward_verify`` scores all of them, and each slot accepts a
@@ -157,8 +160,8 @@ class SlotEngine:
     archs without an MoE pad, as in the JAX engine: MoE and recurrent
     archs prefill at the exact prompt length. Pad tokens would route into
     the experts (the capacity per group scales with the padded length, so
-    padding would change which tokens drop), and a Mamba layer would fold
-    them into its recurrent state.
+    padding would change which tokens drop), and a recurrent layer would
+    fold them into its state.
     ``chunk``: decode steps
     (speculative rounds under ``spec``) per chunk between two host fetches.
 
@@ -167,8 +170,10 @@ class SlotEngine:
     ceil(max_len / page_size), + 1 scratch page; shrink it to trade
     worst-case headroom for admission concurrency), for every arch: GQA
     K/V pages, MLA latent pages (the precise mode of ``attn_decode_paged``)
-    and, beside the attention pages, slot-indexed Mamba state. An
-    exact-length prefill books ceil(prompt / page_size) pages.
+    and, beside the attention pages, slot-indexed recurrent state (Mamba,
+    mLSTM, sLSTM). An arch with no attention layer stores nothing in
+    pages: admission and page accounting run as in JAX. An exact-length
+    prefill books ceil(prompt / page_size) pages.
 
     ``spec``: greedy speculative decoding. The target may carry no exit
     heads (verification scores every position with full-model logits) and

@@ -546,8 +546,13 @@ def test_new_kernel_wrappers_raise_on_cpu_tensors(name):
 
 
 def test_ssm_decode_kernel_refuses_the_mlstm_mode():
+    """The mLSTM mode of the kernel wrapper refuses CPU tensors (its
+    kernel runs on the card only) and counts no launch."""
+    from repro_torch.core import xaif
     from repro_torch.kernels.ssm_decode.ops import ssm_decode
     z3, z2 = torch.zeros(2, 3, 8), torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError, match="queue 1.4"):
+    before = xaif.launch_counts()
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         ssm_decode(z3, z3, z3, z2, z2, z2, torch.zeros(2, 3, 8, 8),
                    torch.zeros(2, 3, 8))
+    assert xaif.launch_counts() == before
