@@ -23,6 +23,19 @@ Phases (any failure raises; nothing is caught):
      the plain engine on that config: a tied draft on the paged engine
      (acceptance 1.0) and an independent 2-layer draft on the contiguous
      engine, both token for token equal to plain greedy;
+  6b. yi-9b on int8 weights, its bf16 weights still on the card: the
+     port's ``quantize_weights_int8`` on the card (exactly the
+     projections of ``_QUANT_NAMES`` in yi's tree); 8 prompts prefilled
+     through the kernels against the plain path on the same int8 weights
+     in both modes -- weight-only (the default policy: the int8-weight
+     instance of ``gemm``) and W8A8 (a policy that names the lossy
+     ``int8`` backend of gemm: ``gemm_int8``) -- and each mode's
+     distance from the bf16 model's logits;
+  6c. the 6-request serve of phase 4 weight-only, contiguous and paged:
+     request 0 == ``generate`` and paged == contiguous, bitwise; every
+     gemm launch on the int8 weights (338 a step);
+  6d. the same serve under W8A8, contiguous: request 0 == ``generate``
+     bitwise; every GEMM launch is ``gemm_int8``, no bf16 gemm runs;
   7. full-width, full-depth deepseek-v2-lite-16b (27 layers, MLA, 64
      experts top-6, bf16, random weights; yi's weights freed first): 128
      prompts prefilled through the kernels, the plain policy and the plain
@@ -70,16 +83,19 @@ Phases (any failure raises; nothing is caught):
      and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
-serving shapes and asserts, bitwise, that row b of a B = 4 launch of
-moe_decode (at h = 1408 and 14336), precise attn_decode, gemm_heads (both
-layouts), ssm_decode and mlstm_decode equals its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
+serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
+== plain for none / relu, the int8-weight ``gemm`` bitwise == the bf16
+kernel on the dequantized weight), and asserts, bitwise, that row b of a
+B = 4 launch of moe_decode (at h = 1408 and 14336), precise attn_decode,
+gemm_heads (both layouts), ssm_decode, mlstm_decode, gemm_int8 and the
+int8-weight gemm equals its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
 state carried equals the scan of T1 + T2; and the precise (MLA) paged
 decode kernel against its plain version, bitwise against the contiguous
 precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
 cache_pos kept out. Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
-line come from the run of its path (phase 4, 5, 6, 8, 10 or 12). Each model
+line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each model
 also has one decode chunk timed and traced per engine (``decode step``
 lines), paged beside contiguous.
 
@@ -101,11 +117,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
+              "int8": 1979e12,     # dense tensor-core rate (TOP/s)
               "float32": 67e12}    # CUDA cores, no TF32
 # xlstm-350m's prefill, kernels against plain: bounds on the rel L2 of the
 # last-position logits (max, mean over 64 prompts), 2x the readings of the
 # first run on the H100 (max 0.397, mean 0.273; PERF.md)
 XLSTM_PREFILL = (0.79, 0.55)
+# yi-9b on int8 weights, kernels against plain on the same weights: bounds
+# on the rel L2 of the last-position logits (max, mean over 8 prompts) and
+# the largest rel L2 from the bf16 model's logits, 2x the readings of the
+# first run on the H100 (weight-only: max 0.0228, mean 0.0214, 0.0647 from
+# bf16; W8A8: max 0.0503, mean 0.0478, 0.0871 from bf16; PERF.md); and the
+# clear prompts required (default 4 of 8; W8A8's plain path is 0.069 RMS
+# from fp32, so its clear gap is 0.35 and one prompt of 8 was clear)
+WQ_PREFILL = (0.046, 0.043, None)
+W8A8_PREFILL = (0.10, 0.096, 1)
+QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
+# the fewest rows torch._int_mm takes on the card (the library yardstick)
+INT_MM_MIN_ROWS = 17
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -236,6 +265,7 @@ def check_kernels(torch, timer):
             lambda: gm.gemm(x, w), lambda: gemm_ref(x, w),
             lambda: torch.matmul(x, w), 4 * (4 * 4096 + 4096 * 512 + 4 * 512),
             2 * 4 * 4096 * 512, "float32", 1e-4, 1e-4)
+    check_int8(torch, compare, randn)
 
     # rmsnorm: fp32 math on both sides, bf16 output: one bf16 ulp
     x, sc = randn(128, 4096), randn(4096, dtype=torch.float32)
@@ -293,6 +323,118 @@ def check_kernels(torch, timer):
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True)
     return records
+
+
+def check_int8(torch, compare, randn):
+    """Phase 2 for the int8 serving path at yi-9b's GEMM shapes, on
+    weights quantized by ``quantize_leaf``: the W8A8 kernel ``gemm_int8``
+    (activations quantized per row by its wrapper) against its plain
+    version, bitwise for none / relu and to one bf16 ulp for silu (the
+    kernel's expf); and the int8-weight instance of ``gemm`` (weight-only)
+    against the plain gemm on the same WeightQ (summation order: the gemm
+    tolerance) and bitwise against the bf16 kernel on ``dequantize(w)``.
+    At the decode shapes (M = 4), one prefill shape (M = 128) and a ragged
+    shape with a bias (the element-wise load path). Bitwise: row b of a B
+    = 4 launch of either == its B = 1 launch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import (gemm_ref, gemm_w8a8_ref,
+                                              quantize_int8)
+    from repro_torch.serve.quantize import dequantize, quantize_leaf
+
+    def bf16_ulps(a, b):
+        """The largest distance in bf16 ulps between two bf16 tensors
+        (their bit patterns as ordered integers)."""
+        def ordered(t):
+            i = t.view(torch.int16).int()
+            return i.where(i >= 0, -32768 - i)
+        return int((ordered(a) - ordered(b)).abs().max())
+
+    def int_mm_lib(x, wq, act):
+        """torch._int_mm and the epilogue in PyTorch: the library's W8A8
+        GEMM on the same inputs (activations quantized as the wrapper
+        does). _int_mm takes at least INT_MM_MIN_ROWS rows: fewer are
+        padded with zero rows (timed at that M)."""
+        def run():
+            xq, xs = quantize_int8(x)
+            pad = INT_MM_MIN_ROWS - xq.shape[0]
+            if pad > 0:
+                xq = F.pad(xq, (0, 0, 0, pad))
+            acc = torch._int_mm(xq, wq.q)[:x.shape[0]]
+            out = acc.float() * xs * wq.scale.reshape(1, -1)
+            return (F.silu(out) if act == "silu" else out).to(x.dtype)
+        return run
+
+    shapes = [(4, k, n, act, False) for k, n, act in (
+        (4096, 4096, "none"), (4096, 512, "none"), (4096, 11008, "silu"),
+        (11008, 4096, "none"), (4096, 64000, "none"))]
+    shapes += [(128, 4096, 11008, "silu", False), (5, 1000, 300, "relu", True)]
+    for m, k, n, act, with_bias in shapes:
+        x = randn(m, k)
+        w = quantize_leaf(randn(k, n, scale=k ** -0.5))
+        deq = dequantize(w, torch.bfloat16)
+        bias = randn(n, dtype=torch.float32) if with_bias else None
+        shape = f"M={m} K={k} N={n} {act}{' bias' if with_bias else ''}"
+        exact = act in ("none", "relu")
+        rep = (m == 4 and k == 4096 and n == 4096)
+        got = gm.gemm_int8(x, w, bias, act)
+        assert bf16_ulps(got, gemm_w8a8_ref(x, w, bias, act)) <= (
+            0 if exact else 1), ("gemm_int8", shape)
+        compare("gemm_int8", shape,
+                lambda x=x, w=w, b=bias, a=act: gm.gemm_int8(x, w, b, a),
+                lambda x=x, w=w, b=bias, a=act: gemm_w8a8_ref(x, w, b, a),
+                None if with_bias else int_mm_lib(x, w, act),
+                2 * m * k + k * n + 4 * n + 2 * m * n
+                + (4 * n if with_bias else 0), 2 * m * k * n, "int8",
+                0.0 if exact else 2.0 ** -7, 0.0, representative=rep)
+        assert torch.equal(gm.gemm(x, w, bias, act),
+                           gm.gemm(x, deq, bias, act)), ("gemm_wq", shape)
+        compare("gemm_wq", shape,
+                lambda x=x, w=w, b=bias, a=act: gm.gemm(x, w, b, a),
+                lambda x=x, w=w, b=bias, a=act: gemm_ref(x, w, b, a),
+                (lambda x=x, d=deq: torch.matmul(x, d))
+                if act == "none" and not with_bias else None,
+                2 * m * k + k * n + 4 * n + 2 * m * n
+                + (4 * n if with_bias else 0), 2 * m * k * n, "bfloat16",
+                1e-2, 1e-2, representative=rep)
+    print(f"library: gemm_int8's is torch._int_mm + the epilogue in "
+          f"PyTorch, at M = {INT_MM_MIN_ROWS} for M < {INT_MM_MIN_ROWS} "
+          f"(zero rows padded: _int_mm takes no fewer); gemm_wq's "
+          f"torch.matmul on the dequantized bf16 weight", flush=True)
+
+    # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
+    x, w = randn(4, 4096), quantize_leaf(randn(4096, 11008,
+                                               scale=4096 ** -0.5))
+    full8, fullq = gm.gemm_int8(x, w, None, "silu"), gm.gemm(x, w, None,
+                                                             "silu")
+    for i in range(4):
+        one = slice(i, i + 1)
+        assert torch.equal(full8[one], gm.gemm_int8(x[one], w, None, "silu")
+                           ), ("gemm_int8", i)
+        assert torch.equal(fullq[one], gm.gemm(x[one], w, None, "silu")), \
+            ("gemm_wq", i)
+    torch.cuda.synchronize()
+
+    # the host's cost of one call at M = 4, 4096 x 4096: the time to
+    # enqueue 100 calls (no synchronize among them), by the host clock
+    wb = randn(4096, 4096, scale=4096 ** -0.5)
+    wq = quantize_leaf(wb)
+    enqueue = {}
+    for name, fn in (("gemm bf16", lambda: gm.gemm(x, wb)),
+                     ("gemm int8-weight", lambda: gm.gemm(x, wq)),
+                     ("gemm_int8", lambda: gm.gemm_int8(x, wq))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        enqueue[name] = round((time.perf_counter() - t0) * 1e4, 1)
+        torch.cuda.synchronize()
+    print(f"host us a call (enqueue, M = 4): {enqueue}", flush=True)
+    print("bitwise: gemm_int8 == plain (none, relu; silu within 1 bf16 "
+          "ulp); int8-weight gemm == the bf16 kernel on dequantize(w); rows "
+          "of a B = 4 launch of either == their B = 1 launches", flush=True)
 
 
 def check_paged_and_verify(torch, compare, randn, gen):
@@ -911,7 +1053,8 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
                   length: int = 100, fp32_copy: bool = True,
                   max_rel: float | None = 5e-2,
                   max_mean_rel: float | None = None,
-                  min_clear: int | None = None):
+                  min_clear: int | None = None, policy="auto",
+                  ref_policy="ref", label: str = ""):
     """Last-position prefill logits of the kernel path against the plain
     policy on the same bf16 weights, and both against the plain policy
     computing in fp32 (the rounding-free yardstick): on an fp32 copy of
@@ -930,20 +1073,24 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
     must agree on every clear prompt, and at least ``min_clear`` prompts
     (default 1/16 of them, 4 at least) must be clear. Near ties are
     reported. ``max_rel=None`` sets no bound on the kernel-vs-plain
-    distance (a model whose bf16 rounding noise swamps its logits)."""
+    distance (a model whose bf16 rounding noise swamps its logits).
+    ``policy`` / ``ref_policy`` are the kernel path's and the plain path's
+    policies (the W8A8 check names the int8 backend in both). Returns the
+    last-position logits of each path (fp32)."""
     rng = torch.Generator().manual_seed(7)
     prompts = torch.randint(0, cfg.vocab_size, (n_prompts, length),
                             generator=rng, dtype=torch.int32).cuda()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    runs = (("kernels", "auto", cfg, params), ("plain", "ref", cfg, params),
-            ("fp32", "ref", cfg32, None if fp32_copy else params))
+    runs = (("kernels", policy, cfg, params),
+            ("plain", ref_policy, cfg, params),
+            ("fp32", ref_policy, cfg32, None if fp32_copy else params))
     last = {}
     with torch.inference_mode():
-        for name, policy, c, p in runs:
+        for name, pol, c, p in runs:
             if p is None:       # fp32 copy of the same weights, then freed
-                p = _map(params, lambda t: t.float())
+                p = lm._map(params, lambda t: t.float())
             cache = lm.init_cache(c, n_prompts, length, device="cuda")
-            logits, _ = lm.forward_prefill(p, prompts, c, policy, cache)
+            logits, _ = lm.forward_prefill(p, prompts, c, pol, cache)
             last[name] = logits.float()
             del p, cache
     torch.cuda.empty_cache()
@@ -961,8 +1108,9 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
     gap = top2[:, 0] - top2[:, 1]
     arg = {k: last[k].argmax(-1) for k in last}
     clear = gap >= thr
-    ref = "weight copy" if fp32_copy else "fp32 compute on the bf16 weights"
-    print(f"prefill logits {cfg.name} ({cfg.num_layers} layers), {n_prompts} "
+    ref = "weight copy" if fp32_copy else "fp32 compute on the same weights"
+    print(f"prefill logits {cfg.name}{label} ({cfg.num_layers} layers), "
+          f"{n_prompts} "
           f"prompts x {length} tokens: rel_l2 kernels-vs-plain max "
           f"{float(rel_kp.max()):.3e} (bound {max_rel}) mean "
           f"{float(rel_kp.mean()):.3e} (bound {max_mean_rel}); vs fp32 "
@@ -985,6 +1133,7 @@ def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
     assert int(clear.sum()) >= min_clear, f"too few clear prompts {gap}"
     assert bool((arg["kernels"] == arg["plain"])[clear].all()), \
         f"argmax differs on a clear prompt: {arg}, gaps {gap}"
+    return last
 
 
 def check_layers(torch, lm, cfg, params, n_prompts: int = 16,
@@ -1051,14 +1200,6 @@ def check_layers(torch, lm, cfg, params, n_prompts: int = 16,
           f"rel L2 of the kernels vs fp32 {max(worst):.3e}", flush=True)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
 def profile_decode(torch, name, engine, params, prompts):
     """Where a decode step's time goes: fill every slot (on a paged engine,
     with every page its three chunks need), then time one chunk of
@@ -1104,13 +1245,21 @@ def profile_decode(torch, name, engine, params, prompts):
             per[e.key] = per.get(e.key, 0.0) + t / 1e3 / engine.chunk
     dev = sum(per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    # the host's side of the traced step: self time and calls a step of
+    # the costliest host ops (profiled, so larger than untraced)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / engine.chunk,
+                    e.count / engine.chunk) for e in prof.key_averages()
+                   if e.device_type.name == "CPU"), key=lambda r: -r[1])[:6]
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
             f"untraced step" if dev > 0 else "device time not measured "
             "(the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
           f"{engine.capacity} live slots, {engine.chunk} steps); {busy}; "
           f"top kernels ms/step "
-          f"{[(k[:48], round(v, 3)) for k, v in top]}", flush=True)
+          f"{[(k[:48], round(v, 3)) for k, v in top]}; top host ops "
+          f"(ms, calls) a traced step "
+          f"{[(k[:32], round(v, 2), round(c)) for k, v, c in host]}",
+          flush=True)
 
 
 def make_prompts(torch, vocab: int, seed: int = 11):
@@ -1121,7 +1270,8 @@ def make_prompts(torch, vocab: int, seed: int = 11):
                           dtype=torch.int32).numpy() for n in lens]
 
 
-def serve_run(torch, runs, card, name, run_cfg, p, prompts, **engine_kw):
+def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
+              **engine_kw):
     """Serve the 6 requests (24 new tokens each) with every launch counter
     reset just before and read just after; the result goes to
     ``runs[name]``."""
@@ -1132,8 +1282,8 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, **engine_kw):
 
     requests = [Request(rid=i, prompt=pr, max_new_tokens=24)
                 for i, pr in enumerate(prompts)]
-    engine = SlotEngine(RunConfig(arch=run_cfg), capacity=4, max_len=160,
-                        chunk=8, prompt_bucket=16, **engine_kw)
+    engine = SlotEngine(RunConfig(arch=run_cfg, policy=policy), capacity=4,
+                        max_len=160, chunk=8, prompt_bucket=16, **engine_kw)
     torch.cuda.synchronize()
     xaif.reset_launch_counts()
     report = serve(engine, p, requests)
@@ -1154,6 +1304,127 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, **engine_kw):
                       launches=launches, steps=steps, report=report,
                       prefills=engine.prefill_calls)
     return runs[name]
+
+
+def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
+    """Phases 6b-6d: yi-9b on int8 weights. The port's
+    ``quantize_weights_int8`` on the card (exactly the projections of
+    ``_QUANT_NAMES`` in yi's tree); prefill of 8 prompts through the
+    kernels against the plain path on the same quantized weights, in both
+    modes (weight-only: the default policy; W8A8: the lossy ``int8``
+    backend of gemm), and each mode's distance from the bf16 model's
+    logits (``bf16``: phase 3's readings); then the 6-request serve,
+    weight-only contiguous and paged and W8A8 contiguous, each with
+    request 0 == ``generate`` bitwise, every GEMM launch on the int8
+    weights, and one decode chunk traced. Returns the quantized tree."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import xaif
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, generate
+    from repro_torch.serve.quantize import (_QUANT_NAMES, WeightQ,
+                                            quantize_weights_int8)
+
+    w8a8 = xaif.Policy({"gemm": "int8"}, allow_lossy=True)
+    w8a8_ref = xaif.Policy({"gemm": "int8"}, allow_lossy=True, mode="ref")
+    t0 = time.perf_counter()
+    qparams = quantize_weights_int8(params)
+    torch.cuda.synchronize()
+
+    def entries(tree):
+        """(key, leaf) of every tensor or WeightQ under a dict key."""
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if isinstance(v, (torch.Tensor, WeightQ)):
+                    yield k, v
+                else:
+                    yield from entries(v)
+        elif isinstance(tree, (tuple, list)):
+            for v in tree:
+                yield from entries(v)
+
+    quantized = [(k, v) for k, v in entries(qparams) if isinstance(v, WeightQ)]
+    got = {k for k, _ in quantized}
+    matrices = {k for k, v in entries(params)
+                if v.dim() >= 2 and v.is_floating_point()}
+    assert got == _QUANT_NAMES & matrices, (got, matrices)
+    int8_bytes = sum(v.q.numel() for _, v in quantized)
+    scale_bytes = sum(4 * v.scale.numel() for _, v in quantized)
+    print(f"quantized {cfg.name} on the card in "
+          f"{time.perf_counter() - t0:.1f}s: {sorted(got)} int8, "
+          f"{int8_bytes / 2**30:.2f} GiB of int8 weights + "
+          f"{scale_bytes / 2**20:.1f} MiB of scales; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+
+    # prefill: kernels against plain on the same quantized weights; the
+    # bounds are 2x the readings of the first run on the H100 (PERF.md)
+    last = {}
+    for mode, pol, ref, (max_rel, max_mean, min_clear) in (
+            ("weight-only", "auto", "ref", WQ_PREFILL),
+            ("w8a8", w8a8, w8a8_ref, W8A8_PREFILL)):
+        last[mode] = check_prefill(
+            torch, lm, cfg, qparams, fp32_copy=False, max_rel=max_rel,
+            max_mean_rel=max_mean, min_clear=min_clear, policy=pol,
+            ref_policy=ref, label=f" {mode}")["kernels"]
+        rel = ((last[mode] - bf16).norm(dim=-1) / bf16.norm(dim=-1))
+        agree = int((last[mode].argmax(-1) == bf16.argmax(-1)).sum())
+        print(f"prefill logits {cfg.name} {mode} vs the bf16 model (both "
+              f"through the kernels): rel_l2 max {float(rel.max()):.3e} "
+              f"mean {float(rel.mean()):.3e}; argmax equal {agree}/"
+              f"{len(rel)}", flush=True)
+        assert float(rel.max()) < QUANT_VS_BF16[mode], (mode, rel)
+
+    # serve weight-only: every GEMM launch is the int8-weight instance
+    # per layer wq wk wv wo w_gate w_up w_down; the unembedding once a
+    # prefill, and at each decode step once more per exit head (338 and
+    # 337 on yi-9b)
+    prefill_gemm = 7 * cfg.num_layers + 1
+    steps_gemm = prefill_gemm + len(cfg.early_exit.exit_layers)
+    wq = run_serve("wq-contiguous", cfg, qparams, prompts)
+    lc, steps, prefills = wq["launches"], wq["steps"], wq["prefills"]
+    assert set(lc) == {"gemm", "gemm_wq", "rmsnorm", "attention",
+                       "attn_decode", "entropy_exit"}, lc
+    assert lc["gemm"] == lc["gemm_wq"] == (steps_gemm * steps
+                                           + prefill_gemm * prefills), lc
+    assert lc["attn_decode"] == cfg.num_layers * steps, lc
+    ref_toks, _ = generate(cfg, qparams, prompts[0][None], 24)
+    assert ref_toks[0].tolist() == wq["tokens"][0], (
+        "weight-only engine tokens differ from generate",
+        ref_toks[0].tolist(), wq["tokens"][0])
+    profile_decode(torch, f"{cfg.name} weight-only int8", SlotEngine(
+        cfg, capacity=4, max_len=160, chunk=8), qparams, prompts)
+    wqp = run_serve("wq-paged", cfg, qparams, prompts, paged=True,
+                    page_size=16, num_pages=25)
+    assert wqp["tokens"] == wq["tokens"], "weight-only paged tokens differ"
+    assert wqp["report"].stats["peak_pages"] <= 24, wqp["report"].stats
+    lc = wqp["launches"]
+    assert set(lc) == {"gemm", "gemm_wq", "rmsnorm", "attention",
+                       "attn_decode_paged", "entropy_exit"}, lc
+    assert lc["gemm"] == lc["gemm_wq"], lc
+    print(f"serve weight-only: request 0 == generate, paged == contiguous, "
+          f"bitwise; {steps_gemm} gemm a step, every one on int8 weights",
+          flush=True)
+
+    # serve W8A8: every GEMM launch is gemm_int8, no bf16 gemm runs
+    run = run_serve("w8a8-contiguous", cfg, qparams, prompts, policy=w8a8)
+    lc, steps, prefills = run["launches"], run["steps"], run["prefills"]
+    assert set(lc) == {"gemm_int8", "rmsnorm", "attention", "attn_decode",
+                       "entropy_exit"}, lc
+    assert lc["gemm_int8"] == steps_gemm * steps + prefill_gemm * prefills, lc
+    ref_toks, _ = generate(RunConfig(arch=cfg, policy=w8a8), qparams,
+                           prompts[0][None], 24)
+    assert ref_toks[0].tolist() == run["tokens"][0], (
+        "W8A8 engine tokens differ from generate", ref_toks[0].tolist(),
+        run["tokens"][0])
+    profile_decode(torch, f"{cfg.name} W8A8", SlotEngine(
+        RunConfig(arch=cfg, policy=w8a8), capacity=4, max_len=160, chunk=8),
+        qparams, prompts)
+    agree = sum(a == b for x, y in zip(run["tokens"], wq["tokens"])
+                for a, b in zip(x, y))
+    print(f"serve W8A8: request 0 == generate, bitwise; {steps_gemm} "
+          f"gemm_int8 a step, no bf16 gemm; tokens equal to weight-only's "
+          f"at {agree}/{6 * 24} positions", flush=True)
+    return qparams
 
 
 def serve_deepseek(torch, run_serve, ds, dparams, t_start):
@@ -1228,7 +1499,7 @@ def run_jamba(torch, run_serve, t_start):
     t0 = time.perf_counter()
     jparams = lm.init_lm(jb, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(jparams))
+    n_params = sum(t.numel() for t in lm._leaves(jparams))
     mixers = [jb.layer_spec(i).mixer for i in range(jb.num_layers)]
     n_mamba, n_attn = mixers.count("mamba"), mixers.count("attn")
     n_moe = sum(jb.layer_spec(i).ffn == "moe" for i in range(jb.num_layers))
@@ -1315,7 +1586,7 @@ def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
     t0 = time.perf_counter()
     params = lm.init_lm(xl, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in lm._leaves(params))
     mixers = [xl.layer_spec(i).mixer for i in range(xl.num_layers)]
     n_ml, n_sl = mixers.count("mlstm"), mixers.count("slstm")
     print(f"{xl.name}: {xl.num_layers} layers ({n_ml} mLSTM, {n_sl} sLSTM) "
@@ -1396,11 +1667,11 @@ def main() -> int:
     t0 = time.perf_counter()
     params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in lm._leaves(params))
     print(f"yi-9b: {cfg.num_layers} layers d_model={cfg.d_model} "
           f"{n_params / 1e9:.3f}B params ({cfg.dtype}) initialised in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    check_prefill(torch, lm, cfg, params)
+    yi_last = check_prefill(torch, lm, cfg, params)
 
     # -- 4. serve through the engine; counters cover this run only ---------
     prompts = make_prompts(torch, cfg.vocab_size)
@@ -1456,18 +1727,24 @@ def main() -> int:
           f"(contiguous) tokens == plain greedy, bitwise; acceptance tied "
           f"{tied['report'].stats['spec_acceptance']:.3f}, independent "
           f"{indep['report'].stats['spec_acceptance']:.3f}", flush=True)
+
+    # -- 6b-6d. yi-9b on int8 weights (the bf16 weights still on the card):
+    #    weight-only contiguous and paged, W8A8 contiguous ----------------
+    qparams = run_quantized(torch, run_serve, cfg, params, prompts,
+                            yi_last["kernels"])
     print(f"yi-9b phases done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
     # -- 7. full-width, full-depth deepseek-v2-lite-16b (MLA + MoE): yi's
-    #    weights are freed first (both at once would not fit) -------------
-    del params, ref_toks
+    #    weights, bf16 and int8, are freed first (with them deepseek would
+    #    not fit) --------------------------------------------------------
+    del params, qparams, ref_toks, yi_last
     torch.cuda.empty_cache()
     ds = get_arch("deepseek-v2-lite-16b")
     t0 = time.perf_counter()
     dparams = lm.init_lm(ds, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(dparams))
+    n_params = sum(t.numel() for t in lm._leaves(dparams))
     print(f"{ds.name}: {ds.num_layers} layers (first {ds.first_k_dense} "
           f"dense) d_model={ds.d_model} {ds.moe.num_experts} experts top-"
           f"{ds.moe.top_k} {n_params / 1e9:.3f}B params ({ds.dtype}) "
@@ -1556,6 +1833,13 @@ def main() -> int:
         # xlstm run
         "mlstm_decode": ("kernels/ssm_decode/ssm_decode.py:104",
                          "mlstm_decode", "xlstm-contiguous", "ssm_decode"),
+        # W8A8: every GEMM launch of the yi-9b W8A8 run
+        "gemm_int8": ("kernels/gemm/gemm.py:108", "gemm_int8",
+                      "w8a8-contiguous", "gemm_int8"),
+        # the int8-weight instance of gemm (JAX's gemm_pallas on the
+        # dequantized weights): every gemm launch of the weight-only run
+        "gemm_wq": ("kernels/gemm/gemm.py:48", "gemm", "wq-contiguous",
+                    "gemm_wq"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",
@@ -1568,17 +1852,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

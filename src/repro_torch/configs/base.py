@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -218,11 +218,15 @@ class RunConfig:
     """An arch plus the dispatch policy its ops run under.
 
     ``policy`` is ``"auto"`` (hand-written kernels for CUDA tensors, plain
-    PyTorch for CPU tensors) or ``"ref"`` (plain PyTorch everywhere — the
-    oracle that tests and ``chip_smoke.py`` hold the kernels against)."""
+    PyTorch for CPU tensors), ``"ref"`` (plain PyTorch everywhere — the
+    oracle that tests and ``chip_smoke.py`` hold the kernels against) or a
+    ``core.xaif.Policy`` naming per-op backends (W8A8 serving:
+    ``Policy({"gemm": "int8"}, allow_lossy=True)``). Weight quantization
+    is not a flag here: int8 weights are a params tree that
+    ``serve.quantize.quantize_weights_int8`` made."""
 
     arch: ArchConfig
-    policy: str = "auto"
+    policy: Any = "auto"         # str or core.xaif.Policy
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ the per-layer weights stacked ``[n_superblocks, ...]``, DeepSeek's dense
 prefix layers as a list (``params["prefix"]``), MoE experts as ``[E, ...]``
 stacks with an fp32 router, and every matrix in the ``[K, N]`` layout. The
 port keeps the same tree, containers and layout, so loading is a copy of
-each array. This module takes numpy only and imports no JAX.
+each array. A quantized tree (``repro.serve.quantize``) holds its
+projections as ``WeightQ(q, scale)`` named tuples: each becomes the
+port's ``WeightQ``, recognised by its fields. This module takes numpy only
+and imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.gemm.ref import WeightQ
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -34,6 +38,9 @@ def params_from_jax(tree, device="cuda"):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
+        if isinstance(node, tuple) and getattr(node, "_fields", None) == \
+                WeightQ._fields:
+            return WeightQ(*(walk(v) for v in node))
         if isinstance(node, tuple):
             return tuple(walk(v) for v in node)
         return _tensor(node, device)

@@ -25,11 +25,20 @@ behind the one wrapper and counter.
 tensor argument: CUDA tensors launch the kernel, CPU tensors run the plain
 version. Policy ``"ref"`` forces the plain version on any device; nothing
 else does — there is no fallback from a kernel to the plain version.
+
+An op may also carry further, named backends, each again a plain version
+and a kernel: ``gemm`` has ``int8`` (W8A8: activations quantized per row,
+integer products; the JAX ``gemm/pallas_int8``). Such a backend is
+``lossy`` — it changes the model's numbers — so ``"auto"`` and ``"ref"``
+never select it: only a :class:`Policy` that names it does, and
+constructing one that names a lossy backend raises unless it says
+``allow_lossy=True`` (the JAX registry audit's XR108). Model code passes
+the policy on without reading it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Mapping, Tuple, Union
 
 import torch
 
@@ -41,14 +50,54 @@ class OpEntry:
     name: str
     plain: Callable
     kernel: Callable
+    lossy: bool = False
 
 
-_REGISTRY: Dict[str, OpEntry] = {}
+_REGISTRY: Dict[str, OpEntry] = {}          # each op's default backend
+_NAMED: Dict[Tuple[str, str], OpEntry] = {}  # (op, backend): the others
 _BUILTINS = []          # set once the built-in ops modules are imported
 
 
-def register(name: str, plain: Callable, kernel: Callable) -> None:
-    _REGISTRY[name] = OpEntry(name, plain, kernel)
+def register(name: str, plain: Callable, kernel: Callable,
+             backend: str = "default", lossy: bool = False) -> None:
+    """Register op ``name``'s default backend, or a further ``backend``
+    (its launches are counted as ``<op>_<backend>``)."""
+    if backend == "default":
+        _REGISTRY[name] = OpEntry(name, plain, kernel, lossy)
+    else:
+        _NAMED[(name, backend)] = OpEntry(name, plain, kernel, lossy)
+
+
+@dataclass(frozen=True)
+class Policy:
+    """A dispatch policy that names backends per op. ``backends`` maps an
+    op to one of its registered backend names ("default" or a further
+    one); unnamed ops take their default. ``mode`` is ``"auto"`` (kernels
+    for CUDA tensors) or ``"ref"`` (plain versions everywhere). A lossy
+    backend needs ``allow_lossy=True``. Frozen and hashable; ``backends``
+    is stored as sorted pairs."""
+
+    backends: Union[Mapping[str, str], Tuple[Tuple[str, str], ...]] = \
+        field(default_factory=dict)
+    allow_lossy: bool = False
+    mode: str = "auto"
+
+    def __post_init__(self):
+        pairs = tuple(sorted((str(k), str(v))
+                             for k, v in dict(self.backends).items()))
+        object.__setattr__(self, "backends", pairs)
+        if self.mode not in POLICIES:
+            raise ValueError(f"unknown mode {self.mode!r}; expected one of "
+                             f"{POLICIES}")
+        for op, backend in pairs:
+            e = entry(op, backend)
+            if e.lossy and not self.allow_lossy:
+                raise ValueError(
+                    f"backend {backend!r} of {op!r} is lossy: the policy "
+                    f"must say allow_lossy=True")
+
+    def backend_for(self, op: str) -> str:
+        return dict(self.backends).get(op, "default")
 
 
 def _ensure_builtin_ops() -> None:
@@ -70,9 +119,13 @@ def _ensure_builtin_ops() -> None:
     _BUILTINS.append(True)
 
 
-def entry(name: str) -> OpEntry:
+def entry(name: str, backend: str = "default") -> OpEntry:
     _ensure_builtin_ops()
-    return _REGISTRY[name]
+    if backend == "default":
+        return _REGISTRY[name]
+    if (name, backend) not in _NAMED:
+        raise ValueError(f"op {name!r} has no backend {backend!r}")
+    return _NAMED[(name, backend)]
 
 
 def ops() -> Tuple[str, ...]:
@@ -80,24 +133,50 @@ def ops() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def call(op: str, policy: str, *args, **kwargs):
-    """Dispatch ``op``: the kernel for CUDA tensors under ``"auto"``, the
-    plain version for CPU tensors or under ``"ref"``."""
-    if policy not in POLICIES:
+PolicyLike = Union[str, Policy]
+
+
+def call(op: str, policy: PolicyLike, *args, **kwargs):
+    """Dispatch ``op`` to the backend ``policy`` names for it (the default
+    unless a :class:`Policy` names another): its kernel for CUDA tensors
+    under mode ``"auto"``, its plain version for CPU tensors or under
+    ``"ref"``."""
+    if isinstance(policy, Policy):
+        mode, backend = policy.mode, policy.backend_for(op)
+    elif policy in POLICIES:
+        mode, backend = policy, "default"
+    else:
         raise ValueError(f"unknown policy {policy!r}; expected one of "
-                         f"{POLICIES}")
-    e = entry(op)
+                         f"{POLICIES} or a Policy")
+    e = entry(op, backend)
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    if policy == "ref" or device.type == "cpu":
+    if mode == "ref" or device.type == "cpu":
         return e.plain(*args, **kwargs)
     return e.kernel(*args, **kwargs)
 
 
+def _counters():
+    """(counter name, kernel wrapper) of every backend. A default
+    backend's counter is its op's name, another's ``<op>_<backend>``."""
+    _ensure_builtin_ops()
+    out = [(name, _REGISTRY[name].kernel) for name in sorted(_REGISTRY)]
+    out += [(f"{op}_{b}", e.kernel) for (op, b), e in sorted(_NAMED.items())]
+    return out
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per op since the last reset."""
-    return {name: entry(name).kernel.launches for name in ops()}
+    """Kernel launches per backend since the last reset. A wrapper that
+    launches one of several kernel instances may also count each apart
+    (``wrapper.instances``: instance name -> launches)."""
+    counts = {}
+    for name, kernel in _counters():
+        counts[name] = kernel.launches
+        counts.update(getattr(kernel, "instances", {}))
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for name in ops():
-        entry(name).kernel.launches = 0
+    for _, kernel in _counters():
+        kernel.launches = 0
+        for k in getattr(kernel, "instances", {}):
+            kernel.instances[k] = 0

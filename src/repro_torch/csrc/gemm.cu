@@ -26,26 +26,12 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "gemm_epilogue.cuh"
 
 using namespace nvcuda;
-
-enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3 };
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(v, 0.f);
-    case kGelu: {
-      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
-    }
-    case kSilu:
-      return v / (1.f + expf(-v));
-    default:
-      return v;
-  }
-}
 
 constexpr int BM = 64, BN = 64, BK = 32;
 constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;  // padded strides
@@ -72,10 +58,42 @@ __device__ __forceinline__ uint4 load8(const unsigned short* p, int row,
   return u;
 }
 
+// 8 int8 values (8 bytes) of a tile piece, the same way.
 template <bool VEC>
+__device__ __forceinline__ uint2 load8q(const signed char* p, int row,
+                                        int col, int rows, int cols) {
+  if (VEC && row < rows && col + 8 <= cols)
+    return *reinterpret_cast<const uint2*>(p + (size_t)row * cols + col);
+  signed char t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    t[e] = (row < rows && col + e < cols) ? p[(size_t)row * cols + col + e]
+                                          : (signed char)0;
+  uint2 u;
+  memcpy(&u, t, sizeof(u));
+  return u;
+}
+
+// 8 int8 weights -> 8 bf16 values round(float(q) * scale), one rounding
+// each (the product is never fused with anything).
+__device__ __forceinline__ uint4 dequant8(uint2 raw, const float* sc) {
+  signed char q[8];
+  memcpy(q, &raw, sizeof(raw));
+  __nv_bfloat16 t[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    t[e] = __float2bfloat16_rn(__fmul_rn(static_cast<float>(q[e]), sc[e]));
+  uint4 u;
+  memcpy(&u, t, sizeof(u));
+  return u;
+}
+
+// WQ: w is int8 with a scale per column (wscale), else bf16 (wscale unused).
+template <bool VEC, bool WQ>
 __global__ void __launch_bounds__(128)
     gemm_bf16_kernel(const unsigned short* __restrict__ x,
-                     const unsigned short* __restrict__ w,
+                     const void* __restrict__ w,
+                     const float* __restrict__ wscale,
                      const float* __restrict__ bias,
                      __nv_bfloat16* __restrict__ out, int M, int N, int K,
                      int act) {
@@ -86,14 +104,30 @@ __global__ void __launch_bounds__(128)
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
-  // each thread stages two 8-element pieces of A and two of B per K step
-  uint4 ra[2], rb[2];
+  // each thread stages two 8-element pieces of A and two of B per K step;
+  // its B pieces lie in the same 8 columns at every step. int8 pieces stay
+  // raw in registers until the store, so the loads stay in flight during
+  // the MMAs
+  const int bc = (tid % (BN / 8)) * 8;
+  uint4 ra[2];
+  typename std::conditional<WQ, uint2, uint4>::type rb[2];
+  float sc[8];
+  if constexpr (WQ) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      sc[e] = n0 + bc + e < N ? wscale[n0 + bc + e] : 0.f;
+  }
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int v = tid + i * 128;
       ra[i] = load8<VEC>(x, m0 + v / (BK / 8), k0 + (v % (BK / 8)) * 8, M, K);
-      rb[i] = load8<VEC>(w, k0 + v / (BN / 8), n0 + (v % (BN / 8)) * 8, K, N);
+      if constexpr (WQ)
+        rb[i] = load8q<VEC>(static_cast<const signed char*>(w),
+                            k0 + v / (BN / 8), n0 + bc, K, N);
+      else
+        rb[i] = load8<VEC>(static_cast<const unsigned short*>(w),
+                           k0 + v / (BN / 8), n0 + bc, K, N);
     }
   };
 
@@ -109,7 +143,12 @@ __global__ void __launch_bounds__(128)
     for (int i = 0; i < 2; ++i) {
       const int v = tid + i * 128;
       *reinterpret_cast<uint4*>(&As[(v / (BK / 8)) * LDA + (v % (BK / 8)) * 8]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[(v / (BN / 8)) * LDB + (v % (BN / 8)) * 8]) = rb[i];
+      uint4 b;
+      if constexpr (WQ)
+        b = dequant8(rb[i], sc);
+      else
+        b = rb[i];
+      *reinterpret_cast<uint4*>(&Bs[(v / (BN / 8)) * LDB + bc]) = b;
     }
     __syncthreads();
     if (k0 + BK < K) fetch(k0 + BK);  // next tile in flight during the MMAs
@@ -286,13 +325,38 @@ KERNEL_API int gemm_launch(const void* x, const void* w, const void* bias,
     auto ws = static_cast<const unsigned short*>(w);
     auto o = static_cast<__nv_bfloat16*>(out);
     if (vec)
-      gemm_bf16_kernel<true><<<grid, 128, 0, s>>>(xs, ws, b, o, M, N, K, act);
+      gemm_bf16_kernel<true, false><<<grid, 128, 0, s>>>(xs, ws, nullptr, b, o,
+                                                         M, N, K, act);
     else
-      gemm_bf16_kernel<false><<<grid, 128, 0, s>>>(xs, ws, b, o, M, N, K, act);
+      gemm_bf16_kernel<false, false><<<grid, 128, 0, s>>>(xs, ws, nullptr, b,
+                                                          o, M, N, K, act);
   } else {
     gemm_f32_run(static_cast<const float*>(x), static_cast<const float*>(w),
                  b, static_cast<float*>(out), M, N, K, 1, act, false,
                  Layout{0, 0, 0, K, N, N}, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x bf16 [M, K]; q int8 [K, N]; scale fp32 [N]; bias fp32 [N] or null;
+// out bf16 [M, N].
+KERNEL_API int gemm_wq_launch(const void* x, const void* q, const void* scale,
+                              const void* bias, void* out, int M, int N,
+                              int K, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const bool vec = K % 8 == 0 && N % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 8 == 0;
+  auto xs = static_cast<const unsigned short*>(x);
+  auto sc = static_cast<const float*>(scale);
+  auto b = static_cast<const float*>(bias);
+  auto o = static_cast<__nv_bfloat16*>(out);
+  if (vec)
+    gemm_bf16_kernel<true, true><<<grid, 128, 0, s>>>(xs, q, sc, b, o, M, N,
+                                                      K, act);
+  else
+    gemm_bf16_kernel<false, true><<<grid, 128, 0, s>>>(xs, q, sc, b, o, M, N,
+                                                       K, act);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,7 @@ from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.core import xaif
 from repro_torch.core.device import resolve_device
 from repro_torch.core.early_exit import apply_exit_head, init_exit_head
+from repro_torch.kernels.gemm.ref import WeightQ
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -93,14 +94,24 @@ def _init_layer(gen: Optional[torch.Generator], spec: BlockSpec,
 
 
 def _map(tree, fn):
+    """``fn`` on every tensor of a parameter tree (dicts, lists, tuples); a
+    ``WeightQ`` is one weight: ``fn`` maps its q and scale alike."""
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, WeightQ):
+        return WeightQ(fn(tree.q), fn(tree.scale))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(v, fn) for v in tree)
     return fn(tree)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a parameter tree in ``_map``'s order (a ``WeightQ``
+    gives its q, then its scale)."""
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
     return [tree]
 
 
@@ -154,7 +165,8 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device="cuda") -> Dict:
 
 def _layer(params, cfg: ArchConfig, i: int):
     """Absolute layer i's parameters: a prefix layer, or views into row
-    ``(i - kd) // P`` of pattern slot ``(i - kd) % P``'s stack."""
+    ``(i - kd) // P`` of pattern slot ``(i - kd) % P``'s stack (of a
+    quantized stack, row sb of q [L, K, N] and of scale [L, 1, N])."""
     if i < cfg.first_k_dense:
         return params["prefix"][i]
     sb, j = divmod(i - cfg.first_k_dense, cfg.period)
