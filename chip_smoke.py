@@ -79,8 +79,9 @@ Phases (any failure raises; nothing is caught):
      every step); then the paged engine (no pool: 24 usable pages are
      accounted, nothing is stored in them): tokens equal the contiguous
      run's, bitwise;
- 13. one JSON line listing the kernels, the card's name and power limit,
-     and the final ``{"ok": true, ...}`` line.
+ 13. a check that no serve run launched the fp32 flash instance (its
+     own counter), one JSON line listing the kernels, the card's name and
+     power limit, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
 serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
@@ -88,8 +89,13 @@ serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
 kernel on the dequantized weight), and asserts, bitwise, that row b of a
 B = 4 launch of moe_decode (at h = 1408 and 14336), precise attn_decode,
 gemm_heads (both layouts), ssm_decode, mlstm_decode, gemm_int8 and the
-int8-weight gemm equals its B = 1 launch, and that a selective scan of T1 then T2 tokens with the
-state carried equals the scan of T1 + T2; and the precise (MLA) paged
+int8-weight gemm equals its B = 1 launch, and that a selective scan of
+T1 then T2 tokens with the state carried equals the scan of T1 + T2; that
+the first t rows of flash attention (both bf16 instances) on a prompt
+right-padded to the next multiple of 16 equal the unpadded prompt's (t =
+20, 100), flash being held at yi-9b's serve buckets (B 1, T 32 / 64 /
+128), check_prefill's B 8 x 100 and deepseek's prefill lengths; verify
+attention at K1 = 2 and 4; and the precise (MLA) paged
 decode kernel against its plain version, bitwise against the contiguous
 precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
@@ -275,18 +281,25 @@ def check_kernels(torch, timer):
             2 * 128 * 4096 * 2 + 4096 * 4, 4 * 128 * 4096, "bfloat16",
             1e-2, 1e-2, representative=True)
 
-    # flash attention: fp32 online softmax vs the materialized softmax,
-    # bf16 output: one bf16 ulp
-    q, k_, v_ = randn(1, 32, 128, 128), randn(1, 4, 128, 128), \
-        randn(1, 4, 128, 128)
-    pairs = 128 * 129 // 2                      # causal (query, key) pairs
-    compare("attention", "q[1,32,128,128] kv[1,4,128,128] causal",
-            lambda: fa.attention(q, k_, v_, causal=True),
-            lambda: attention_ref(q, k_, v_, causal=True),
-            lambda: F.scaled_dot_product_attention(q, k_, v_, is_causal=True,
-                                                   enable_gqa=True),
-            2 * (2 * q.numel() + 2 * k_.numel()), 4 * 32 * 128 * pairs,
-            "bfloat16", 1e-2, 1e-2, representative=True)
+    # flash attention: fp32 online softmax (P rounded to bf16 for the
+    # tensor cores) vs the materialized fp32 softmax, bf16 output: one
+    # bf16 ulp. yi-9b's serve buckets (B 1, T 32 / 64 / 128; the last is
+    # the representative row) and check_prefill's 8 prompts x 100 tokens
+    for b, t in ((1, 32), (1, 64), (8, 100), (1, 128)):
+        q, k_, v_ = randn(b, 32, t, 128), randn(b, 4, t, 128), \
+            randn(b, 4, t, 128)
+        pairs = t * (t + 1) // 2                # causal (query, key) pairs
+        compare("attention", f"q[{b},32,{t},128] kv[{b},4,{t},128] causal",
+                lambda q=q, k_=k_, v_=v_: fa.attention(q, k_, v_,
+                                                       causal=True),
+                lambda q=q, k_=k_, v_=v_: attention_ref(q, k_, v_,
+                                                        causal=True),
+                lambda q=q, k_=k_, v_=v_: F.scaled_dot_product_attention(
+                    q, k_, v_, is_causal=True, enable_gqa=True),
+                2 * (2 * q.numel() + 2 * k_.numel()),
+                4 * b * 32 * 128 * pairs, "bfloat16", 1e-2, 1e-2,
+                representative=(b, t) == (1, 128))
+    check_flash_padding(torch, randn, 4, 128)
 
     # decode attention: the plain version rounds the softmax weights to
     # bf16 before the weighted sum (as the JAX ref), the kernel keeps them
@@ -323,6 +336,31 @@ def check_kernels(torch, timer):
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True)
     return records
+
+
+def check_flash_padding(torch, randn, hkv: int, dqk: int):
+    """A row of flash attention does not depend on the rows after it: the
+    first t rows of a prompt right-padded to the next multiple of 16 (the
+    engine's prefill buckets) equal the unpadded prompt's, bitwise, at t =
+    20 and 100 (q [1, 32 | 16, t, dqk], values of 128)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    hq = 32 if dqk == 128 else 16
+    for t in (20, 100):
+        tp = -(-t // 16) * 16
+        q, k, v = randn(1, hq, tp, dqk), randn(1, hkv, tp, dqk), \
+            randn(1, hkv, tp, 128)
+        padded = fa.attention(q, k, v, causal=True)
+        exact = fa.attention(q[:, :, :t].contiguous(),
+                             k[:, :, :t].contiguous(),
+                             v[:, :, :t].contiguous(), causal=True)
+        assert torch.equal(padded[:, :, :t], exact), \
+            f"flash ({dqk}, 128): rows of a prompt of {t} moved when " \
+            f"padded to {tp}"
+    torch.cuda.synchronize()
+    print(f"bitwise: flash attention ({dqk}, 128) rows 0..t-1 of a prompt "
+          f"padded to the next multiple of 16 == the unpadded prompt's "
+          f"(t = 20, 100)", flush=True)
 
 
 def check_int8(torch, compare, randn):
@@ -469,13 +507,11 @@ def check_paged_and_verify(torch, compare, randn, gen):
     kp, vp = randn(n_pool, hkv, ps, d), randn(n_pool, hkv, ps, d)
     for pid in perm[at:]:          # pages no sequence owns: never read
         kp[pid] = vp[pid] = float("nan")
-    q, qv = randn(b, hq, d), randn(b, hq, k1, d)
+    q = randn(b, hq, d)
     # the same KV as a contiguous cache (-1 entries gather the finite
     # scratch page 0; no kernel reads them)
     kc, vc = gather_pages(kp, table), gather_pages(vp, table)
     n_valid = sum(c + 1 for c in cps)
-    n_read = sum(c + k1 for c in cps)          # verify: positions < cp + K1
-    pairs = sum(c + 1 + i for c in cps for i in range(k1))
     tbl = 4 * sum(need)
 
     # one token: the plain version rounds the softmax weights to bf16, the
@@ -486,29 +522,37 @@ def check_paged_and_verify(torch, compare, randn, gen):
             2 * q.numel() + 2 * 2 * hkv * d * n_valid + 4 * b * hq * d
             + 4 * b + tbl, 4 * hq * d * n_valid, "bfloat16", 1e-2, 1e-2,
             representative=True)
-    staircase = (torch.arange(np_ * ps, device="cuda")[None, None, :]
-                 <= (cp[:, None] + torch.arange(k1, device="cuda"))[:, :, None]
-                 )[:, None]                                 # [B, 1, K1, S]
-    compare("verify_decode", "q[4,32,4,128] kv[4,4,160,128] ragged",
-            lambda: vd.verify_decode(qv, kc, vc, cp),
-            lambda: verify_decode_ref(qv, kc, vc, cp),
-            lambda: F.scaled_dot_product_attention(
-                qv, kc, vc, attn_mask=staircase, enable_gqa=True),
-            2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
-            + 4 * b, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
-            representative=True)
-    compare("verify_decode_paged", "q[4,32,4,128] pools[25,4,16,128] ragged",
-            lambda: vd.verify_decode_paged(qv, kp, vp, table, cp),
-            lambda: verify_decode_paged_ref(qv, kp, vp, table, cp), None,
-            2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
-            + 4 * b + tbl, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
-            representative=True)
+    # verify at K1 = 2 and 4 query tokens (spec k = 1, 3; K1 = 4 is the
+    # representative row)
+    qvs = {kk: randn(b, hq, kk, d) for kk in (2, k1)}
+    for kk, qv in qvs.items():
+        n_read = sum(c + kk for c in cps)      # positions < cp + K1
+        pairs = sum(c + 1 + i for c in cps for i in range(kk))
+        staircase = (torch.arange(np_ * ps, device="cuda")[None, None, :]
+                     <= (cp[:, None] + torch.arange(kk, device="cuda")
+                         )[:, :, None])[:, None]            # [B, 1, K1, S]
+        compare("verify_decode", f"q[4,32,{kk},128] kv[4,4,160,128] ragged",
+                lambda qv=qv: vd.verify_decode(qv, kc, vc, cp),
+                lambda qv=qv: verify_decode_ref(qv, kc, vc, cp),
+                lambda qv=qv, m=staircase: F.scaled_dot_product_attention(
+                    qv, kc, vc, attn_mask=m, enable_gqa=True),
+                2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
+                + 4 * b, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
+                representative=kk == k1)
+        compare("verify_decode_paged",
+                f"q[4,32,{kk},128] pools[25,4,16,128] ragged",
+                lambda qv=qv: vd.verify_decode_paged(qv, kp, vp, table, cp),
+                lambda qv=qv: verify_decode_paged_ref(qv, kp, vp, table, cp),
+                None, 2 * qv.numel() + 2 * 2 * hkv * d * n_read
+                + 4 * qv.numel() + 4 * b + tbl, 4 * hq * d * pairs,
+                "bfloat16", 1e-2, 1e-2, representative=kk == k1)
     print("library: none for attn_decode_paged and verify_decode_paged "
           "(no single PyTorch call reads KV through a page table)",
           flush=True)
 
     # (a) paged == contiguous, (b) verify row i == attn_decode at cp + i,
     # (c) paged verify row i == attn_decode_paged at cp + i: bitwise
+    qv = qvs[k1]
     one = pa.attn_decode_paged(q, kp, vp, table, cp)
     assert torch.equal(one, ad.attn_decode(q, kc, vc, cp)), "(a) paged"
     ver = vd.verify_decode(qv, kc, vc, cp)
@@ -582,18 +626,26 @@ def check_mla_moe(torch, compare, randn, gen):
             lambda: torch.matmul(x, w), 4 * (b * 2048 + 2048 * 64 + b * 64),
             2 * b * 2048 * 64, "float32", 1e-4, 1e-4)
 
-    # MLA prefill attention: q/k [1, 16, 128, 192], v [1, 16, 128, 128]
-    t = 128
-    q, k_, v_ = randn(1, h, t, dn + rd), randn(1, h, t, dn + rd), \
-        randn(1, h, t, dv)
-    pairs = t * (t + 1) // 2
-    compare("attention_mla", "q/k[1,16,128,192] v[1,16,128,128] causal",
-            lambda: fa.attention(q, k_, v_, causal=True),
-            lambda: attention_ref(q, k_, v_, causal=True),
-            lambda: F.scaled_dot_product_attention(q, k_, v_, is_causal=True),
-            2 * (2 * q.numel() + v_.numel() + h * t * dv),
-            2 * h * pairs * (dn + rd + dv), "bfloat16", 1e-2, 1e-2,
-            representative=True)
+    # MLA prefill attention: q/k [B, 16, T, 192], v [B, 16, T, 128] at
+    # a serve prompt of 100 tokens, check_prefill's 128 prompts x 100, and
+    # T = 128 (the representative row)
+    for bb, t in ((1, 100), (128, 100), (1, 128)):
+        q, k_, v_ = randn(bb, h, t, dn + rd), randn(bb, h, t, dn + rd), \
+            randn(bb, h, t, dv)
+        pairs = t * (t + 1) // 2
+        compare("attention_mla",
+                f"q/k[{bb},16,{t},192] v[{bb},16,{t},128] causal",
+                lambda q=q, k_=k_, v_=v_: fa.attention(q, k_, v_,
+                                                       causal=True),
+                lambda q=q, k_=k_, v_=v_: attention_ref(q, k_, v_,
+                                                        causal=True),
+                lambda q=q, k_=k_, v_=v_: F.scaled_dot_product_attention(
+                    q, k_, v_, is_causal=True),
+                2 * (2 * q.numel() + v_.numel() + bb * h * t * dv),
+                2 * bb * h * pairs * (dn + rd + dv), "bfloat16", 1e-2, 1e-2,
+                representative=(bb, t) == (1, 128))
+    del q, k_, v_
+    check_flash_padding(torch, randn, h, dn + rd)
 
     # absorbed products: fp32 on both sides, summation order only
     qn = randn(b, h, dn, dtype=f32)
@@ -1782,6 +1834,12 @@ def main() -> int:
     #    run_jamba) are freed first ----------------------------------------
     torch.cuda.empty_cache()
     run_xlstm(torch, run_serve, t_start)
+
+    # the scalar fp32 flash instance is on no serving path
+    fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
+    assert not fp32, f"fp32 flash attention launched on {fp32}"
+    print(f"launches: no fp32 flash attention in the {len(runs)} serve runs",
+          flush=True)
 
     # -- 11. the kernels line, the card, the verdict -------------------------
     replaces = {   # kernel: (what it replaces, source, run, counter)

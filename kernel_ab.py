@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Hold one of this checkout's decode kernels against another checkout's,
-on one CUDA card: bit for bit, and timed in turns.
+"""Hold one of this checkout's kernels against another checkout's, on one
+CUDA card: bit for bit (or, where the bits differ by design, each against
+the plain version), and timed in turns.
 
     python3 kernel_ab.py --baseline DIR                        # attn_decode
     python3 kernel_ab.py --baseline DIR --kernel moe_decode
     python3 kernel_ab.py --baseline DIR --kernel attn_decode_mla
+    python3 kernel_ab.py --baseline DIR --kernel verify_decode
+    python3 kernel_ab.py --baseline DIR --kernel attention
 
 DIR is the root of another checkout. Its ``csrc/<kernel>.cu`` is built
 with this checkout's nvcc flags into ``build/ab/`` and called through its
@@ -21,6 +24,20 @@ deepseek-v2-lite-16b's widths (16 heads, latent 512 + rotary 64, fp32
 queries, bf16 latent) both must give the same bits, and this checkout's
 precise ``attn_decode_paged`` on the same latent behind a shuffled page
 table must too. Timed as ``attn_decode``.
+
+``verify_decode``: at yi-9b's speculative-decoding shapes (bf16, 32 / 4
+heads, K1 = 2 and 4 query tokens; the caches of ``attn_decode``, 160 and
+2048 positions) this checkout's ``verify_decode`` and
+``verify_decode_paged`` (the same KV behind a shuffled page table) must
+give the baseline's contiguous kernel's bits, and the baseline's paged
+kernel must too. Then baseline, change, paged change, paged baseline,
+paged baseline, paged change, change, baseline are timed.
+
+``attention`` (the flash prefill kernel, both bf16 instances: (128, 128)
+at yi-9b's serve buckets and ``check_prefill``'s B = 8 x 100 tokens, and
+(192, 128) at deepseek's prefill lengths): the bits differ by design, so
+each side's max abs error against the plain version is reported and
+held to 1e-2 + 1e-2 |ref|; baseline, change, change, baseline are timed.
 
 ``moe_decode``: at deepseek-v2-lite-16b's serving shapes (d 2048, 64
 experts of 1408, top-6; 4 live slots, one slot, and a dead slot with a
@@ -64,6 +81,17 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
         lib.attn_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, p]
         lib.attn_decode_launch.restype = i
+    elif kernel == "verify_decode":
+        lib.verify_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                             ctypes.c_float, i, p]
+        lib.verify_decode_launch.restype = i
+        lib.verify_decode_paged_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.verify_decode_paged_launch.restype = i
+    elif kernel == "flash_attention":
+        lib.flash_attention_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.flash_attention_launch.restype = i
     elif kernel == "attn_decode_mla":
         lib.attn_decode_mla_launch.argtypes = [p] * 6 + [
             i, i, i, ctypes.c_float, i, p]
@@ -80,7 +108,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, required=True)
     ap.add_argument("--kernel", choices=("attn_decode", "attn_decode_mla",
-                                         "moe_decode"),
+                                         "moe_decode", "verify_decode",
+                                         "attention"),
                     default="attn_decode")
     args = ap.parse_args()
 
@@ -89,13 +118,16 @@ def main() -> int:
         raise SystemExit("kernel_ab: no CUDA card")
     from chip_smoke import Timer, card_line
 
-    base = build_baseline(args.baseline.resolve(), args.kernel)
+    source = {"attention": "flash_attention"}.get(args.kernel, args.kernel)
+    base = build_baseline(args.baseline.resolve(), source)
     timer = Timer(torch)
     ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
-          "moe_decode": ab_moe_decode}[args.kernel]
+          "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
+          "attention": ab_attention}[args.kernel]
     rows = ab(torch, base, timer)
     print(card_line())
-    ok = all(r["bitwise"] for r in rows)
+    ok = all(r["bitwise"] if "bitwise" in r else r["within_tol"]
+             for r in rows)
     print(json.dumps({"ok": ok, "kernel": args.kernel, "rows": len(rows)}))
     return 0 if ok else 1
 
@@ -126,16 +158,7 @@ def ab_attn_decode(torch, base, timer):
             return attn_decode(q, k, v, cp)
 
         # the same KV as pools behind a shuffled page table
-        np_ = s // PS
-        perm = torch.randperm(b * np_, generator=gen, device="cuda") + 1
-        table = perm.view(b, np_).to(torch.int32)
-        kp = torch.zeros(b * np_ + 1, HKV, PS, D, dtype=torch.bfloat16,
-                         device="cuda")
-        vp = torch.zeros_like(kp)
-        kp[perm] = k.view(b, HKV, np_, PS, D).transpose(1, 2).reshape(
-            b * np_, HKV, PS, D)
-        vp[perm] = v.view(b, HKV, np_, PS, D).transpose(1, 2).reshape(
-            b * np_, HKV, PS, D)
+        table, kp, vp = shuffled_pages(torch, gen, k, v)
 
         def run_paged(q=q, kp=kp, vp=vp, table=table, cp=cp):
             return attn_decode_paged(q, kp, vp, table, cp)
@@ -151,6 +174,143 @@ def ab_attn_decode(torch, base, timer):
                    bitwise_contiguous=same, bitwise_paged=same_paged,
                    baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
                    paged_ms=[t[2], t[3]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def shuffled_pages(torch, gen, *caches):
+    """Contiguous caches [B, H, S, D] (H and D may differ between them) as
+    pools [B * S / PS + 1, H, PS, D] behind one shuffled page table (page
+    0 unused). Returns (table, pool, ...)."""
+    b, _, s, _ = caches[0].shape
+    np_ = s // PS
+    perm = torch.randperm(b * np_, generator=gen, device="cuda") + 1
+    pools = []
+    for c in caches:
+        h, d = c.shape[1], c.shape[3]
+        pool = torch.zeros(b * np_ + 1, h, PS, d, dtype=c.dtype,
+                           device="cuda")
+        pool[perm] = c.view(b, h, np_, PS, d).transpose(1, 2).reshape(
+            b * np_, h, PS, d)
+        pools.append(pool)
+    return (perm.view(b, np_).to(torch.int32), *pools)
+
+
+def ab_verify(torch, base, timer):
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.verify_decode.ops import (verify_decode,
+                                                       verify_decode_paged)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for k1 in (2, 4):
+        for b, s, cps in SHAPES:
+            # the last query of a sequence stays inside the cache
+            cps = tuple(min(c, s - k1) for c in cps)
+
+            def randn(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda"
+                                   ).to(torch.bfloat16)
+            q, k, v = randn(b, HQ, k1, D), randn(b, HKV, s, D), \
+                randn(b, HKV, s, D)
+            cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+            table, kp, vp = shuffled_pages(torch, gen, k, v)
+            np_ = s // PS
+
+            def run_base(q=q, k=k, v=v, cp=cp, b=b, s=s, k1=k1):
+                out = torch.empty(b, HQ, k1, D, dtype=torch.float32,
+                                  device="cuda")
+                rc = base.verify_decode_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), cp.data_ptr(),
+                    out.data_ptr(), b, HQ, HKV, k1, s, D ** -0.5, 1,
+                    stream_ptr(q))
+                assert rc == 0, rc
+                return out
+
+            def run_base_paged(q=q, kp=kp, vp=vp, table=table, cp=cp, b=b,
+                               k1=k1, np_=np_):
+                out = torch.empty(b, HQ, k1, D, dtype=torch.float32,
+                                  device="cuda")
+                rc = base.verify_decode_paged_launch(
+                    q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    table.data_ptr(), cp.data_ptr(), out.data_ptr(), b, HQ,
+                    HKV, k1, PS, np_, D ** -0.5, 1, stream_ptr(q))
+                assert rc == 0, rc
+                return out
+
+            def run_new(q=q, k=k, v=v, cp=cp):
+                return verify_decode(q, k, v, cp)
+
+            def run_paged(q=q, kp=kp, vp=vp, table=table, cp=cp):
+                return verify_decode_paged(q, kp, vp, table, cp)
+
+            want = run_base()
+            same = torch.equal(run_new(), want)
+            same_paged = torch.equal(run_paged(), want)
+            same_base_paged = torch.equal(run_base_paged(), want)
+            torch.cuda.synchronize()
+            t = [timer(fn, iters=20) for fn in (
+                run_base, run_new, run_paged, run_base_paged, run_base_paged,
+                run_paged, run_new, run_base)]
+            row = dict(shape=f"q[{b},{HQ},{k1},{D}] kv[{b},{HKV},{s},{D}] "
+                       f"cache_pos {list(cps)}",
+                       bitwise=same and same_paged and same_base_paged,
+                       bitwise_contiguous=same, bitwise_paged=same_paged,
+                       baseline_ms=[t[0], t[7]], change_ms=[t[1], t[6]],
+                       paged_baseline_ms=[t[3], t[4]],
+                       paged_ms=[t[2], t[5]])
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def ab_attention(torch, base, timer):
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    # (B, Hq, Hkv, T, Dqk, Dv): yi-9b's serve buckets and check_prefill's
+    # batch; deepseek's (192, 128) at a serve prompt and check_prefill's
+    cases = [(1, 32, 4, t, 128, 128) for t in (32, 64, 128)] + [
+        (8, 32, 4, 100, 128, 128), (1, 16, 16, 100, 192, 128),
+        (1, 16, 16, 128, 192, 128), (128, 16, 16, 100, 192, 128)]
+    rows = []
+    for b, hq, hkv, t, dqk, dv in cases:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda"
+                               ).to(torch.bfloat16)
+        q, k, v = randn(b, hq, t, dqk), randn(b, hkv, t, dqk), \
+            randn(b, hkv, t, dv)
+
+        def run_base(q=q, k=k, v=v, b=b, hq=hq, hkv=hkv, t=t, dqk=dqk,
+                     dv=dv):
+            out = torch.empty(b, hq, t, dv, dtype=torch.bfloat16,
+                              device="cuda")
+            rc = base.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, t, t, dqk, dv, 1, dqk ** -0.5, 1, stream_ptr(q))
+            assert rc == 0, rc
+            return out
+
+        def run_new(q=q, k=k, v=v):
+            return attention(q, k, v, causal=True)
+
+        want = attention_ref(q, k, v, causal=True).float()
+        errs, ok = {}, True
+        for side, fn in (("baseline", run_base), ("change", run_new)):
+            err = (fn().float() - want).abs()
+            errs[side] = float(err.max())
+            ok = ok and bool((err <= 1e-2 + 1e-2 * want.abs()).all())
+        torch.cuda.synchronize()
+        t_ = [timer(fn, iters=20) for fn in (run_base, run_new, run_new,
+                                             run_base)]
+        row = dict(shape=f"q[{b},{hq},{t},{dqk}] kv[{b},{hkv},{t},{dqk}|"
+                   f"{dv}] causal", within_tol=ok,
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   baseline_ms=[t_[0], t_[3]], change_ms=[t_[1], t_[2]])
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
@@ -188,15 +348,7 @@ def ab_mla(torch, base, timer):
                                precise=True)
 
         # the same latent as pools behind a shuffled page table
-        np_ = s // PS
-        perm = torch.randperm(b * np_, generator=gen, device="cuda") + 1
-        table = perm.view(b, np_).to(torch.int32)
-        cpool = torch.zeros(b * np_ + 1, 1, PS, r, dtype=torch.bfloat16,
-                            device="cuda")
-        kpool = torch.zeros(b * np_ + 1, 1, PS, rd, dtype=torch.bfloat16,
-                            device="cuda")
-        cpool[perm] = lat.view(b * np_, 1, PS, r)
-        kpool[perm] = kr.view(b * np_, 1, PS, rd)
+        table, cpool, kpool = shuffled_pages(torch, gen, lat, kr)
 
         def run_paged(q=q, q2=q2, cpool=cpool, kpool=kpool, table=table,
                       cp=cp):

@@ -40,6 +40,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Asynchronous 16-byte copy from device to shared memory (both 16-byte
+// aligned). When `pred` is false nothing is read and the 16 bytes are
+// zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Each library exports its own copy, so Python can name an error code.
 KERNEL_API const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

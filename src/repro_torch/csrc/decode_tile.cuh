@@ -1,12 +1,16 @@
-// The tile loop of decode attention, shared by attn_decode.cu,
-// paged_attention.cu and verify_decode.cu (contiguous and paged).
+// Decode attention's row arithmetic and its tile loop. attn_decode.cu and
+// paged_attention.cu run the tile loop (decode_kernel); verify_decode.cu
+// (contiguous and paged) runs its own schedule of the same rows and calls
+// the row functions below (the query's rounding, a lane's score partial
+// and its butterfly, the 64-position softmax update, the V accumulation
+// with its masked select).
 //
-// All four kernels run this one function so that a query row sees the same
-// arithmetic in the same order whichever kernel serves it. The serving
-// path's bitwise token identities rest on that: paged tokens == contiguous
-// tokens (attn_decode_paged == attn_decode on the same KV), and greedy
-// speculative tokens == plain greedy tokens (verify row i == the
-// single-token kernel at cache_pos + i).
+// So a query row sees the same arithmetic in the same order whichever of
+// the four kernels serves it. The serving path's bitwise token identities
+// rest on that: paged tokens == contiguous tokens (attn_decode_paged ==
+// attn_decode on the same KV), and greedy speculative tokens == plain
+// greedy tokens (verify row i == the single-token kernel at cache_pos +
+// i).
 //
 // One block serves one (sequence b, KV head hk): R = g * K1 query rows,
 // row r = (group head r / K1, query r % K1), laid out as consecutive
@@ -52,6 +56,67 @@ struct Paged {  // pools [P, Hkv, ps, D], page_table [B, NP], -1 = none
   }
 };
 
+// A row's query element, pre-scaled and rounded to the cache dtype.
+template <typename T>
+__device__ __forceinline__ float scaled_query(T x, float scale) {
+  return to_f32(from_f32<T>(to_f32(x) * scale));
+}
+
+// A lane's partial of a score: its 4 dims (4 lane .. 4 lane + 3) of the
+// query row qh and the K row kv.
+__device__ __forceinline__ float lane_partial(const float* qh,
+                                              const float (&kv)[4]) {
+  return qh[0] * kv[0] + qh[1] * kv[1] + qh[2] * kv[2] + qh[3] * kv[3];
+}
+
+// A score: the lanes' partials summed by the butterfly of warp_sum.
+__device__ __forceinline__ float score(const float* qh, const float (&kv)[4]) {
+  return warp_sum(lane_partial(qh, kv));
+}
+
+// N scores at once: warp_sum's butterfly on each element, the N shuffles
+// of a stage issued together. Each element gets warp_sum's bits.
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float (&v)[N]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// The online-softmax update of one row over one tile of 64 positions, by
+// one warp: lane holds the scores of positions lane and lane + 32 (s0,
+// s1) and whether the row sees them (ok0, ok1). Updates the row's running
+// max and sum, returns the rescale factor of its accumulator, and sets
+// the softmax weights p0, p1 (0 where the row does not see the position).
+__device__ __forceinline__ float softmax_update(float& m_run, float& l_run,
+                                                float s0, float s1, bool ok0,
+                                                bool ok1, float& p0,
+                                                float& p1) {
+  s0 = ok0 ? s0 : kNeg;
+  s1 = ok1 ? s1 : kNeg;
+  const float m_new = fmaxf(m_run, warp_max(fmaxf(s0, s1)));
+  const float alpha = expf(m_run - m_new);
+  p0 = ok0 ? expf(s0 - m_new) : 0.f;
+  p1 = ok1 ? expf(s1 - m_new) : 0.f;
+  l_run = l_run * alpha + warp_sum(p0 + p1);
+  m_run = m_new;
+  return alpha;
+}
+
+// One position's V element added into a row's accumulator (positions are
+// taken in order); the masked form drops it by a select where the row
+// does not see the position, never multiplying it in (0 * NaN is NaN).
+// Both give the same bits where both apply.
+__device__ __forceinline__ float accumulate(float acc, float p, float v) {
+  return fmaf(p, v, acc);
+}
+__device__ __forceinline__ float accumulate_masked(float acc, float p,
+                                                   float v, bool ok) {
+  const float a = fmaf(p, v, acc);
+  return ok ? a : acc;
+}
+
 // Dynamic shared memory of a block serving R rows.
 inline size_t smem_bytes(int R) {
   return TILE * sizeof(long long) + sizeof(float) * (size_t)R * (D + TILE + 2);
@@ -79,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n_max = min(cp + K1 - 1, S - 1) + 1;
 
   for (int e = tid; e < R * D; e += kThreads)
-    Qs[e] = to_f32(from_f32<T>(to_f32(qb[e]) * scale));
+    Qs[e] = scaled_query(qb[e], scale);
 
   // warp w keeps the running (max, sum) of rows w, w + 8, ...
   float m_run[MAXR / kWarps], l_run[MAXR / kWarps];
@@ -116,9 +181,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) kv[e] = to_f32(kr[e]);
       for (int r = 0; r < R; ++r) {
-        const float* qh = Qs + r * D + lane * 4;
-        float part = qh[0] * kv[0] + qh[1] * kv[1] + qh[2] * kv[2] + qh[3] * kv[3];
-        part = warp_sum(part);
+        const float part = score(Qs + r * D + lane * 4, kv);
         if (lane == 0) Ps[r * TILE + pi] = part;
       }
     }
@@ -132,14 +195,10 @@ __global__ void __launch_bounds__(kThreads)
       const int nr = min(cp + r % K1, S - 1) + 1 - t0;  // row's valid count
       const bool ok0 = lane < nr && off_s[lane] >= 0;
       const bool ok1 = lane + 32 < nr && off_s[lane + 32] >= 0;
-      const float s0 = ok0 ? Ps[r * TILE + lane] : kNeg;
-      const float s1 = ok1 ? Ps[r * TILE + lane + 32] : kNeg;
-      const float m_new = fmaxf(m_run[hi], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m_run[hi] - m_new);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      l_run[hi] = l_run[hi] * alpha + warp_sum(p0 + p1);
-      m_run[hi] = m_new;
+      float p0, p1;
+      const float alpha =
+          softmax_update(m_run[hi], l_run[hi], Ps[r * TILE + lane],
+                         Ps[r * TILE + lane + 32], ok0, ok1, p0, p1);
       Ps[r * TILE + lane] = p0;
       Ps[r * TILE + lane + 32] = p1;
       if (lane == 0) alpha_s[r] = alpha;
@@ -172,7 +231,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int j = 0; j < MAXR / 2; ++j)
             if (hb + 2 * j < R)
-              acc[j] = fmaf(Ps[(hb + 2 * j) * TILE + p0 + u], vv[u], acc[j]);
+              acc[j] = accumulate(acc[j], Ps[(hb + 2 * j) * TILE + p0 + u],
+                                  vv[u]);
       } else {
 #pragma unroll
         for (int u = 0; u < kVec; ++u)
@@ -181,11 +241,10 @@ __global__ void __launch_bounds__(kThreads)
         for (int u = 0; u < kVec; ++u)
 #pragma unroll
           for (int j = 0; j < MAXR / 2; ++j)
-            if (hb + 2 * j < R) {
-              const float a =
-                  fmaf(Ps[(hb + 2 * j) * TILE + p0 + u], vv[u], acc[j]);
-              acc[j] = off[u] >= 0 && t0 + p0 + u < lim[j] ? a : acc[j];
-            }
+            if (hb + 2 * j < R)
+              acc[j] = accumulate_masked(
+                  acc[j], Ps[(hb + 2 * j) * TILE + p0 + u], vv[u],
+                  off[u] >= 0 && t0 + p0 + u < lim[j]);
       }
     }
     __syncthreads();  // off_s, Ps and alpha_s are rewritten by the next tile

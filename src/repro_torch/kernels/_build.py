@@ -113,6 +113,15 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: expects contiguous tensors")
 
 
+def require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel that copies rows by 16-byte ``cp.async`` needs each
+    tensor's data to start on a 16-byte boundary (its rows then do too)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must start on a 16-byte "
+                             f"boundary (offset {t.data_ptr() % 16})")
+
+
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

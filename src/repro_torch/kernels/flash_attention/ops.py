@@ -7,7 +7,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import (check, dtype_code, library,
+from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
+                                        library, require_aligned,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -31,7 +32,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Hq, T, Dqk], k [B, Hkv, S, Dqk], v [B, Hkv, S, Dv] ->
     [B, Hq, T, Dv] on the card, causal mask bottom-right; (Dqk, Dv) is one
-    of ``HEAD_DIMS``."""
+    of ``HEAD_DIMS``. bf16 runs the tensor-core kernel; fp32 runs the
+    scalar one, whose launches are also counted apart
+    (``attention.instances["attention_fp32"]``)."""
     require_cuda("attention", q, k, v)
     code = dtype_code("attention", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -47,6 +50,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or hq % hkv:
         raise ValueError(f"attention: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
+    require_aligned("attention", q, k, v)
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty(b, hq, t, dv, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -56,10 +60,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         t, s, d, dv, int(causal), scale, code, stream_ptr(q))
     attention.launches += 1
+    if code == DTYPE_CODE[torch.float32]:
+        attention.instances["attention_fp32"] += 1
     check(lib, rc, "attention")
     return out
 
 
 attention.launches = 0
+attention.instances = {"attention_fp32": 0}
 
 xaif.register("attention", attention_ref, attention)

@@ -168,3 +168,61 @@ def test_plain_ops_keep_jax_names():
                           "verify_decode", "verify_decode_paged")
     with pytest.raises(ValueError):
         xaif.call("gemm", "pallas", torch.zeros(2, 2), torch.zeros(2, 2))
+
+
+def test_require_aligned_refuses_offset_data():
+    """The flash and verify kernels copy rows by 16-byte cp.async: a
+    tensor whose data starts off a 16-byte boundary is refused."""
+    from repro_torch.kernels._build import require_aligned
+    base = torch.zeros(4, 128, dtype=torch.bfloat16)
+    require_aligned("x", base, base[1:])          # rows of 256 bytes
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        require_aligned("x", base.view(-1)[1:])
+
+
+@pytest.mark.parametrize("case", ["attention_unaligned", "attention_dims",
+                                  "verify_unaligned", "verify_rows",
+                                  "verify_paged_unaligned"])
+def test_flash_and_verify_wrappers_refuse_what_the_kernels_do_not_take(
+        case, monkeypatch):
+    """With the device check stubbed out (the kernels run only on the
+    card), each wrapper raises before it launches, and counts no launch,
+    on data off a 16-byte boundary, on head dims the flash kernel has no
+    instance for ((64, 64)), and on more than 64 verify rows (g * K1)."""
+    from repro_torch.kernels.attn_decode import ops as ad_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.verify_decode import ops as vd_ops
+    monkeypatch.setattr(ad_ops, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(fa_ops, "require_cuda", lambda *a: None)
+    bf = dict(dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32)
+
+    def off(*shape):            # contiguous, data 2 bytes off a boundary
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, **bf)[1:].view(*shape)
+
+    q4, kv = torch.zeros(1, 8, 4, 128, **bf), torch.zeros(1, 1, 32, 128, **bf)
+    pools, table = torch.zeros(3, 1, 16, 128, **bf), torch.ones(1, 2, **i32)
+    cp = torch.zeros(1, **i32)
+    fa_q = torch.zeros(1, 4, 8, 128, **bf)
+    calls = {
+        "attention_unaligned": (fa_ops.attention, "16-byte", lambda: fa_ops
+                                .attention(fa_q, off(1, 2, 8, 128),
+                                           torch.zeros(1, 2, 8, 128, **bf))),
+        "attention_dims": (fa_ops.attention, "head dims", lambda: fa_ops
+                           .attention(*(torch.zeros(1, 2, 8, 64, **bf),) * 3)),
+        "verify_unaligned": (vd_ops.verify_decode, "16-byte", lambda: vd_ops
+                             .verify_decode(q4, off(1, 1, 32, 128), kv, cp)),
+        "verify_rows": (vd_ops.verify_decode, "at most 64", lambda: vd_ops
+                        .verify_decode(torch.zeros(1, 8, 9, 128, **bf), kv,
+                                       kv, cp)),
+        "verify_paged_unaligned": (
+            vd_ops.verify_decode_paged, "16-byte",
+            lambda: vd_ops.verify_decode_paged(q4, pools, off(3, 1, 16, 128),
+                                               table, cp)),
+    }
+    fn, match, call = calls[case]
+    before = fn.launches
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert fn.launches == before
