@@ -89,7 +89,11 @@ serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
 kernel on the dequantized weight), and asserts, bitwise, that row b of a
 B = 4 launch of moe_decode (at h = 1408 and 14336), precise attn_decode,
 gemm_heads (both layouts), ssm_decode, mlstm_decode, gemm_int8 and the
-int8-weight gemm equals its B = 1 launch, and that a selective scan of
+int8-weight gemm equals its B = 1 launch, that row i of an M = 4, 16,
+20 and 128 launch of the bf16, int8-weight and fp32 gemm and of
+gemm_heads (all three layouts) equals its M = 1 launch (ptxas's
+registers, shared memory and spills of each gemm.cu instance printed
+beside), and that a selective scan of
 T1 then T2 tokens with the state carried equals the scan of T1 + T2; that
 the first t rows of flash attention (both bf16 instances) on a prompt
 right-padded to the next multiple of 16 equal the unpadded prompt's (t =
@@ -113,6 +117,7 @@ import dataclasses
 import functools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -272,6 +277,7 @@ def check_kernels(torch, timer):
             lambda: torch.matmul(x, w), 4 * (4 * 4096 + 4096 * 512 + 4 * 512),
             2 * 4 * 4096 * 512, "float32", 1e-4, 1e-4)
     check_int8(torch, compare, randn)
+    check_gemm_rows(torch, randn)
 
     # rmsnorm: fp32 math on both sides, bf16 output: one bf16 ulp
     x, sc = randn(128, 4096), randn(4096, dtype=torch.float32)
@@ -454,25 +460,114 @@ def check_int8(torch, compare, randn):
             ("gemm_wq", i)
     torch.cuda.synchronize()
 
-    # the host's cost of one call at M = 4, 4096 x 4096: the time to
-    # enqueue 100 calls (no synchronize among them), by the host clock
+    # the host's cost of one call at M = 4 (4096 x 4096; the fp32 router
+    # 2048 -> 64, K split; xLSTM's head-major bf16 q/k/v): the time to
+    # enqueue 100 calls (no synchronize among them), by the host clock;
+    # the median of 5 such runs (the host is shared: single runs spread)
     wb = randn(4096, 4096, scale=4096 ** -0.5)
     wq = quantize_leaf(wb)
+    xr = randn(4, 2048, dtype=torch.float32)
+    wr = randn(2048, 64, dtype=torch.float32, scale=2048 ** -0.5)
+    xh = randn(4, 4, 512, dtype=torch.float32)
+    wh = randn(4, 512, 512, scale=512 ** -0.5)
     enqueue = {}
     for name, fn in (("gemm bf16", lambda: gm.gemm(x, wb)),
                      ("gemm int8-weight", lambda: gm.gemm(x, wq)),
-                     ("gemm_int8", lambda: gm.gemm_int8(x, wq))):
+                     ("gemm_int8", lambda: gm.gemm_int8(x, wq)),
+                     ("gemm fp32 router", lambda: gm.gemm(xr, wr)),
+                     ("gemm_heads head-major", lambda: gm.gemm_heads(
+                         xh, wh, head_major=True))):
         fn()
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            runs.append((time.perf_counter() - t0) * 1e4)
+        enqueue[name] = round(sorted(runs)[2], 1)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            fn()
-        enqueue[name] = round((time.perf_counter() - t0) * 1e4, 1)
-        torch.cuda.synchronize()
-    print(f"host us a call (enqueue, M = 4): {enqueue}", flush=True)
+    print(f"host us a call (enqueue, M = 4, median of 5 x 100 calls): "
+          f"{enqueue}", flush=True)
     print("bitwise: gemm_int8 == plain (none, relu; silu within 1 bf16 "
           "ulp); int8-weight gemm == the bf16 kernel on dequantize(w); rows "
           "of a B = 4 launch of either == their B = 1 launches", flush=True)
+
+
+def check_gemm_rows(torch, randn):
+    """Phase 2: the two GEMM kernels of ``csrc/gemm.cu`` reduce a row in an
+    order fixed by the shape of w alone. Bitwise, row i of a launch of M =
+    4, 16, 20 and 128 rows equals its M = 1 launch, for the bf16 gemm
+    (4096 -> 4096, 4096 -> 512), the int8-weight gemm, the fp32 gemm (the
+    routers 2048 -> 64 and 4096 -> 16, xLSTM's ``w_if`` 2048 -> 8) and
+    ``gemm_heads`` in its three layouts (bf16 and fp32 weights). Then the
+    registers, shared memory and spills ptxas reported for each kernel
+    instance of the source."""
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.serve.quantize import quantize_leaf
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for k, n in ((4096, 4096), (4096, 512)):
+        x, w = randn(128, k), randn(k, n, scale=k ** -0.5)
+        cases.append((f"gemm bf16 {k}->{n}", x,
+                      lambda x, w=w: gm.gemm(x, w)))
+    x, w = randn(128, 4096), quantize_leaf(randn(4096, 4096,
+                                                 scale=4096 ** -0.5))
+    cases.append(("gemm int8-weight 4096->4096 silu", x,
+                  lambda x, w=w: gm.gemm(x, w, None, "silu")))
+    for k, n in ((2048, 64), (4096, 16), (2048, 8)):
+        x, w = randn(128, k, dtype=f32), randn(k, n, dtype=f32,
+                                               scale=k ** -0.5)
+        cases.append((f"gemm fp32 {k}->{n}", x,
+                      lambda x, w=w: gm.gemm(x, w)))
+    for name, xs, ws, wdt, kw in (
+            ("gemm_heads transposed [512,16,128]", (16, 128), (512, 16, 128),
+             bf16, dict(transpose_w=True)),
+            ("gemm_heads [512,16,128]", (16, 512), (512, 16, 128), bf16, {}),
+            ("gemm_heads head-major [4,512,512]", (4, 512), (4, 512, 512),
+             bf16, dict(head_major=True)),
+            ("gemm_heads head-major [4,256,1024] fp32", (4, 256),
+             (4, 256, 1024), f32, dict(head_major=True))):
+        x = randn(128, *xs, dtype=f32)
+        w = randn(*ws, dtype=wdt, scale=xs[1] ** -0.5)
+        cases.append((name, x, lambda x, w=w, kw=kw: gm.gemm_heads(x, w,
+                                                                   **kw)))
+    for name, x, fn in cases:
+        solo = [fn(x[i:i + 1].contiguous()) for i in range(128)]
+        for m in (4, 16, 20, 128):
+            full = fn(x[:m].contiguous())
+            for i in range(m):
+                assert torch.equal(full[i:i + 1], solo[i]), (name, m, i)
+    torch.cuda.synchronize()
+    print(f"bitwise: row i of a launch of M = 4, 16, 20, 128 == its M = 1 "
+          f"launch for {[name for name, _, _ in cases]}", flush=True)
+    for line in ptxas_usage("gemm"):
+        print(line, flush=True)
+
+
+def ptxas_usage(stem: str):
+    """'ptxas <kernel>: <registers, shared memory, spills>' for each kernel
+    instance of csrc/<stem>.cu, from its build log (``-Xptxas -v``)."""
+    from repro_torch.kernels._build import BUILD_DIR
+    log = BUILD_DIR / f"{stem}.log"
+    if not log.exists():
+        return [f"ptxas {stem}: no build log (library built before this "
+                f"run)"]
+    out, name = {}, None
+    for raw in log.read_text().splitlines():
+        if "Compiling entry function" in raw:
+            name = raw.split("'")[1]
+        elif name and ("Used" in raw or "spill" in raw):
+            out.setdefault(name, []).append(raw.split(" : ")[-1].strip())
+    names = list(out)
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    if filt:
+        names = subprocess.run([filt], input="\n".join(out), check=True,
+                               capture_output=True,
+                               text=True).stdout.splitlines()
+    return [f"ptxas {pretty.split('(')[0]}: {'; '.join(what)}"
+            for pretty, what in zip(names, out.values())]
 
 
 def check_paged_and_verify(torch, compare, randn, gen):
@@ -1296,6 +1391,12 @@ def profile_decode(torch, name, engine, params, prompts):
         if t > 0 and e.device_type.name == "CUDA":
             per[e.key] = per.get(e.key, 0.0) + t / 1e3 / engine.chunk
     dev = sum(per.values())
+    # the GEMM kernels' share: csrc/gemm.cu's (bf16, int8-weight, fp32)
+    # and csrc/gemm_int8.cu's, by their own names (no library kernel)
+    gemm = sum(v for k, v in per.items()
+               if any(s in k for s in ("bf::gemm_bf16_kernel<",
+                                       "f32::gemm_f32_kernel<",
+                                       "gemm_int8_kernel")))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     # the host's side of the traced step: self time and calls a step of
     # the costliest host ops (profiled, so larger than untraced)
@@ -1303,8 +1404,8 @@ def profile_decode(torch, name, engine, params, prompts):
                     e.count / engine.chunk) for e in prof.key_averages()
                    if e.device_type.name == "CPU"), key=lambda r: -r[1])[:6]
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
-            f"untraced step" if dev > 0 else "device time not measured "
-            "(the profiler showed none)")
+            f"untraced step, GEMM kernels {gemm:.3f} ms" if dev > 0 else
+            "device time not measured (the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
           f"{engine.capacity} live slots, {engine.chunk} steps); {busy}; "
           f"top kernels ms/step "

@@ -8,11 +8,15 @@ the plain version), and timed in turns.
     python3 kernel_ab.py --baseline DIR --kernel attn_decode_mla
     python3 kernel_ab.py --baseline DIR --kernel verify_decode
     python3 kernel_ab.py --baseline DIR --kernel attention
+    python3 kernel_ab.py --baseline DIR --kernel gemm
+    python3 kernel_ab.py --baseline DIR --kernel gemm_heads
 
-DIR is the root of another checkout. Its ``csrc/<kernel>.cu`` is built
-with this checkout's nvcc flags into ``build/ab/`` and called through its
-C entry point (the same signature); this checkout's kernel runs through
-its wrapper.
+DIR is the root of another checkout. For the decode-attention, flash
+and ``moe_decode`` modes its ``csrc/<kernel>.cu`` is built with this
+checkout's nvcc flags into ``build/ab/`` and called through its C entry
+point (the same signature); this checkout's kernel runs through its
+wrapper. The GEMM modes call each checkout's own wrapper instead, so they
+hold whatever C signature either side has.
 
 ``attn_decode``: at each shape (bf16, the serving path's GQA widths) both
 must give the same bits, and this checkout's ``attn_decode_paged`` on the
@@ -46,6 +50,24 @@ baseline are timed. At jamba-v0.1-52b's shape (d 4096, 16 experts of
 14336, top-2) the baseline's launch status is reported beside the
 change's time.
 
+``gemm`` (``csrc/gemm.cu``: the bf16 GEMM, its int8-weight instance and
+the fp32 GEMM): at every decode GEMM shape of yi-9b, deepseek-v2-lite-16b,
+jamba-v0.1-52b and xlstm-350m that ``chip_smoke.py`` times (M = 4 slots),
+yi-9b's at M = 16 (spec verify) and M = 128 (prefill), and the fp32
+routers, ``w_if`` and 4096 -> 512. ``gemm_heads``: at the three layouts'
+serving shapes (MLA's absorbed products, xLSTM's head-major q/k/v and
+sLSTM ``wr``). Each checkout's wrapper runs in processes of its own,
+baseline, change, change, baseline, baseline, change, on the same inputs
+(made on the card from fixed seeds): each process times every shape and
+the host's us a wrapper call at a few (bf16, int8-weight and the fp32
+router 2048 -> 64; MLA's transposed ``w_uk`` and xLSTM's head-major
+q/k/v: the median of 11 runs of 100 enqueued calls). Reported per shape:
+bits equal or not, each side's max abs error against the plain version
+(held to 1e-2 + 1e-2 |ref| in bf16, 1e-4 + 1e-4 |ref| in fp32) and each
+process's time. The bf16 and int8-weight kernels reduce every element in
+one K order (k16 steps from 0), so their bits must equal the baseline's;
+the fp32 kernel's split of K changes its sums by design.
+
 Times are medians of 20 cold-L2 calls each (CUDA events): one JSON line
 per shape, then the card's name and power limit.
 """
@@ -56,6 +78,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -109,24 +132,37 @@ def main() -> int:
     ap.add_argument("--baseline", type=Path, required=True)
     ap.add_argument("--kernel", choices=("attn_decode", "attn_decode_mla",
                                          "moe_decode", "verify_decode",
-                                         "attention"),
+                                         "attention", "gemm",
+                                         "gemm_heads"),
                     default="attn_decode")
+    # one process of a GEMM A/B (``ab_gemm`` starts them): the wrapper of
+    # the checkout at --baseline, outputs to --save
+    ap.add_argument("--side", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA card")
+    if args.side:
+        return side_run(args.baseline.resolve(), args.kernel, args.save)
     from chip_smoke import Timer, card_line
 
-    source = {"attention": "flash_attention"}.get(args.kernel, args.kernel)
-    base = build_baseline(args.baseline.resolve(), source)
-    timer = Timer(torch)
-    ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
-          "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
-          "attention": ab_attention}[args.kernel]
-    rows = ab(torch, base, timer)
+    if args.kernel in ("gemm", "gemm_heads"):
+        rows = ab_gemm(torch, args.baseline.resolve(), args.kernel)
+    else:
+        source = {"attention": "flash_attention"}.get(args.kernel,
+                                                      args.kernel)
+        base = build_baseline(args.baseline.resolve(), source)
+        ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
+              "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
+              "attention": ab_attention}[args.kernel]
+        rows = ab(torch, base, Timer(torch))
     print(card_line())
-    ok = all(r["bitwise"] if "bitwise" in r else r["within_tol"]
+    # the bf16 and int8-weight GEMM keep one K order (k16 steps from 0),
+    # so their bits must equal the baseline's
+    ok = all((r["bitwise"] if "bitwise" in r else r["within_tol"])
+             and (not r.get("bits_required") or r["bits_equal"])
              for r in rows)
     print(json.dumps({"ok": ok, "kernel": args.kernel, "rows": len(rows)}))
     return 0 if ok else 1
@@ -313,6 +349,180 @@ def ab_attention(torch, base, timer):
                    baseline_ms=[t_[0], t_[3]], change_ms=[t_[1], t_[2]])
         print(json.dumps(row), flush=True)
         rows.append(row)
+    return rows
+
+
+# (M, K, N, activation, weights): every decode GEMM shape chip_smoke.py
+# times (yi-9b, deepseek, jamba, xlstm at M = 4 slots), yi-9b's at M = 16
+# and 128, yi-9b's on int8 weights, and the fp32 GEMMs
+GEMM_BF16 = ((4096, 4096, "none"), (4096, 512, "none"),
+             (4096, 11008, "silu"), (11008, 4096, "none"),
+             (4096, 64000, "none"))
+GEMM_CASES = (
+    [(4, k, n, a, "bf16") for k, n, a in GEMM_BF16]
+    + [(4, k, n, a, "bf16") for k, n, a in (
+        (2048, 3072, "none"), (2048, 512, "none"), (2048, 64, "none"),
+        (2048, 2048, "none"), (2048, 2816, "silu"), (2816, 2048, "none"),
+        (2048, 10944, "silu"), (10944, 2048, "none"), (2048, 102400, "none"),
+        (4096, 16384, "none"), (8192, 288, "none"), (256, 8192, "none"),
+        (8192, 4096, "none"), (4096, 14336, "silu"), (14336, 4096, "none"),
+        (4096, 1024, "none"), (4096, 65536, "none"), (1024, 4096, "none"),
+        (2048, 1024, "none"), (1024, 2730, "none"), (1365, 1024, "none"),
+        (1024, 50304, "none"))]
+    + [(m, k, n, a, "bf16") for m in (16, 128) for k, n, a in GEMM_BF16]
+    + [(m, k, n, a, "int8") for m in (4, 16, 128) for k, n, a in GEMM_BF16]
+    + [(4, k, n, "none", "fp32") for k, n in (
+        (4096, 512), (2048, 64), (4096, 16), (2048, 8))])
+
+
+# (M, H, K, w shape, w dtype, layout) of gemm_heads: MLA's w_uk (read
+# transposed, layout 1) and w_uv (layout 0) [512, 16, 128]; xLSTM's q/k/v
+# [4, 512, 512] and sLSTM wr [4, 256, 1024] head-major (layout 2)
+HEADS_CASES = ((4, 16, 128, (512, 16, 128), "bf16", 1),
+               (4, 16, 512, (512, 16, 128), "bf16", 0),
+               (4, 4, 512, (4, 512, 512), "bf16", 2),
+               (4, 4, 256, (4, 256, 1024), "fp32", 2))
+CASES = {"gemm": GEMM_CASES, "gemm_heads": HEADS_CASES}
+# the cases whose host cost a wrapper call is also measured: bf16, int8-
+# weight (4096 x 4096) and the fp32 router (2048 -> 64, K split); MLA's
+# transposed w_uk and xLSTM's head-major q/k/v
+HOST_CASES = {"gemm": ((4, 4096, 4096, "none", "bf16"),
+                       (4, 4096, 4096, "none", "int8"),
+                       (4, 2048, 64, "none", "fp32")),
+              "gemm_heads": (HEADS_CASES[0], HEADS_CASES[2])}
+# the processes of a GEMM A/B, in turns
+SIDES = ("baseline", "change", "change", "baseline", "baseline", "change")
+
+
+def case_label(kernel: str, case) -> str:
+    if kernel == "gemm":
+        m, k, n, act, kind = case
+        return f"M={m} K={k} N={n} {act} {kind}"
+    m, h, k, wshape, wdt, layout = case
+    return f"x[{m},{h},{k}] w{list(wshape)} {wdt} layout {layout}"
+
+
+def case_inputs(torch, weightq, kernel: str, i: int):
+    """(x, w, the wrapper's further arguments) of case i, made on the card
+    from a seed of its own, the same in every process. int8 weights are
+    quantized here, per column (absmax / 127), and wrapped in the calling
+    checkout's ``WeightQ`` class ``weightq``."""
+    gen = torch.Generator(device="cuda").manual_seed(
+        1000 * (kernel == "gemm_heads") + i)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    if kernel == "gemm":
+        m, k, n, act, kind = GEMM_CASES[i]
+        dt = torch.float32 if kind == "fp32" else torch.bfloat16
+        x, w = randn(m, k).to(dt), (randn(k, n) * k ** -0.5).to(dt)
+        if kind == "int8":
+            scale = w.float().abs().amax(0, keepdim=True).clamp_min(1e-8) / 127
+            w = weightq(torch.round(w.float() / scale).clamp(-127, 127)
+                        .to(torch.int8), scale)
+        return x, w, (None, act)
+    m, h, k, wshape, wdt, layout = HEADS_CASES[i]
+    x = randn(m, h, k)
+    w = (randn(*wshape) * k ** -0.5).to(getattr(torch, {
+        "bf16": "bfloat16", "fp32": "float32"}[wdt]))
+    return x, w, (layout == 1, layout == 2)
+
+
+def side_run(side: Path, kernel: str, save) -> int:
+    """One process of a GEMM A/B: the wrapper of the checkout at ``side``
+    on every case: its outputs (saved to ``save`` if given), its time
+    (median of 20 cold-L2 calls) and, at HOST_CASES, the host's us a call
+    (median of 11 x 100 enqueued calls); one JSON line."""
+    import torch
+
+    from chip_smoke import Timer
+    sys.path.insert(0, str(side / "src"))   # before any repro_torch import
+    from repro_torch.kernels.gemm import ops
+    from repro_torch.kernels.gemm.ref import WeightQ
+    assert Path(ops.__file__).resolve().is_relative_to(side), ops.__file__
+    fn = ops.gemm if kernel == "gemm" else ops.gemm_heads
+    timer = Timer(torch)
+    outs, ms, host = [], [], {}
+    for i, case in enumerate(CASES[kernel]):
+        x, w, extra = case_inputs(torch, WeightQ, kernel, i)
+
+        def call(x=x, w=w, extra=extra):
+            return fn(x, w, *extra)
+
+        outs.append(call().cpu())
+        ms.append(timer(call, iters=20))
+        if case in HOST_CASES[kernel]:
+            runs = []
+            for _ in range(11):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    call()
+                runs.append((time.perf_counter() - t0) * 1e4)
+            torch.cuda.synchronize()
+            host[case_label(kernel, case)] = sorted(runs)[5]
+        del x, w
+    if save:
+        torch.save(outs, save)
+    print(json.dumps({"ms": ms, "host_us": host}))
+    return 0
+
+
+def ab_gemm(torch, baseline: Path, kernel: str):
+    """The GEMM A/B: each checkout's own wrapper (so no one C signature
+    is assumed) in processes of their own, in turns (SIDES); then, case by
+    case, bits equal or not and each side's max abs error against this
+    checkout's plain version on the same inputs."""
+    from repro_torch.kernels.gemm.ref import WeightQ, gemm_heads_ref, gemm_ref
+
+    out_dir = ROOT / "build" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs, saved = {"baseline": [], "change": []}, {}
+    for side in SIDES:
+        cmd = [sys.executable, str(ROOT / "kernel_ab.py"), "--kernel", kernel,
+               "--baseline", str(baseline if side == "baseline" else ROOT),
+               "--side"]
+        if side not in saved:
+            saved[side] = out_dir / f"{kernel}_{side}.pt"
+            cmd += ["--save", str(saved[side])]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode:
+            sys.stderr.write(res.stderr[-4000:])
+            raise SystemExit(f"kernel_ab: the {side} process failed")
+        runs[side].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    outs = {side: torch.load(path) for side, path in saved.items()}
+    plain = gemm_ref if kernel == "gemm" else gemm_heads_ref
+    rows = []
+    for i, case in enumerate(CASES[kernel]):
+        x, w, extra = case_inputs(torch, WeightQ, kernel, i)
+        want = plain(x, w, *extra).float().cpu()
+        del x, w
+        fp32 = kernel == "gemm_heads" or case[-1] == "fp32"
+        tol = 1e-4 if fp32 else 1e-2
+        errs, ok = {}, True
+        for side in ("baseline", "change"):
+            err = (outs[side][i].float() - want).abs()
+            errs[side] = float(err.max())
+            ok = ok and bool((err <= tol + tol * want.abs()).all())
+        row = dict(shape=case_label(kernel, case), within_tol=ok,
+                   bits_equal=torch.equal(outs["baseline"][i],
+                                          outs["change"][i]),
+                   bits_required=not fp32,
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   baseline_ms=[r["ms"][i] for r in runs["baseline"]],
+                   change_ms=[r["ms"][i] for r in runs["change"]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    for case in HOST_CASES[kernel]:
+        label = case_label(kernel, case)
+        print(json.dumps(dict(
+            shape=f"host us a wrapper call, {label}",
+            baseline_us=[round(r["host_us"][label], 2)
+                         for r in runs["baseline"]],
+            change_us=[round(r["host_us"][label], 2)
+                       for r in runs["change"]])), flush=True)
     return rows
 
 

@@ -96,8 +96,9 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The raw handle of the current stream of ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device, through
+    PyTorch's raw accessor: no Stream object is built a call."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -3,11 +3,18 @@ and their XAIF ops: the fused GEMM (bf16 / fp32 weights, or int8
 ``WeightQ`` weights dequantized on the fly), its lossy W8A8 backend
 ``int8`` (activations quantized per row, integer products), and
 ``gemm_heads``, the per-head fp32 products of MLA's absorbed decode and of
-the xLSTM mixers' block-diagonal weights."""
+the xLSTM mixers' block-diagonal weights.
+
+The kernels' tile and split choices are made here, by :func:`gemm_plan`
+(the bf16 / int8-weight kernel) and :func:`f32_plan` (the fp32 kernel):
+functions of the shape of w alone, never of M, so that every output
+element is reduced over K in one order whatever the batch."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -19,19 +26,141 @@ from repro_torch.kernels.gemm.ref import (WeightQ, gemm_heads_ref, gemm_ref,
 
 # csrc/gemm_epilogue.cuh Act
 ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+# csrc/gemm.cu HeadLayout
+LHD, LHD_TRANSPOSED, HEAD_MAJOR = 0, 1, 2
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(n: int, k: int, wq: bool = False) -> Tuple[int, int, int]:
+    """(bn, lbk, lbk_prefill) of the bf16 tensor-core kernel for w [K, N]
+    (int8 with ``wq``): bn columns a block (16 below N = 4096 so that
+    narrow products still spread over N / 16 blocks; 32, 64, then 128 for
+    the vocabulary heads); 2^lbk rows of K a ring stage at M <= 16, 16 KB
+    of weights when the grid fits on the card in one wave (one block an
+    SM), else 8 KB; and 2^lbk_prefill rows in the 64-row tiles beyond 16
+    rows, 128 for tiles of <= 32 columns, else 64 (two blocks an SM).
+    Shapes whose K or N the kernel's 16-byte copies cannot take (K or N not
+    a multiple of 8, int8 N of 16) get 16 columns. The K order of an
+    element (k16 steps from 0 up) is the same whatever the plan."""
+    if k % 8 or n % (16 if wq else 8) or n < 4096:
+        bn = 16
+    else:
+        bn = 32 if n < 8192 else 64 if n <= 16384 else 128
+    stage = 16384 if math.ceil(n / bn) <= SMS else 8192
+    bk = stage // (bn * (1 if wq else 2))
+    bk = max(64, min(bk, 512, 1 << max(6, (k - 1).bit_length())))
+    return bn, bk.bit_length() - 1, 7 if bn <= 32 else 6
+
+
+class F32Plan(NamedTuple):
+    """The fp32 kernel's launch: ``threads`` a block; ``bn`` columns a
+    block; ``kc`` rows of K a block (its K range); ``parts`` K ranges;
+    ``lanes_k`` threads along K (their per-thread chains are added by a
+    fixed tree)."""
+    threads: int
+    bn: int
+    kc: int
+    parts: int
+    lanes_k: int
+
+    def blocks(self, n: int, h: int) -> int:
+        """Blocks of one launch of at most 16 rows."""
+        return math.ceil(n / self.bn) * self.parts * h
+
+
+F32_MT = 16                    # rows of x a block (csrc/gemm.cu f32::kMT)
+F32_MAX_LOADS = 8              # 16-byte loads of w a thread
+F32_MAX_KC = 512               # K rows a block stages (16 x 512 fp32 of x)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(n: int, k: int, h: int = 1, layout: int = HEAD_MAJOR,
+             w_bf16: bool = False) -> F32Plan:
+    """The fp32 kernel's tiles for the per-head product W_h [K, N] (h
+    heads, ``layout`` as ``gemm_heads``; the fused GEMM is HEAD_MAJOR with
+    h = 1): the fewest K ranges that still give >= 128 blocks (>= 32 at N
+    <= 64, where the columns alone give a handful), then the widest column
+    tile, so that enough of the card streams one decode product. Each
+    thread loads 16 bytes of w up to 8 times, contiguous along N, or along
+    K for LHD_TRANSPOSED (w read transposed)."""
+    e = 8 if w_bf16 else 4                   # elements of 16 bytes of w
+    target = 32 if n <= 64 else 128
+    cands = []
+    for threads in (256, 128):
+        if layout == LHD_TRANSPOSED:
+            kvt = min(32, 1 << max(0, math.ceil(k / e) - 1).bit_length())
+            nt = threads // kvt
+            for npt in (1, 2, 4, 8):
+                if npt > 1 and nt * npt > n:
+                    break
+                cands.append(F32Plan(threads, nt * npt, kvt * e,
+                                     math.ceil(k / (kvt * e)), kvt))
+            continue
+        lo = 32 // (4 if e == 4 else 2)      # at least 32 bytes of a row
+        for bn in (8, 16, 32, 64, 128):
+            if bn < lo or (bn > lo and bn > math.ceil(n / e) * e):
+                continue
+            kt = threads // (bn // e)
+            for kpt in range(1, F32_MAX_LOADS + 1):
+                kc = kt * kpt
+                if kc > F32_MAX_KC:
+                    break
+                cands.append(F32Plan(threads, bn, kc, math.ceil(k / kc), kt))
+
+    def key(p: F32Plan):
+        b = p.blocks(n, h)
+        return (b < target, p.parts if b >= target else -b, -p.bn,
+                -p.threads, p.kc)
+    return min(cands, key=key)
 
 
 def _lib() -> ctypes.CDLL:
     lib = library("gemm")
-    if lib.gemm_launch.argtypes is None:
+    if lib.gemm_bf16_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.gemm_launch.restype = i
-        lib.gemm_wq_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        lib.gemm_wq_launch.restype = i
-        lib.gemm_heads_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.gemm_bf16_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.gemm_bf16_launch.restype = i
+        lib.gemm_heads_launch.argtypes = [p] * 6 + [i] * 12 + [p]
         lib.gemm_heads_launch.restype = i
     return lib
+
+
+# (device, stream) -> (fp32 partials, uint32 arrival counters): the split
+# fp32 kernel's scratch, kept across calls and grown as needed. Launches
+# on one stream run in order, so one buffer serves them all; the counters
+# are zero between launches (the kernel re-arms them).
+_SCRATCH: dict = {}
+
+
+def _scratch(x: torch.Tensor, stream: int, parts: int, counters: int):
+    key = (x.device, stream)
+    part, arrived = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < parts:
+        part = torch.empty(1 << (parts - 1).bit_length(),
+                           dtype=torch.float32, device=x.device)
+    if arrived is None or arrived.numel() < counters:
+        arrived = torch.zeros(1 << (counters - 1).bit_length(),
+                              dtype=torch.int32, device=x.device)
+    _SCRATCH[key] = part, arrived
+    return part.data_ptr(), arrived.data_ptr()
+
+
+def _launch_f32(lib, x, w, bias_ptr, out, m, h, l_, d, layout, act) -> int:
+    """One launch of the fp32 kernel (``gemm_heads_launch``): its plan, and
+    where K is split, the scratch of the K ranges' partial sums and the
+    counters of the blocks that have arrived at each output tile."""
+    k, n = (d, l_) if layout == LHD_TRANSPOSED else (l_, d)
+    plan = f32_plan(n, k, h, layout, w.dtype == torch.bfloat16)
+    stream = stream_ptr(x)
+    part = arrived = None
+    if plan.parts > 1:
+        tiles = math.ceil(m / F32_MT) * math.ceil(n / plan.bn)
+        part, arrived = _scratch(x, stream, plan.parts * h * m * n,
+                                 h * tiles)
+    return lib.gemm_heads_launch(
+        x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), part, arrived,
+        m, h, l_, d, layout, dtype_code("gemm_heads", w), act, *plan, stream)
 
 
 def _bias(name: str, x: torch.Tensor, bias: Optional[torch.Tensor], n: int):
@@ -78,15 +207,17 @@ def gemm(x: torch.Tensor, w: Union[torch.Tensor, WeightQ],
     b = _bias("gemm", x, bias, n)
     bp = None if b is None else b.data_ptr()
     lib = _lib()
-    if wq:
-        rc = lib.gemm_wq_launch(x.data_ptr(), mat.data_ptr(),
-                                w.scale.data_ptr(), bp, out.data_ptr(), m, n,
-                                k, ACT_CODE[activation], stream_ptr(x))
-        gemm.instances["gemm_wq"] += 1
+    if code == 0:                            # fp32: gemm_heads' kernel, H = 1
+        rc = _launch_f32(lib, x, mat, bp, out, m, 1, k, n, HEAD_MAJOR,
+                         ACT_CODE[activation])
     else:
-        rc = lib.gemm_launch(x.data_ptr(), mat.data_ptr(), bp,
-                             out.data_ptr(), m, n, k, code,
-                             ACT_CODE[activation], stream_ptr(x))
+        rc = lib.gemm_bf16_launch(x.data_ptr(), mat.data_ptr(),
+                                  w.scale.data_ptr() if wq else None, bp,
+                                  out.data_ptr(), m, n, k,
+                                  ACT_CODE[activation],
+                                  *gemm_plan(n, k, wq), stream_ptr(x))
+        if wq:
+            gemm.instances["gemm_wq"] += 1
     gemm.launches += 1
     check(lib, rc, "gemm")
     return out
@@ -158,7 +289,7 @@ def gemm_heads(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False,
     require_cuda("gemm_heads", x, w)
     if x.dtype != torch.float32:
         raise TypeError(f"gemm_heads: x must be float32, got {x.dtype}")
-    wcode = dtype_code("gemm_heads", w)
+    dtype_code("gemm_heads", w)
     m, h, k = x.shape
     if head_major:
         hw, l_, d = w.shape
@@ -175,9 +306,8 @@ def gemm_heads(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False,
     if out.numel() == 0:
         return out
     lib = _lib()
-    layout = 2 if head_major else int(transpose_w)   # csrc/gemm.cu HeadLayout
-    rc = lib.gemm_heads_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
-                               h, l_, d, layout, wcode, stream_ptr(x))
+    layout = HEAD_MAJOR if head_major else int(transpose_w)
+    rc = _launch_f32(lib, x, w, None, out, m, h, l_, d, layout, 0)
     gemm_heads.launches += 1
     check(lib, rc, "gemm_heads")
     return out
