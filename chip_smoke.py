@@ -88,9 +88,10 @@ serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
 == plain for none / relu, the int8-weight ``gemm`` bitwise == the bf16
 kernel on the dequantized weight), and asserts, bitwise, that row b of a
 B = 4 launch of moe_decode (at h = 1408 and 14336), precise attn_decode,
-gemm_heads (both layouts), ssm_decode, mlstm_decode, gemm_int8 and the
-int8-weight gemm equals its B = 1 launch, that row i of an M = 4, 16,
-20 and 128 launch of the bf16, int8-weight and fp32 gemm and of
+GQA attn_decode and attn_decode_paged (at yi-9b's group of 8 and
+jamba's of 4), gemm_heads (both layouts), ssm_decode, mlstm_decode,
+gemm_int8 and the int8-weight gemm equals its B = 1 launch, that row i
+of an M = 4, 16, 20 and 128 launch of the bf16, int8-weight and fp32 gemm and of
 gemm_heads (all three layouts) equals its M = 1 launch (ptxas's
 registers, shared memory and spills of each gemm.cu instance printed
 beside), and that a selective scan of
@@ -103,7 +104,9 @@ attention at K1 = 2 and 4; and the precise (MLA) paged
 decode kernel against its plain version, bitwise against the contiguous
 precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
-cache_pos kept out. Each serve run resets every launch counter just
+cache_pos kept out. Each decode-attention kernel's time line names its
+block plan (``decode_plan`` / ``mla_plan``, read from the card's
+library). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
 line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each model
 also has one decode chunk timed and traced per engine (``decode step``
@@ -221,10 +224,11 @@ def check_kernels(torch, timer):
     records = {}
 
     def compare(name, shape, kernel, plain, library, nbytes, flops, dtype,
-                rtol, atol, representative=False):
+                rtol, atol, representative=False, plan=None):
         """Kernel against plain on the same inputs. A kernel returning a
         tuple is compared output by output, ``rtol`` / ``atol`` then
-        tuples of per-output tolerances; ``max_abs_err`` is the largest."""
+        tuples of per-output tolerances; ``max_abs_err`` is the largest.
+        ``plan`` (the kernel's block plan) is printed beside its times."""
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
@@ -244,7 +248,8 @@ def check_kernels(torch, timer):
               f"{each} (tol {tol}) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms="
               f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"bound_ms={b_ms:.4f} ({b_by})"
+              f"{'' if plan is None else f'; plan {plan}'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {shape}: kernel disagrees with "
                                  f"its plain version (max abs err {errs})")
@@ -323,7 +328,7 @@ def check_kernels(torch, timer):
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
             2 * q.numel() + 2 * 2 * 4 * 128 * n_valid + 4 * b * 32 * 128 + 4 * b,
             4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2,
-            representative=True)
+            representative=True, plan=ad.decode_plan(b, 32, 4))
 
     check_paged_and_verify(torch, compare, randn, gen)
     check_mla_moe(torch, compare, randn, gen)
@@ -616,7 +621,7 @@ def check_paged_and_verify(torch, compare, randn, gen):
             lambda: paged_attention_ref(q, kp, vp, table, cp), None,
             2 * q.numel() + 2 * 2 * hkv * d * n_valid + 4 * b * hq * d
             + 4 * b + tbl, 4 * hq * d * n_valid, "bfloat16", 1e-2, 1e-2,
-            representative=True)
+            representative=True, plan=ad.decode_plan(b, hq, hkv))
     # verify at K1 = 2 and 4 query tokens (spec k = 1, 3; K1 = 4 is the
     # representative row)
     qvs = {kk: randn(b, hq, kk, d) for kk in (2, k1)}
@@ -633,14 +638,15 @@ def check_paged_and_verify(torch, compare, randn, gen):
                     qv, kc, vc, attn_mask=m, enable_gqa=True),
                 2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
                 + 4 * b, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
-                representative=kk == k1)
+                representative=kk == k1, plan=ad.decode_plan(b, hq, hkv, kk))
         compare("verify_decode_paged",
                 f"q[4,32,{kk},128] pools[25,4,16,128] ragged",
                 lambda qv=qv: vd.verify_decode_paged(qv, kp, vp, table, cp),
                 lambda qv=qv: verify_decode_paged_ref(qv, kp, vp, table, cp),
                 None, 2 * qv.numel() + 2 * 2 * hkv * d * n_read
                 + 4 * qv.numel() + 4 * b + tbl, 4 * hq * d * pairs,
-                "bfloat16", 1e-2, 1e-2, representative=kk == k1)
+                "bfloat16", 1e-2, 1e-2, representative=kk == k1,
+                plan=ad.decode_plan(b, hq, hkv, kk))
     print("library: none for attn_decode_paged and verify_decode_paged "
           "(no single PyTorch call reads KV through a page table)",
           flush=True)
@@ -650,6 +656,7 @@ def check_paged_and_verify(torch, compare, randn, gen):
     qv = qvs[k1]
     one = pa.attn_decode_paged(q, kp, vp, table, cp)
     assert torch.equal(one, ad.attn_decode(q, kc, vc, cp)), "(a) paged"
+    check_gqa_rows(torch, q, kc, vc, kp, vp, table, cp)
     ver = vd.verify_decode(qv, kc, vc, cp)
     verp = vd.verify_decode_paged(qv, kp, vp, table, cp)
     for i in range(k1):
@@ -669,10 +676,29 @@ def check_paged_and_verify(torch, compare, randn, gen):
     assert torch.equal(row0, pa.attn_decode_paged(
         qv[:, :, 0].contiguous(), kp, vp, table, cp)), "masked NaN leaked"
     torch.cuda.synchronize()
-    print("bitwise: attn_decode_paged == attn_decode; verify_decode row i "
-          "== attn_decode at cache_pos + i; verify_decode_paged row i == "
-          "attn_decode_paged at cache_pos + i (i < 4); NaN past a row's "
-          "window leaves it unchanged", flush=True)
+    print("bitwise: attn_decode_paged == attn_decode; rows of a B = 4 "
+          "launch of each == their B = 1 launches (group of 8); "
+          "verify_decode row i == attn_decode at cache_pos + i; "
+          "verify_decode_paged row i == attn_decode_paged at cache_pos + i "
+          "(i < 4); NaN past a row's window leaves it unchanged", flush=True)
+
+
+def check_gqa_rows(torch, q, kc, vc, kp, vp, table, cp):
+    """Row b of a B = 4 launch of attn_decode (contiguous KV kc / vc) and of
+    attn_decode_paged (pools kp / vp behind ``table``) == its B = 1 launch,
+    bitwise: the kernel's plan splits a sequence's query rows over blocks,
+    and a row's result must not depend on the batch."""
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    full = ad.attn_decode(q, kc, vc, cp)
+    full_paged = pa.attn_decode_paged(q, kp, vp, table, cp)
+    for i in range(q.shape[0]):
+        one = slice(i, i + 1)
+        assert torch.equal(full[one], ad.attn_decode(
+            q[one], kc[one], vc[one], cp[one])), ("attn_decode row", i)
+        assert torch.equal(full_paged[one], pa.attn_decode_paged(
+            q[one], kp, vp, table[one], cp[one])), ("attn_decode_paged row", i)
 
 
 def check_mla_moe(torch, compare, randn, gen):
@@ -782,7 +808,8 @@ def check_mla_moe(torch, compare, randn, gen):
                 qcat, kcat, latf, attn_mask=mask, scale=scale),
             4 * (qa.numel() + q2.numel()) + 2 * (r + rd) * n_valid
             + 4 * b * h * r + 4 * b, 2 * h * (2 * r + rd) * n_valid,
-            "float32", 1e-4, 1e-4, representative=True)
+            "float32", 1e-4, 1e-4, representative=True,
+            plan=ad.mla_plan(b, h, lat.dtype))
 
     # dropless MoE decode at B = 4 live slots, top-6 of 64 experts (the
     # serve path's usual step): routing from random router probabilities;
@@ -910,7 +937,7 @@ def check_paged_mla(torch, compare, randn, gen):
             4 * (qa.numel() + q2.numel()) + 2 * (r + rd) * n_valid
             + 4 * b * h * r + 4 * b + 4 * n_pages,
             2 * h * (2 * r + rd) * n_valid, "float32", 1e-4, 1e-4,
-            representative=True)
+            representative=True, plan=ad.mla_plan(b, h, lat.dtype))
     print("library: none for attn_decode_paged_mla (no single PyTorch call "
           "reads a latent through a page table)", flush=True)
 
@@ -1008,7 +1035,21 @@ def check_jamba(torch, compare, randn, gen):
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
             2 * q.numel() + 2 * 2 * 8 * 128 * n_valid + 4 * b * 32 * 128
-            + 4 * b, 4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2)
+            + 4 * b, 4 * 32 * 128 * n_valid, "bfloat16", 1e-2, 1e-2,
+            plan=ad.decode_plan(b, 32, 8))
+    # rows independent of the batch at group 4, contiguous and paged (the
+    # same KV as pools of 16 behind a shuffled page table)
+    ps = 16
+    perm = torch.randperm(b * s // ps, generator=gen, device="cuda")
+    table = perm.view(b, s // ps).to(torch.int32)
+
+    def pool(c):
+        out = torch.empty(b * s // ps, 8, ps, 128, dtype=c.dtype,
+                          device="cuda")
+        out[perm] = c.view(b, 8, s // ps, ps, 128).transpose(1, 2).reshape(
+            b * s // ps, 8, ps, 128)
+        return out
+    check_gqa_rows(torch, q, kc, vc, pool(kc), pool(vc), table, cp)
 
     # selective scan: inputs at the mixer's scales (u the conv + silu
     # output, dt = softplus in [1e-3, 0.1], A the S4D-real -(1..16), B and
@@ -1094,9 +1135,10 @@ def check_jamba(torch, compare, randn, gen):
     del wg, wu, wd
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print("bitwise: ssm_decode and moe_decode (h = 14336) rows of a B = 4 "
-          "launch == their B = 1 launches; ssm_scan of 57 then 63 tokens "
-          "with the state carried == the scan of 120", flush=True)
+    print("bitwise: ssm_decode, moe_decode (h = 14336), attn_decode and "
+          "attn_decode_paged (group of 4) rows of a B = 4 launch == their "
+          "B = 1 launches; ssm_scan of 57 then 63 tokens with the state "
+          "carried == the scan of 120", flush=True)
 
 
 def check_xlstm(torch, compare, randn, gen):
@@ -1397,6 +1439,11 @@ def profile_decode(torch, name, engine, params, prompts):
                if any(s in k for s in ("bf::gemm_bf16_kernel<",
                                        "f32::gemm_f32_kernel<",
                                        "gemm_int8_kernel")))
+    # the decode-attention kernels' share: csrc/decode_tile.cuh's (GQA,
+    # contiguous or paged) and csrc/mla_tile.cuh's (precise)
+    attn = sum(v for k, v in per.items()
+               if any(s in k for s in ("decode::gqa_decode_kernel<",
+                                       "mla::mla_decode_kernel<")))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     # the host's side of the traced step: self time and calls a step of
     # the costliest host ops (profiled, so larger than untraced)
@@ -1404,7 +1451,8 @@ def profile_decode(torch, name, engine, params, prompts):
                     e.count / engine.chunk) for e in prof.key_averages()
                    if e.device_type.name == "CPU"), key=lambda r: -r[1])[:6]
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
-            f"untraced step, GEMM kernels {gemm:.3f} ms" if dev > 0 else
+            f"untraced step, GEMM kernels {gemm:.3f} ms, decode attention "
+            f"{attn:.3f} ms" if dev > 0 else
             "device time not measured (the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
           f"{engine.capacity} live slots, {engine.chunk} steps); {busy}; "

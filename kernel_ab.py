@@ -18,16 +18,18 @@ point (the same signature); this checkout's kernel runs through its
 wrapper. The GEMM modes call each checkout's own wrapper instead, so they
 hold whatever C signature either side has.
 
-``attn_decode``: at each shape (bf16, the serving path's GQA widths) both
-must give the same bits, and this checkout's ``attn_decode_paged`` on the
-same KV behind a shuffled page table must too. Then baseline, change,
-paged, paged, change, baseline are timed.
+``attn_decode``: at each shape (bf16, the serving path's GQA widths:
+yi-9b's 32 / 4 heads and jamba's 32 / 8) this checkout's
+``attn_decode`` and ``attn_decode_paged`` (the same KV behind a shuffled
+page table) must give the baseline's contiguous kernel's bits, and the
+baseline's paged kernel must too: the exit code says so. Then baseline,
+change, paged change, paged baseline, paged baseline, paged change,
+change, baseline are timed.
 
 ``attn_decode_mla`` (the precise, MLA mode of decode attention): at
 deepseek-v2-lite-16b's widths (16 heads, latent 512 + rotary 64, fp32
-queries, bf16 latent) both must give the same bits, and this checkout's
-precise ``attn_decode_paged`` on the same latent behind a shuffled page
-table must too. Timed as ``attn_decode``.
+queries, bf16 latent) the same bit equalities, through the precise
+kernels, timed as ``attn_decode``.
 
 ``verify_decode``: at yi-9b's speculative-decoding shapes (bf16, 32 / 4
 heads, K1 = 2 and 4 query tokens; the caches of ``attn_decode``, 160 and
@@ -89,6 +91,13 @@ SHAPES = ((4, 160, (19, 75, 130, 159)),
           (4, 160, (0, 1, 63, 64)),
           (4, 2048, (100, 1000, 1500, 2047)))
 HQ, HKV, D, PS = 32, 4, 128, 16
+# GQA head layouts of attn_decode: yi-9b's (Hq, Hkv), then jamba's
+HEADS = ((HQ, HKV), (32, 8))
+
+
+# the paged kernel of the baseline held beside its contiguous one
+PAGED_SOURCE = {"attn_decode": "paged_attention",
+                "attn_decode_mla": "paged_attention_mla"}
 
 
 def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
@@ -104,6 +113,14 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
         lib.attn_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                            ctypes.c_float, i, p]
         lib.attn_decode_launch.restype = i
+    elif kernel == "paged_attention":
+        lib.paged_attention_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.paged_attention_launch.restype = i
+    elif kernel == "paged_attention_mla":
+        lib.paged_attention_mla_launch.argtypes = [p] * 7 + [
+            i, i, i, i, ctypes.c_float, i, p]
+        lib.paged_attention_mla_launch.restype = i
     elif kernel == "verify_decode":
         lib.verify_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                              ctypes.c_float, i, p]
@@ -154,13 +171,18 @@ def main() -> int:
         source = {"attention": "flash_attention"}.get(args.kernel,
                                                       args.kernel)
         base = build_baseline(args.baseline.resolve(), source)
+        if args.kernel in PAGED_SOURCE:      # the baseline's paged kernel
+            base = (base, build_baseline(args.baseline.resolve(),
+                                         PAGED_SOURCE[args.kernel]))
         ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
               "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
               "attention": ab_attention}[args.kernel]
         rows = ab(torch, base, Timer(torch))
     print(card_line())
-    # the bf16 and int8-weight GEMM keep one K order (k16 steps from 0),
-    # so their bits must equal the baseline's
+    # the decode kernels keep each row's arithmetic ("bitwise": the
+    # baseline's bits, contiguous and paged), and the bf16 and int8-weight
+    # GEMM keep one K order (k16 steps from 0): their bits must equal the
+    # baseline's
     ok = all((r["bitwise"] if "bitwise" in r else r["within_tol"])
              and (not r.get("bits_required") or r["bits_equal"])
              for r in rows)
@@ -170,49 +192,76 @@ def main() -> int:
 
 def ab_attn_decode(torch, base, timer):
     from repro_torch.kernels._build import stream_ptr
-    from repro_torch.kernels.attn_decode.ops import attn_decode
+    from repro_torch.kernels.attn_decode.ops import attn_decode, decode_plan
     from repro_torch.kernels.paged_attention.ops import attn_decode_paged
 
+    base, base_paged = base
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for b, s, cps in SHAPES:
-        def randn(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda"
-                               ).to(torch.bfloat16)
-        q, k, v = randn(b, HQ, D), randn(b, HKV, s, D), randn(b, HKV, s, D)
-        cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+    for hq, hkv in HEADS:
+        for b, s, cps in SHAPES:
+            def randn(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda"
+                                   ).to(torch.bfloat16)
+            q, k, v = randn(b, hq, D), randn(b, hkv, s, D), \
+                randn(b, hkv, s, D)
+            cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+            # the same KV as pools behind a shuffled page table
+            table, kp, vp = shuffled_pages(torch, gen, k, v)
 
-        def run_base(q=q, k=k, v=v, cp=cp, b=b, s=s):
-            out = torch.empty(b, HQ, D, dtype=torch.float32, device="cuda")
-            rc = base.attn_decode_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), cp.data_ptr(),
-                out.data_ptr(), b, HQ, HKV, s, D ** -0.5, 1, stream_ptr(q))
-            assert rc == 0, rc
-            return out
+            def run_base(q=q, k=k, v=v, cp=cp, b=b, s=s, hq=hq, hkv=hkv):
+                out = torch.empty(b, hq, D, dtype=torch.float32,
+                                  device="cuda")
+                rc = base.attn_decode_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), cp.data_ptr(),
+                    out.data_ptr(), b, hq, hkv, s, D ** -0.5, 1,
+                    stream_ptr(q))
+                assert rc == 0, rc
+                return out
 
-        def run_new(q=q, k=k, v=v, cp=cp):
-            return attn_decode(q, k, v, cp)
+            def run_base_paged(q=q, kp=kp, vp=vp, table=table, cp=cp, b=b,
+                               hq=hq, hkv=hkv):
+                out = torch.empty(b, hq, D, dtype=torch.float32,
+                                  device="cuda")
+                rc = base_paged.paged_attention_launch(
+                    q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    table.data_ptr(), cp.data_ptr(), out.data_ptr(), b, hq,
+                    hkv, PS, table.shape[1], D ** -0.5, 1, stream_ptr(q))
+                assert rc == 0, rc
+                return out
 
-        # the same KV as pools behind a shuffled page table
-        table, kp, vp = shuffled_pages(torch, gen, k, v)
+            def run_new(q=q, k=k, v=v, cp=cp):
+                return attn_decode(q, k, v, cp)
 
-        def run_paged(q=q, kp=kp, vp=vp, table=table, cp=cp):
-            return attn_decode_paged(q, kp, vp, table, cp)
+            def run_paged(q=q, kp=kp, vp=vp, table=table, cp=cp):
+                return attn_decode_paged(q, kp, vp, table, cp)
 
-        want = run_base()
-        same = torch.equal(run_new(), want)
-        same_paged = torch.equal(run_paged(), want)
-        torch.cuda.synchronize()
-        t = [timer(fn, iters=20) for fn in (run_base, run_new, run_paged,
-                                            run_paged, run_new, run_base)]
-        row = dict(shape=f"q[{b},{HQ},{D}] kv[{b},{HKV},{s},{D}] "
-                   f"cache_pos {list(cps)}", bitwise=same and same_paged,
-                   bitwise_contiguous=same, bitwise_paged=same_paged,
-                   baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
-                   paged_ms=[t[2], t[3]])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+            rows.append(bits_and_times(
+                torch, timer, f"q[{b},{hq},{D}] kv[{b},{hkv},{s},{D}] "
+                f"cache_pos {list(cps)}; {decode_plan(b, hq, hkv)}",
+                run_base, run_new, run_paged, run_base_paged))
     return rows
+
+
+def bits_and_times(torch, timer, shape, run_base, run_new, run_paged,
+                   run_base_paged):
+    """One row of a decode A/B: this checkout's contiguous and paged
+    kernels and the baseline's paged kernel against the baseline's
+    contiguous kernel, bit for bit; then each timed in turns."""
+    want = run_base()
+    same = torch.equal(run_new(), want)
+    same_paged = torch.equal(run_paged(), want)
+    same_base_paged = torch.equal(run_base_paged(), want)
+    torch.cuda.synchronize()
+    t = [timer(fn, iters=20) for fn in (
+        run_base, run_new, run_paged, run_base_paged, run_base_paged,
+        run_paged, run_new, run_base)]
+    row = dict(shape=shape, bitwise=same and same_paged and same_base_paged,
+               bitwise_contiguous=same, bitwise_paged=same_paged,
+               baseline_ms=[t[0], t[7]], change_ms=[t[1], t[6]],
+               paged_baseline_ms=[t[3], t[4]], paged_ms=[t[2], t[5]])
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def shuffled_pages(torch, gen, *caches):
@@ -235,6 +284,7 @@ def shuffled_pages(torch, gen, *caches):
 
 def ab_verify(torch, base, timer):
     from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.attn_decode.ops import decode_plan
     from repro_torch.kernels.verify_decode.ops import (verify_decode,
                                                        verify_decode_paged)
 
@@ -281,23 +331,10 @@ def ab_verify(torch, base, timer):
             def run_paged(q=q, kp=kp, vp=vp, table=table, cp=cp):
                 return verify_decode_paged(q, kp, vp, table, cp)
 
-            want = run_base()
-            same = torch.equal(run_new(), want)
-            same_paged = torch.equal(run_paged(), want)
-            same_base_paged = torch.equal(run_base_paged(), want)
-            torch.cuda.synchronize()
-            t = [timer(fn, iters=20) for fn in (
-                run_base, run_new, run_paged, run_base_paged, run_base_paged,
-                run_paged, run_new, run_base)]
-            row = dict(shape=f"q[{b},{HQ},{k1},{D}] kv[{b},{HKV},{s},{D}] "
-                       f"cache_pos {list(cps)}",
-                       bitwise=same and same_paged and same_base_paged,
-                       bitwise_contiguous=same, bitwise_paged=same_paged,
-                       baseline_ms=[t[0], t[7]], change_ms=[t[1], t[6]],
-                       paged_baseline_ms=[t[3], t[4]],
-                       paged_ms=[t[2], t[5]])
-            print(json.dumps(row), flush=True)
-            rows.append(row)
+            rows.append(bits_and_times(
+                torch, timer, f"q[{b},{HQ},{k1},{D}] kv[{b},{HKV},{s},{D}] "
+                f"cache_pos {list(cps)}; {decode_plan(b, HQ, HKV, k1)}",
+                run_base, run_new, run_paged, run_base_paged))
     return rows
 
 
@@ -528,9 +565,10 @@ def ab_gemm(torch, baseline: Path, kernel: str):
 
 def ab_mla(torch, base, timer):
     from repro_torch.kernels._build import stream_ptr
-    from repro_torch.kernels.attn_decode.ops import attn_decode
+    from repro_torch.kernels.attn_decode.ops import attn_decode, mla_plan
     from repro_torch.kernels.paged_attention.ops import attn_decode_paged
 
+    base, base_paged = base
     gen = torch.Generator(device="cuda").manual_seed(7)
     h, r, rd = 16, 512, 64
     scale = (128 + rd) ** -0.5
@@ -543,6 +581,8 @@ def ab_mla(torch, base, timer):
         q2 = randn(b, h, rd, dtype=torch.float32)
         lat, kr = randn(b, 1, s, r), randn(b, 1, s, rd)
         cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
+        # the same latent as pools behind a shuffled page table
+        table, cpool, kpool = shuffled_pages(torch, gen, lat, kr)
 
         def run_base(q=q, q2=q2, lat=lat, kr=kr, cp=cp, b=b, s=s):
             out = torch.empty(b, h, r, dtype=torch.float32, device="cuda")
@@ -553,31 +593,30 @@ def ab_mla(torch, base, timer):
             assert rc == 0, rc
             return out
 
+        def run_base_paged(q=q, q2=q2, cpool=cpool, kpool=kpool,
+                           table=table, cp=cp, b=b):
+            out = torch.empty(b, h, r, dtype=torch.float32, device="cuda")
+            rc = base_paged.paged_attention_mla_launch(
+                q.data_ptr(), q2.data_ptr(), cpool.data_ptr(),
+                kpool.data_ptr(), table.data_ptr(), cp.data_ptr(),
+                out.data_ptr(), b, h, PS, table.shape[1], scale, 1,
+                stream_ptr(q))
+            assert rc == 0, rc
+            return out
+
         def run_new(q=q, q2=q2, lat=lat, kr=kr, cp=cp):
             return attn_decode(q, lat, lat, cp, scale=scale, q2=q2, k2=kr,
                                precise=True)
-
-        # the same latent as pools behind a shuffled page table
-        table, cpool, kpool = shuffled_pages(torch, gen, lat, kr)
 
         def run_paged(q=q, q2=q2, cpool=cpool, kpool=kpool, table=table,
                       cp=cp):
             return attn_decode_paged(q, cpool, cpool, table, cp, scale=scale,
                                      q2=q2, k2_pages=kpool, precise=True)
 
-        want = run_base()
-        same = torch.equal(run_new(), want)
-        same_paged = torch.equal(run_paged(), want)
-        torch.cuda.synchronize()
-        t = [timer(fn, iters=20) for fn in (run_base, run_new, run_paged,
-                                            run_paged, run_new, run_base)]
-        row = dict(shape=f"q[{b},{h},{r}]+[{b},{h},{rd}] latent[{b},1,{s},"
-                   f"{r}] cache_pos {list(cps)}", bitwise=same and same_paged,
-                   bitwise_contiguous=same, bitwise_paged=same_paged,
-                   baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
-                   paged_ms=[t[2], t[3]])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        rows.append(bits_and_times(
+            torch, timer, f"q[{b},{h},{r}]+[{b},{h},{rd}] latent[{b},1,{s},"
+            f"{r}] cache_pos {list(cps)}; {mla_plan(b, h, torch.bfloat16)}",
+            run_base, run_new, run_paged, run_base_paged))
     return rows
 
 

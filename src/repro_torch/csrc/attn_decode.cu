@@ -9,21 +9,23 @@
 // the query is pre-scaled and rounded to the cache dtype, scores and the
 // weighted sum of V accumulate in fp32, the output is fp32.
 //
-// Bound on the H100: bytes. Each valid K and V row is read once and used
-// for a handful of flops per byte. Design: one block per (sequence, KV
-// head) serves all g = Hq / Hkv query heads of the group, so each K/V row
-// is read from device memory once for the whole group, the bandwidth
-// point of GQA. The block walks the cache in tiles of 64 positions up to
-// cache_pos[b] only (the Pallas kernel streams the whole cache and masks),
-// with an fp32 online softmax: the tile loop of decode_tile.cuh, which the
-// paged and verify kernels share. A sequence's result never depends on the
-// other sequences of the batch.
+// Bound on the H100: bytes in principle (each valid K and V row is read
+// once and used for a handful of flops per byte), latency at serving
+// shapes: a cache of a few hundred positions is a few tiles a sequence.
+// Design: decode_tile.cuh's gqa_decode_kernel at K1 = 1, the kernel the
+// paged and verify kernels run too. Each block serves RB query rows of one
+// (sequence, KV head) and walks the cache in tiles of 64 positions up to
+// cache_pos[b] only (the Pallas kernel streams the whole cache and
+// masks), staged by cp.async, double-buffered, with an fp32 online
+// softmax; RB is the largest that still gives ~128 blocks (1 at yi-9b's
+// and jamba's B = 4), so the query rows of a group spread over the SMs. A
+// sequence's result never depends on the other sequences of the batch.
 #include "decode_tile.cuh"
 
 KERNEL_API int attn_decode_launch(const void* q, const void* k, const void* v,
                                   const void* cache_pos, void* out, int B,
                                   int Hq, int Hkv, int S, float scale,
                                   int dtype, void* stream) {
-  return decode::launch<16>(q, k, v, cache_pos, out, B, Hq, 1, S, scale,
-                            dtype, decode::Contiguous{Hkv, S}, stream);
+  return decode::launch(q, k, v, cache_pos, out, B, Hq, 1, S, scale, dtype,
+                        decode::Contiguous{Hkv, S}, stream);
 }

@@ -8,12 +8,15 @@
 //   q  fp32 [B, H, 512], q2 fp32 [B, H, 64]
 //   c  [B, S, 512], kr [B, S, 64] (model dtype)
 //   out fp32 [B, H, 512]
-// The arithmetic is mla_tile.cuh's, which the paged kernel shares.
+// The arithmetic and the schedule are mla_tile.cuh's, which the paged
+// kernel shares.
 //
 // Bound on the H100: at serving lengths the latent of one sequence is a
 // few hundred KB, so the kernel is far below the card's byte and flop
-// floors; what it costs is latency (one block per sequence, see the
-// header).
+// floors; what it costs is latency, above all each position's chain of
+// 576 dependent fmafs (the header has the schedule: a block a head and
+// sequence, rounds of tiles staged by cp.async, a round's tiles scored at
+// once).
 #include "mla_tile.cuh"
 
 KERNEL_API int attn_decode_mla_launch(const void* q, const void* q2,

@@ -1,9 +1,8 @@
-// Decode attention's row arithmetic and its tile loop. attn_decode.cu and
-// paged_attention.cu run the tile loop (decode_kernel); verify_decode.cu
-// (contiguous and paged) runs its own schedule of the same rows and calls
-// the row functions below (the query's rounding, a lane's score partial
-// and its butterfly, the 64-position softmax update, the V accumulation
-// with its masked select).
+// GQA decode attention's row arithmetic and the one kernel that serves
+// it. attn_decode.cu and paged_attention.cu launch gqa_decode_kernel with
+// K1 = 1 query token a sequence; verify_decode.cu (contiguous and paged)
+// launches it with K1 = k + 1. A row-address policy (Contiguous / Paged)
+// names the K/V row of each position.
 //
 // So a query row sees the same arithmetic in the same order whichever of
 // the four kernels serves it. The serving path's bitwise token identities
@@ -12,20 +11,42 @@
 // greedy tokens (verify row i == the single-token kernel at cache_pos +
 // i).
 //
-// One block serves one (sequence b, KV head hk): R = g * K1 query rows,
-// row r = (group head r / K1, query r % K1), laid out as consecutive
-// D-vectors in q and out. Row r attends positions < n_r = min(cache_pos[b]
-// + r % K1, S - 1) + 1 of an extent of S positions. The block walks tiles
-// of 64 positions up to the largest n_r with an fp32 online softmax: each
-// warp scores a position against all R rows (one warp-wide dot product per
-// row over 4 dims a lane), one warp per row updates its running max and
-// sum, then each thread adds the V rows of the tile into its output dims.
-// A tile that lies wholly beyond a row's n_r leaves that row's (m, l, acc)
-// unchanged bit for bit (alpha = exp(0) = 1, p = 0), and a V row is never
-// multiplied in for a row that masks its position (0 * NaN is NaN), so row
-// r's result equals a one-row run at its own n_r. A position whose K/V row
-// has no storage (an unallocated page) is masked for every row: offset 0
-// is read in its place and never used.
+// Rows: a (sequence b, KV head hk) has R = g * K1 query rows, row r =
+// (group head r / K1, query r % K1), laid out as consecutive D-vectors in
+// q and out. Row r attends positions < n_r = min(cache_pos[b] + r % K1,
+// S - 1) + 1 of an extent of S positions. A row's arithmetic: the query
+// pre-scaled and rounded to the cache dtype (scaled_query); tiles of 64
+// positions from position 0, each scored 4 dims a lane and summed by the
+// 5-shuffle butterfly (lane_partial, warp_sum_n), then one fp32 online
+// softmax update by one warp (softmax_update), then the tile's V rows
+// added into each output dim in position order (accumulate_masked). A
+// tile wholly beyond a row's n_r leaves that row's (m, l, acc) unchanged
+// bit for bit (alpha = exp(0) = 1, p = 0), and a V row is never
+// multiplied in for a row that masks its position (0 * NaN is NaN), so
+// row r's result equals a one-row run at its own n_r, whatever rows share
+// its block. A position whose K/V row has no storage (an unallocated
+// page) is masked for every row and not read.
+//
+// Bound on the H100: bytes in principle (each valid K and V row read once
+// for the g * K1 rows of its group), but at serving shapes the work is a
+// few tiles a sequence, so what a block waits on is latency: the loads of
+// a tile and the butterflies of its scores. The schedule:
+//  - the R rows of a (sequence, KV head) are split into groups of RB rows,
+//    one block each: grid (Hkv, B, ceil(R / RB)), RB the largest of 8, 4,
+//    2, 1 that still gives >= kTargetBlocks blocks. Decode at yi-9b's
+//    shape (B 4, Hkv 4, g 8) and at jamba's (Hkv 8, g 4) runs RB 1, 128
+//    blocks; verify at yi-9b's K1 = 4 runs RB 4, 128 blocks;
+//  - each 64-position K/V tile is staged in shared memory (as stored) by
+//    cp.async, double-buffered, so the next tile's loads fly while a tile
+//    is scored and summed; the paged kernels read the page table a tile
+//    ahead of the copies it addresses, and a -1 page is not read (its rows
+//    are zero-filled and masked for every row);
+//  - a warp's 8 positions x RB rows of scores go through the butterfly
+//    together, their shuffles interleaved; the V sum loads 8 positions
+//    ahead of their fmafs.
+// A block walks tiles up to the largest window of its own rows. Every
+// position goes through the masked select: where a row sees the position
+// it gives fmaf's bits, the same as an unmasked fmaf.
 #pragma once
 
 #include "common.cuh"
@@ -33,7 +54,9 @@
 namespace decode {
 
 constexpr int D = 128, TILE = 64, kThreads = 256, kWarps = kThreads / 32;
+constexpr int kPosPerWarp = TILE / kWarps;  // positions a warp scores a tile
 constexpr int kVec = 8;  // V rows loaded ahead of their fmafs (divides TILE)
+constexpr int kTargetBlocks = 128;          // ~ the H100's 132 SMs
 constexpr float kNeg = -1e30f;
 
 // Element offset of the K (and V) row of position p, or -1 when the
@@ -48,11 +71,13 @@ struct Contiguous {  // k/v [B, Hkv, S, D]
 
 struct Paged {  // pools [P, Hkv, ps, D], page_table [B, NP], -1 = none
   const int* table;
-  int Hkv, ps, NP;
+  int Hkv, lg_ps, NP;  // ps = 2^lg_ps (the page size divides the tile)
   __device__ __forceinline__ long long operator()(int b, int hk,
                                                   int p) const {
-    const int page = table[(long long)b * NP + p / ps];
-    return page < 0 ? -1 : (((long long)page * Hkv + hk) * ps + p % ps) * D;
+    const int page = table[(long long)b * NP + (p >> lg_ps)];
+    return page < 0 ? -1
+                    : ((((long long)page * Hkv + hk) << lg_ps) +
+                       (p & ((1 << lg_ps) - 1))) * D;
   }
 };
 
@@ -67,11 +92,6 @@ __device__ __forceinline__ float scaled_query(T x, float scale) {
 __device__ __forceinline__ float lane_partial(const float* qh,
                                               const float (&kv)[4]) {
   return qh[0] * kv[0] + qh[1] * kv[1] + qh[2] * kv[2] + qh[3] * kv[3];
-}
-
-// A score: the lanes' partials summed by the butterfly of warp_sum.
-__device__ __forceinline__ float score(const float* qh, const float (&kv)[4]) {
-  return warp_sum(lane_partial(qh, kv));
 }
 
 // N scores at once: warp_sum's butterfly on each element, the N shuffles
@@ -105,184 +125,228 @@ __device__ __forceinline__ float softmax_update(float& m_run, float& l_run,
 }
 
 // One position's V element added into a row's accumulator (positions are
-// taken in order); the masked form drops it by a select where the row
-// does not see the position, never multiplying it in (0 * NaN is NaN).
-// Both give the same bits where both apply.
-__device__ __forceinline__ float accumulate(float acc, float p, float v) {
-  return fmaf(p, v, acc);
-}
+// taken in order), dropped by a select where the row does not see the
+// position, never multiplied in (0 * NaN is NaN).
 __device__ __forceinline__ float accumulate_masked(float acc, float p,
                                                    float v, bool ok) {
   const float a = fmaf(p, v, acc);
   return ok ? a : acc;
 }
 
-// Dynamic shared memory of a block serving R rows.
-inline size_t smem_bytes(int R) {
-  return TILE * sizeof(long long) + sizeof(float) * (size_t)R * (D + TILE + 2);
+template <typename T, int RB>
+constexpr size_t smem_bytes() {
+  return 2 * 2 * (size_t)TILE * D * sizeof(T) +      // K, V: 2 buffers
+         2 * TILE * sizeof(long long) +              // row offsets
+         sizeof(float) * ((size_t)RB * (D + TILE) + 2 * RB);
 }
 
-// MAXR bounds R = g * K1 (registers: MAXR / 2 accumulators a thread).
-template <typename T, int MAXR, typename Rows>
+// Block (hk, b, z) serves rows z * RB .. of the g * K1 rows of sequence b
+// and KV head hk.
+template <typename T, int RB, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ cache_pos,
-                  float* __restrict__ out, int Hq, int K1, int S, float scale,
-                  Rows rows) {
+    gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const int* __restrict__ cache_pos,
+                      float* __restrict__ out, int Hq, int K1, int S,
+                      float scale, Rows rows) {
+  constexpr int CH = D * sizeof(T) / 16;   // 16-byte chunks of a K/V row
+  constexpr int EPC = 16 / sizeof(T);      // elements of a chunk
+  constexpr int PPT = TILE * CH / kThreads;  // rows a thread copies a tile
+  constexpr int RSTEP = kThreads / CH;       // between a thread's rows
+  constexpr int NACC = (RB + 1) / 2;       // rows a thread accumulates
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  long long* off_s = reinterpret_cast<long long*>(smem_raw);  // [TILE]
+  T* Ks = reinterpret_cast<T*>(smem_raw);                      // [2][TILE][D]
+  T* Vs = Ks + 2 * TILE * D;                                   // [2][TILE][D]
+  long long* off_s = reinterpret_cast<long long*>(Vs + 2 * TILE * D);
+  float* Qs = reinterpret_cast<float*>(off_s + 2 * TILE);      // [RB][D]
+  float* Ps = Qs + RB * D;                                    // [RB][TILE]
+  float* alpha_s = Ps + RB * TILE;                            // [RB]
+  float* l_s = alpha_s + RB;                                  // [RB]
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.x, b = blockIdx.y, g = Hq / rows.Hkv;
-  const int R = g * K1;
-  float* Qs = reinterpret_cast<float*>(off_s + TILE);  // [R, D]
-  float* Ps = Qs + R * D;                              // [R, TILE]
-  float* alpha_s = Ps + R * TILE;                      // [R]
-  float* l_s = alpha_s + R;                            // [R]
-  const size_t row0 = ((size_t)b * Hq + (size_t)hk * g) * K1;
-  const T* qb = q + row0 * D;
+  const int r0 = blockIdx.z * RB, nr = min(RB, g * K1 - r0);
+  const size_t row0 = ((size_t)b * Hq + (size_t)hk * g) * K1 + r0;
   const int cp = cache_pos[b];
-  const int n_max = min(cp + K1 - 1, S - 1) + 1;
+  int n_max = 0;  // the largest window among this block's rows
+  for (int j = 0; j < nr; ++j)
+    n_max = max(n_max, min(cp + (r0 + j) % K1, S - 1) + 1);
+  const int n_tiles = (n_max + TILE - 1) / TILE;
 
-  for (int e = tid; e < R * D; e += kThreads)
-    Qs[e] = scaled_query(qb[e], scale);
+  const T* qb = q + row0 * D;
+  for (int e = tid; e < RB * D; e += kThreads)  // rows past nr: zeros
+    Qs[e] = e < nr * D ? scaled_query(qb[e], scale) : 0.f;
 
-  // warp w keeps the running (max, sum) of rows w, w + 8, ...
-  float m_run[MAXR / kWarps], l_run[MAXR / kWarps];
+  // Thread t copies chunk t % CH of the rows t / CH + i * RSTEP of a tile.
+  // The rows' offsets are looked up one tile before their copies are
+  // issued, so a page-table read is never waited on before a copy.
+  const int p0 = tid / CH, e0 = (tid % CH) * EPC;
+  auto tile_rows = [&](int it, long long (&off)[PPT]) {
 #pragma unroll
-  for (int j = 0; j < MAXR / kWarps; ++j) {
-    m_run[j] = kNeg;
-    l_run[j] = 0.f;
-  }
-  // thread t accumulates dim d = t % 128 of rows t / 128 + 2 j
+    for (int i = 0; i < PPT; ++i) {
+      const int p = it * TILE + p0 + i * RSTEP;
+      off[i] = it < n_tiles && p < n_max ? rows(b, hk, p) : -1;
+    }
+  };
+  // issue the copies of tile it (offsets `off`) into buffer it % 2, and
+  // commit them as one group (empty past the last tile)
+  auto load_tile = [&](int it, const long long (&off)[PPT]) {
+    if (it < n_tiles) {
+      const int slot = it & 1;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const int p = p0 + i * RSTEP;
+        if (e0 == 0) off_s[slot * TILE + p] = off[i];
+        const long long src = (off[i] < 0 ? 0 : off[i]) + e0;
+        const int dst = (slot * TILE + p) * D + e0;
+        cp_async16(Ks + dst, k + src, off[i] >= 0);
+        cp_async16(Vs + dst, v + src, off[i] >= 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m_run = kNeg, l_run = 0.f;  // row `warp`'s, if warp < nr
   const int d = tid & (D - 1), hb = tid >> 7;
-  float acc[MAXR / 2];
-  int lim[MAXR / 2];  // n of each of those rows
-  int lim_min = S;    // the least of them
+  float acc[NACC];
+  int lim[NACC];
 #pragma unroll
-  for (int j = 0; j < MAXR / 2; ++j) {
+  for (int j = 0; j < NACC; ++j) {
     acc[j] = 0.f;
-    lim[j] = min(cp + (hb + 2 * j) % K1, S - 1) + 1;
-    if (hb + 2 * j < R) lim_min = min(lim_min, lim[j]);
+    lim[j] = min(cp + (r0 + hb + 2 * j) % K1, S - 1) + 1;
   }
-  __syncthreads();
 
-  for (int t0 = 0; t0 < n_max; t0 += TILE) {
-    const int nt = min(TILE, n_max - t0);
-    // (-1 past the tile's end too: the V loop reads all TILE entries
-    // unconditionally, which lets it issue a group's loads together)
-    if (tid < TILE) off_s[tid] = tid < nt ? rows(b, hk, t0 + tid) : -1;
+  long long nxt[PPT];  // the offsets of the next tile to issue
+  tile_rows(0, nxt);
+  load_tile(0, nxt);
+  tile_rows(1, nxt);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int slot = it & 1, t0 = it * TILE, nt = min(TILE, n_max - t0);
+    load_tile(it + 1, nxt);
+    tile_rows(it + 2, nxt);
+    cp_async_wait<1>();  // tile it has landed
     __syncthreads();
-    // scores: warp w takes positions w, w + 8, ... of the tile (a
-    // position without storage is scored against offset 0, masked below)
-    for (int pi = warp; pi < nt; pi += kWarps) {
-      const long long off = off_s[pi];
-      const T* kr = k + (off < 0 ? 0 : off) + lane * 4;
+    const T* Kt = Ks + slot * TILE * D;
+    const T* Vt = Vs + slot * TILE * D;
+    const long long* ot = off_s + slot * TILE;
+
+    // scores: warp w takes positions w, w + 8, ... of the tile against
+    // every row of the block (a position without storage or past the
+    // tile's end scores zeros, masked below)
+    float part[kPosPerWarp * RB];
+#pragma unroll
+    for (int u = 0; u < kPosPerWarp; ++u) {
+      const T* kr = Kt + (warp + kWarps * u) * D + lane * 4;
       float kv[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) kv[e] = to_f32(kr[e]);
-      for (int r = 0; r < R; ++r) {
-        const float part = score(Qs + r * D + lane * 4, kv);
-        if (lane == 0) Ps[r * TILE + pi] = part;
-      }
+#pragma unroll
+      for (int j = 0; j < RB; ++j)
+        part[u * RB + j] = lane_partial(Qs + j * D + lane * 4, kv);
+    }
+    warp_sum_n(part);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < kPosPerWarp; ++u)
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+          if (j < nr) Ps[j * TILE + warp + kWarps * u] = part[u * RB + j];
     }
     __syncthreads();
-    // online softmax update: one warp per row (hi unrolled, so the
-    // running max and sum stay in registers)
-#pragma unroll
-    for (int hi = 0; hi < MAXR / kWarps; ++hi) {
-      const int r = warp + hi * kWarps;
-      if (r >= R) break;
-      const int nr = min(cp + r % K1, S - 1) + 1 - t0;  // row's valid count
-      const bool ok0 = lane < nr && off_s[lane] >= 0;
-      const bool ok1 = lane + 32 < nr && off_s[lane + 32] >= 0;
+    // online softmax update: warp j updates row j
+    if (warp < nr) {
+      const int nrow = min(cp + (r0 + warp) % K1, S - 1) + 1 - t0;
+      const bool ok0 = lane < nrow && ot[lane] >= 0;
+      const bool ok1 = lane + 32 < nrow && ot[lane + 32] >= 0;
       float p0, p1;
-      const float alpha =
-          softmax_update(m_run[hi], l_run[hi], Ps[r * TILE + lane],
-                         Ps[r * TILE + lane + 32], ok0, ok1, p0, p1);
-      Ps[r * TILE + lane] = p0;
-      Ps[r * TILE + lane + 32] = p1;
-      if (lane == 0) alpha_s[r] = alpha;
+      const float alpha = softmax_update(m_run, l_run, Ps[warp * TILE + lane],
+                                         Ps[warp * TILE + lane + 32], ok0,
+                                         ok1, p0, p1);
+      Ps[warp * TILE + lane] = p0;
+      Ps[warp * TILE + lane + 32] = p1;
+      if (lane == 0) alpha_s[warp] = alpha;
     }
     __syncthreads();
+    // V: thread t adds dim t % 128 of rows t / 128 + 2 j, in position
+    // order, kVec positions at a time with their loads issued first (a
+    // slot's rows past the tile's end are zeros without storage, masked)
 #pragma unroll
-    for (int j = 0; j < MAXR / 2; ++j)
-      if (hb + 2 * j < R) acc[j] *= alpha_s[hb + 2 * j];
-    // V rows in groups of kVec, the group's loads issued before its
-    // fmafs; each acc[j] takes its fmafs in position order. A group in
-    // which every position has storage and lies inside the window of each
-    // of this thread's rows (all groups but a row's last) runs plain
-    // fmafs; otherwise a position a row masks (or one without storage,
-    // read at offset 0 instead) is dropped by a select, never multiplied
-    // in. Both give the same bits where both apply.
-    for (int p0 = 0; p0 < nt; p0 += kVec) {
-      long long off[kVec];
-      bool full = p0 + kVec <= lim_min - t0;
+    for (int j = 0; j < NACC; ++j)
+      if (hb + 2 * j < nr) acc[j] *= alpha_s[hb + 2 * j];
+    for (int pv = 0; pv < nt; pv += kVec) {
+      float vv[kVec];
+      bool has[kVec];
 #pragma unroll
       for (int u = 0; u < kVec; ++u) {
-        off[u] = off_s[p0 + u];
-        full = full && off[u] >= 0;
+        vv[u] = to_f32(Vt[(pv + u) * D + d]);
+        has[u] = ot[pv + u] >= 0;
       }
-      float vv[kVec];
-      if (full) {
 #pragma unroll
-        for (int u = 0; u < kVec; ++u) vv[u] = to_f32(v[off[u] + d]);
+      for (int u = 0; u < kVec; ++u)
 #pragma unroll
-        for (int u = 0; u < kVec; ++u)
-#pragma unroll
-          for (int j = 0; j < MAXR / 2; ++j)
-            if (hb + 2 * j < R)
-              acc[j] = accumulate(acc[j], Ps[(hb + 2 * j) * TILE + p0 + u],
-                                  vv[u]);
-      } else {
-#pragma unroll
-        for (int u = 0; u < kVec; ++u)
-          vv[u] = to_f32(v[(off[u] < 0 ? 0 : off[u]) + d]);
-#pragma unroll
-        for (int u = 0; u < kVec; ++u)
-#pragma unroll
-          for (int j = 0; j < MAXR / 2; ++j)
-            if (hb + 2 * j < R)
-              acc[j] = accumulate_masked(
-                  acc[j], Ps[(hb + 2 * j) * TILE + p0 + u], vv[u],
-                  off[u] >= 0 && t0 + p0 + u < lim[j]);
-      }
+        for (int j = 0; j < NACC; ++j)
+          if (hb + 2 * j < nr)
+            acc[j] = accumulate_masked(
+                acc[j], Ps[(hb + 2 * j) * TILE + pv + u], vv[u],
+                has[u] && t0 + pv + u < lim[j]);
     }
-    __syncthreads();  // off_s, Ps and alpha_s are rewritten by the next tile
+    __syncthreads();  // slot and Ps are rewritten by the next tiles
   }
-#pragma unroll
-  for (int hi = 0; hi < MAXR / kWarps; ++hi) {
-    const int r = warp + hi * kWarps;
-    if (r < R && lane == 0) l_s[r] = l_run[hi];
-  }
+  if (warp < nr && lane == 0) l_s[warp] = l_run;
   __syncthreads();
   float* ob = out + row0 * D;
 #pragma unroll
-  for (int j = 0; j < MAXR / 2; ++j) {
+  for (int j = 0; j < NACC; ++j) {
     const int r = hb + 2 * j;
-    if (r < R) ob[r * D + d] = acc[j] / fmaxf(l_s[r], 1e-30f);
+    if (r < nr) ob[r * D + d] = acc[j] / fmaxf(l_s[r], 1e-30f);
+  }
+}
+
+template <typename T, int RB, typename Rows>
+cudaError_t launch_rb(const void* q, const void* k, const void* v,
+                      const int* cp, float* o, int B, int Hq, int K1, int S,
+                      float scale, Rows rows, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<T, RB>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      gqa_decode_kernel<T, RB, Rows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int R = Hq / rows.Hkv * K1;
+  gqa_decode_kernel<T, RB, Rows>
+      <<<dim3(rows.Hkv, B, (R + RB - 1) / RB), kThreads, smem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), cp, o, Hq, K1, S, scale, rows);
+  return cudaGetLastError();
+}
+
+// Rows a block serves: the largest of 8, 4, 2, 1 that gives at least
+// kTargetBlocks blocks, else 1. From the shapes alone.
+inline int rows_per_block(int B, int Hkv, int R) {
+  int rb = 8;
+  while (rb > 1 && (long long)B * Hkv * ((R + rb - 1) / rb) < kTargetBlocks)
+    rb /= 2;
+  return rb;
+}
+
+template <typename T, typename Rows>
+cudaError_t launch_t(const void* q, const void* k, const void* v,
+                     const int* cp, float* o, int B, int Hq, int K1, int S,
+                     float scale, Rows rows, cudaStream_t s) {
+  switch (rows_per_block(B, rows.Hkv, Hq / rows.Hkv * K1)) {
+    case 8:
+      return launch_rb<T, 8>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+    case 4:
+      return launch_rb<T, 4>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+    case 2:
+      return launch_rb<T, 2>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+    default:
+      return launch_rb<T, 1>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
   }
 }
 
 // Launch on `stream` for dtype code `dtype` (common.cuh); returns
 // cudaGetLastError(). q holds B * Hq * K1 rows of D, out the same in fp32.
-template <typename T, int MAXR, typename Rows>
-cudaError_t launch_t(const void* q, const void* k, const void* v,
-                     const int* cp, float* o, int B, int Hq, int K1, int S,
-                     float scale, Rows rows, cudaStream_t s) {
-  const size_t smem = smem_bytes(Hq / rows.Hkv * K1);
-  if (smem > 48 * 1024) {  // above the static limit: opt in
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<T, MAXR, Rows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  decode_kernel<T, MAXR, Rows><<<dim3(rows.Hkv, B), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cp, o, Hq, K1, S, scale, rows);
-  return cudaGetLastError();
-}
-
-template <int MAXR, typename Rows>
+template <typename Rows>
 int launch(const void* q, const void* k, const void* v, const void* cache_pos,
            void* out, int B, int Hq, int K1, int S, float scale, int dtype,
            Rows rows, void* stream) {
@@ -291,10 +355,15 @@ int launch(const void* q, const void* k, const void* v, const void* cache_pos,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       dtype == kBF16
-          ? launch_t<__nv_bfloat16, MAXR>(q, k, v, cp, o, B, Hq, K1, S, scale,
-                                          rows, s)
-          : launch_t<float, MAXR>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
-                                  s));
+          ? launch_t<__nv_bfloat16>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
+                                    s)
+          : launch_t<float>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s));
 }
 
 }  // namespace decode
+
+// The rows a block serves at B sequences, Hkv KV heads and R = g * K1 rows
+// a KV head: the plan a launch takes (grid (Hkv, B, ceil(R / RB))).
+KERNEL_API int decode_rows_per_block(int B, int Hkv, int R) {
+  return decode::rows_per_block(B, Hkv, R);
+}

@@ -8,14 +8,14 @@
 // cache_pos [B] int32: positions 0..cache_pos[b] are valid. Output fp32
 // [B, Hq, 128].
 //
-// Bound on the H100: bytes, as contiguous decode: each valid K and V row is
-// read once for the whole query group. Design: the tile loop of
-// decode_tile.cuh, grid (Hkv, B), with the row address of position p read
-// from page_table[b, p / ps]. The page size divides the 64-position tile,
-// so a tile covers whole pages. Positions whose page entry is -1 are
-// masked and never read. With the tile order of attn_decode, the output
-// equals attn_decode's bit for bit on the same KV, which is what makes the
-// paged engine's tokens equal the contiguous engine's.
+// Bound on the H100: as contiguous decode, latency at serving shapes.
+// Design: decode_tile.cuh's gqa_decode_kernel at K1 = 1, with the row
+// address of position p read from page_table[b, p / ps]. The page size
+// divides the 64-position tile, so a tile covers whole pages. Positions
+// whose page entry is -1 are masked and never read. With attn_decode's
+// kernel, plan and tile order, the output equals attn_decode's bit for bit
+// on the same KV, which is what makes the paged engine's tokens equal the
+// contiguous engine's.
 #include "decode_tile.cuh"
 
 KERNEL_API int paged_attention_launch(const void* q, const void* k_pages,
@@ -24,7 +24,8 @@ KERNEL_API int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* cache_pos, void* out, int B,
                                       int Hq, int Hkv, int ps, int NP,
                                       float scale, int dtype, void* stream) {
-  const decode::Paged rows{static_cast<const int*>(page_table), Hkv, ps, NP};
-  return decode::launch<16>(q, k_pages, v_pages, cache_pos, out, B, Hq, 1,
-                            NP * ps, scale, dtype, rows, stream);
+  const decode::Paged rows{static_cast<const int*>(page_table), Hkv,
+                           __builtin_ctz(ps), NP};
+  return decode::launch(q, k_pages, v_pages, cache_pos, out, B, Hq, 1,
+                        NP * ps, scale, dtype, rows, stream);
 }

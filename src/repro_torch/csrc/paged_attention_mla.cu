@@ -15,12 +15,11 @@
 // is a third input and q2 . kr is added inside the kernel.
 //
 // Bound on the H100: as the contiguous precise kernel, latency at serving
-// lengths (each valid latent and rotary row is read once for all heads).
-// Design: the tile loop of mla_tile.cuh with the storage row of position p
+// lengths (each valid latent and rotary row is read once a head). Design:
+// the kernel and plan of mla_tile.cuh with the storage row of position p
 // read from page_table[b, p / ps]; the page size divides the 32-position
-// tile, so a tile covers whole pages. Positions on a -1 page are weighted
-// 0 and never read. On the same latent the output equals
-// attn_decode_mla's bit for bit.
+// tile. Positions on a -1 page are weighted 0 and never read. On the same
+// latent the output equals attn_decode_mla's bit for bit.
 #include "mla_tile.cuh"
 
 KERNEL_API int paged_attention_mla_launch(const void* q, const void* q2,
@@ -31,7 +30,8 @@ KERNEL_API int paged_attention_mla_launch(const void* q, const void* q2,
                                           int B, int H, int ps, int NP,
                                           float scale, int dtype,
                                           void* stream) {
-  const mla::Paged rows{static_cast<const int*>(page_table), ps, NP};
+  const mla::Paged rows{static_cast<const int*>(page_table),
+                        __builtin_ctz(ps), NP};
   return mla::launch(q, q2, c_pages, kr_pages, cache_pos, out, B, H,
                      NP * ps, scale, dtype, rows, stream);
 }

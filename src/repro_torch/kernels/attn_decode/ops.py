@@ -9,12 +9,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import (check, dtype_code, library,
+from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
+                                        library, require_aligned,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.attn_decode.ref import attn_decode_ref
 
 HEAD_DIM = 128
-MAX_GROUP = 16      # query heads per KV head one block serves
+MAX_GROUP = 16      # query heads per KV head the wrappers take
 MLA_LATENT, MLA_ROPE, MLA_MAX_HEADS = 512, 64, 16   # csrc/attn_decode_mla.cu
 
 
@@ -25,6 +26,8 @@ def _lib() -> ctypes.CDLL:
         lib.attn_decode_launch.argtypes = [
             p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.attn_decode_launch.restype = i
+        lib.decode_rows_per_block.argtypes = [i, i, i]
+        lib.decode_rows_per_block.restype = i
     return lib
 
 
@@ -35,17 +38,21 @@ def _lib_mla() -> ctypes.CDLL:
         lib.attn_decode_mla_launch.argtypes = [
             p, p, p, p, p, p, i, i, i, ctypes.c_float, i, p]
         lib.attn_decode_mla_launch.restype = i
+        lib.mla_tiles_per_round.argtypes = [i]
+        lib.mla_tiles_per_round.restype = i
     return lib
 
 
 def check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, cache_pos: torch.Tensor, max_rows: int,
                  *more: torch.Tensor) -> int:
-    """Validate what every decode-attention kernel takes; returns the dtype
-    code. q is [B, Hq, D] or [B, Hq, K1, D]; k/v are a cache [B, Hkv, S, D]
-    or page pools [P, Hkv, ps, D]; each block serves Hq / Hkv * K1 query
-    rows, at most ``max_rows``. ``more`` must lie on the card too."""
+    """Validate what every GQA decode-attention kernel takes; returns the
+    dtype code. q is [B, Hq, D] or [B, Hq, K1, D]; k/v are a cache [B, Hkv,
+    S, D] or page pools [P, Hkv, ps, D], 16-byte aligned (the kernel stages
+    them by cp.async); a KV head has Hq / Hkv * K1 query rows, at most
+    ``max_rows``. ``more`` must lie on the card too."""
     require_cuda(name, q, k, v, cache_pos, *more)
+    require_aligned(name, k, v)
     code = dtype_code(name, q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must share one dtype")
@@ -83,9 +90,11 @@ def check_precise(name: str, q: torch.Tensor, q2: torch.Tensor,
     """Validate what both precise (MLA) kernels take; returns the dtype code.
     q fp32 [B, H, 512] and q2 fp32 [B, H, 64], at most 16 heads; the latent
     c [N, 1, R, 512] (K and V at once) and the rotary key k2 [N, 1, R, 64]
-    in one dtype, N x R being sequences x positions or pool pages x page
-    size; cache_pos [B] int32. ``more`` must lie on the card too."""
+    in one dtype, 16-byte aligned (the kernel stages them by cp.async), N
+    x R being sequences x positions or pool pages x page size; cache_pos
+    [B] int32. ``more`` must lie on the card too."""
     require_cuda(name, q, c, cache_pos, q2, k2, *more)
+    require_aligned(name, c, k2)
     code = dtype_code(name, c)
     if q.dtype != torch.float32 or q2.dtype != torch.float32:
         raise TypeError(f"{name}: q and q2 must be float32")
@@ -131,6 +140,25 @@ def _attn_decode_precise(q: torch.Tensor, c: torch.Tensor,
     attn_decode.launches += 1
     check(lib, rc, name)
     return out
+
+
+def decode_plan(b: int, hq: int, hkv: int, k1: int = 1) -> str:
+    """The block plan the GQA decode kernel (csrc/decode_tile.cuh, all four
+    instances) takes at these shapes, as the card's library computes it."""
+    rows = hq // hkv * k1
+    rb = _lib().decode_rows_per_block(b, hkv, rows)
+    z = -(-rows // rb)
+    return (f"grid ({hkv}, {b}, {z}) = {hkv * b * z} blocks of {rb} "
+            f"row{'s' if rb > 1 else ''}")
+
+
+def mla_plan(b: int, h: int, dtype: torch.dtype) -> str:
+    """The block plan the precise (MLA) decode kernel (csrc/mla_tile.cuh,
+    both instances) takes at these shapes, as the card's library computes
+    it."""
+    tpr = _lib_mla().mla_tiles_per_round(DTYPE_CODE[dtype])
+    return (f"grid ({h}, {b}) = {h * b} blocks of 1 head, rounds of {tpr} "
+            f"tile{'s' if tpr > 1 else ''} of 32")
 
 
 def attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

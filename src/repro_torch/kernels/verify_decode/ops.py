@@ -8,8 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import (check, library, require_aligned,
-                                        stream_ptr)
+from repro_torch.kernels._build import check, library, stream_ptr
 from repro_torch.kernels.attn_decode.ops import check_contiguous
 from repro_torch.kernels.paged_attention.ops import check_paged
 from repro_torch.kernels.verify_decode.ref import (verify_decode_paged_ref,
@@ -37,7 +36,6 @@ def verify_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Hq, K1, 128]; k/v [B, Hkv, S, 128]; cache_pos [B] int32 ->
     fp32 [B, Hq, K1, 128], on the card."""
     code = check_contiguous("verify_decode", q, k, v, cache_pos, MAX_ROWS)
-    require_aligned("verify_decode", k, v)
     b, hq, k1, d = q.shape
     _, hkv, s, _ = k.shape
     scale = d ** -0.5 if scale is None else scale
@@ -61,7 +59,6 @@ def verify_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     int32; cache_pos [B] int32 -> fp32 [B, Hq, K1, 128], on the card."""
     code = check_paged("verify_decode_paged", q, k_pages, v_pages,
                        page_table, cache_pos, MAX_ROWS)
-    require_aligned("verify_decode_paged", k_pages, v_pages)
     b, hq, k1, d = q.shape
     _, hkv, ps, _ = k_pages.shape
     np_ = page_table.shape[1]

@@ -128,7 +128,7 @@ def test_attn_decode_matches_jax(dtype):
                                                   interpret=True)], dtype)
 
 
-def test_attn_decode_precise_mode_not_ported():
+def test_precise_paged_plain_equals_contiguous_plain():
     """Both precise (MLA) modes are ported, contiguous and paged
     (tests/test_torch_mla.py and tests/test_torch_paged_hybrid.py hold
     them against JAX): on the latent of one page the paged plain version
@@ -224,5 +224,49 @@ def test_flash_and_verify_wrappers_refuse_what_the_kernels_do_not_take(
     fn, match, call = calls[case]
     before = fn.launches
     with pytest.raises(ValueError, match=match):
+        call()
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("case", ["gqa", "gqa_paged", "precise",
+                                  "precise_paged"])
+def test_decode_wrappers_refuse_unaligned_caches(case, monkeypatch):
+    """The decode kernels (GQA and precise, contiguous and paged) stage
+    their K/V or latent rows by 16-byte cp.async: with the device check
+    stubbed out, each wrapper raises on a cache whose data starts off a
+    16-byte boundary, before it launches, and counts no launch."""
+    from repro_torch.kernels.attn_decode import ops as ad_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    monkeypatch.setattr(ad_ops, "require_cuda", lambda *a: None)
+    bf, f32 = dict(dtype=torch.bfloat16), dict(dtype=torch.float32)
+    i32 = dict(dtype=torch.int32)
+
+    def off(*shape):            # contiguous, data 2 bytes off a boundary
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, **bf)[1:].view(*shape)
+
+    cp, table = torch.zeros(1, **i32), torch.ones(1, 2, **i32)
+    q, kv = torch.zeros(1, 8, 128, **bf), torch.zeros(1, 1, 32, 128, **bf)
+    pools = torch.zeros(3, 1, 16, 128, **bf)
+    qa, q2 = torch.zeros(1, 4, 512, **f32), torch.zeros(1, 4, 64, **f32)
+    lat, kr = off(1, 1, 32, 512), torch.zeros(1, 1, 32, 64, **bf)
+    cpool, kpool = off(3, 1, 16, 512), torch.zeros(3, 1, 16, 64, **bf)
+    calls = {
+        "gqa": (ad_ops.attn_decode,
+                lambda: ad_ops.attn_decode(q, off(1, 1, 32, 128), kv, cp)),
+        "gqa_paged": (pa_ops.attn_decode_paged,
+                      lambda: pa_ops.attn_decode_paged(
+                          q, pools, off(3, 1, 16, 128), table, cp)),
+        "precise": (ad_ops.attn_decode,
+                    lambda: ad_ops.attn_decode(qa, lat, lat, cp, q2=q2,
+                                               k2=kr, precise=True)),
+        "precise_paged": (pa_ops.attn_decode_paged,
+                          lambda: pa_ops.attn_decode_paged(
+                              qa, cpool, cpool, table, cp, q2=q2,
+                              k2_pages=kpool, precise=True)),
+    }
+    fn, call = calls[case]
+    before = fn.launches
+    with pytest.raises(ValueError, match="16-byte"):
         call()
     assert fn.launches == before
