@@ -35,7 +35,9 @@ Phases (any failure raises; nothing is caught):
      request 0 == ``generate`` and paged == contiguous, bitwise; every
      gemm launch on the int8 weights (338 a step);
   6d. the same serve under W8A8, contiguous: request 0 == ``generate``
-     bitwise; every GEMM launch is ``gemm_int8``, no bf16 gemm runs;
+     bitwise; every GEMM launch is ``gemm_int8``, no bf16 gemm runs, and
+     a traced decode step runs no more device kernels than weight-only's
+     (``gemm_int8`` quantizes the activations itself: one kernel a GEMM);
   7. full-width, full-depth deepseek-v2-lite-16b (27 layers, MLA, 64
      experts top-6, bf16, random weights; yi's weights freed first): 128
      prompts prefilled through the kernels, the plain policy and the plain
@@ -84,17 +86,19 @@ Phases (any failure raises; nothing is caught):
      power limit, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
-serving shapes, and the int8 kernels at yi-9b's (``gemm_int8`` bitwise
-== plain for none / relu, the int8-weight ``gemm`` bitwise == the bf16
-kernel on the dequantized weight), and asserts, bitwise, that row b of a
+serving shapes, and the int8 kernels at yi-9b's (``gemm_int8``, which
+quantizes the activations itself, bitwise == plain for none / relu; the
+int8-weight ``gemm`` bitwise == the bf16 kernel on the dequantized
+weight), and asserts, bitwise, that row b of a
 B = 4 launch of moe_decode (at h = 1408 and 14336), precise attn_decode,
 GQA attn_decode and attn_decode_paged (at yi-9b's group of 8 and
 jamba's of 4), gemm_heads (both layouts), ssm_decode, mlstm_decode,
 gemm_int8 and the int8-weight gemm equals its B = 1 launch, that row i
-of an M = 4, 16, 20 and 128 launch of the bf16, int8-weight and fp32 gemm and of
-gemm_heads (all three layouts) equals its M = 1 launch (ptxas's
-registers, shared memory and spills of each gemm.cu instance printed
-beside), and that a selective scan of
+of an M = 4, 16, 20 and 128 launch of the bf16, int8-weight and fp32 gemm,
+of gemm_int8 and of gemm_heads (all three layouts) equals its M = 1
+launch (ptxas's registers, shared memory and spills of each gemm.cu,
+gemm_int8.cu and moe_decode.cu instance printed beside), and that a
+selective scan of
 T1 then T2 tokens with the state carried equals the scan of T1 + T2; that
 the first t rows of flash attention (both bf16 instances) on a prompt
 right-padded to the next multiple of 16 equal the unpadded prompt's (t =
@@ -106,11 +110,15 @@ precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
 cache_pos kept out. Each decode-attention kernel's time line names its
 block plan (``decode_plan`` / ``mla_plan``, read from the card's
-library). Each serve run resets every launch counter just
+library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
+``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
 line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each model
-also has one decode chunk timed and traced per engine (``decode step``
-lines), paged beside contiguous.
+also has three decode chunks timed by the host clock and one traced per
+engine (``decode step`` lines, with the device kernels a step and the
+GEMM, decode-attention and MoE kernels' shares), paged beside contiguous;
+yi-9b's weight-only and W8A8 engines are also timed in turns (``host
+clock in turns``).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -377,14 +385,15 @@ def check_flash_padding(torch, randn, hkv: int, dqk: int):
 def check_int8(torch, compare, randn):
     """Phase 2 for the int8 serving path at yi-9b's GEMM shapes, on
     weights quantized by ``quantize_leaf``: the W8A8 kernel ``gemm_int8``
-    (activations quantized per row by its wrapper) against its plain
-    version, bitwise for none / relu and to one bf16 ulp for silu (the
-    kernel's expf); and the int8-weight instance of ``gemm`` (weight-only)
-    against the plain gemm on the same WeightQ (summation order: the gemm
+    (activations quantized per row inside the kernel, bit for bit as
+    ``quantize_int8``) against its plain version, bitwise for none / relu
+    and to one bf16 ulp for silu (the kernel's expf); and the int8-weight
+    instance of ``gemm`` (weight-only) against the plain gemm on the same WeightQ (summation order: the gemm
     tolerance) and bitwise against the bf16 kernel on ``dequantize(w)``.
     At the decode shapes (M = 4), one prefill shape (M = 128) and a ragged
     shape with a bias (the element-wise load path). Bitwise: row b of a B
-    = 4 launch of either == its B = 1 launch."""
+    = 4 launch of either == its B = 1 launch, and the plain
+    ``quantize_int8`` on the card == on the CPU at every shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.gemm import ops as gm
@@ -402,9 +411,9 @@ def check_int8(torch, compare, randn):
 
     def int_mm_lib(x, wq, act):
         """torch._int_mm and the epilogue in PyTorch: the library's W8A8
-        GEMM on the same inputs (activations quantized as the wrapper
-        does). _int_mm takes at least INT_MM_MIN_ROWS rows: fewer are
-        padded with zero rows (timed at that M)."""
+        GEMM on the same inputs (activations quantized by
+        ``quantize_int8``). _int_mm takes at least INT_MM_MIN_ROWS rows:
+        fewer are padded with zero rows (timed at that M)."""
         def run():
             xq, xs = quantize_int8(x)
             pad = INT_MM_MIN_ROWS - xq.shape[0]
@@ -427,6 +436,11 @@ def check_int8(torch, compare, randn):
         shape = f"M={m} K={k} N={n} {act}{' bias' if with_bias else ''}"
         exact = act in ("none", "relu")
         rep = (m == 4 and k == 4096 and n == 4096)
+        # the plain quantizer, to which the kernel's prologue is held, gives
+        # the CPU's bits on the card (the CPU's are JAX's, tests/)
+        for on_card, on_cpu in zip(quantize_int8(x), quantize_int8(x.cpu())):
+            assert torch.equal(on_card.cpu(), on_cpu), (
+                "quantize_int8 card != CPU", shape)
         got = gm.gemm_int8(x, w, bias, act)
         assert bf16_ulps(got, gemm_w8a8_ref(x, w, bias, act)) <= (
             0 if exact else 1), ("gemm_int8", shape)
@@ -436,7 +450,8 @@ def check_int8(torch, compare, randn):
                 None if with_bias else int_mm_lib(x, w, act),
                 2 * m * k + k * n + 4 * n + 2 * m * n
                 + (4 * n if with_bias else 0), 2 * m * k * n, "int8",
-                0.0 if exact else 2.0 ** -7, 0.0, representative=rep)
+                0.0 if exact else 2.0 ** -7, 0.0, representative=rep,
+                plan=gm.int8_plan(n, k))
         assert torch.equal(gm.gemm(x, w, bias, act),
                            gm.gemm(x, deq, bias, act)), ("gemm_wq", shape)
         compare("gemm_wq", shape,
@@ -507,7 +522,10 @@ def check_gemm_rows(torch, randn):
     routers 2048 -> 64 and 4096 -> 16, xLSTM's ``w_if`` 2048 -> 8) and
     ``gemm_heads`` in its three layouts (bf16 and fp32 weights). Then the
     registers, shared memory and spills ptxas reported for each kernel
-    instance of the source."""
+    instance of the source. The same for ``gemm_int8`` (4096 -> 11008
+    silu, and the ragged 1000 -> 300 relu with a bias: the element-wise
+    path), whose integer sums and per-row quantization make every row
+    independent of the others."""
     from repro_torch.kernels.gemm import ops as gm
     from repro_torch.serve.quantize import quantize_leaf
 
@@ -526,6 +544,20 @@ def check_gemm_rows(torch, randn):
                                                scale=k ** -0.5)
         cases.append((f"gemm fp32 {k}->{n}", x,
                       lambda x, w=w: gm.gemm(x, w)))
+    # gemm_int8's inputs from a generator of their own, so that the later
+    # phases draw the inputs they drew before these cases existed
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn8(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=g8, device="cuda") * scale
+                ).to(dtype)
+    for k, n, act, with_bias in ((4096, 11008, "silu", False),
+                                 (1000, 300, "relu", True)):
+        x = randn8(128, k)
+        w = quantize_leaf(randn8(k, n, scale=k ** -0.5))
+        b = randn8(n, dtype=f32) if with_bias else None
+        cases.append((f"gemm_int8 {k}->{n} {act}", x,
+                      lambda x, w=w, b=b, a=act: gm.gemm_int8(x, w, b, a)))
     for name, xs, ws, wdt, kw in (
             ("gemm_heads transposed [512,16,128]", (16, 128), (512, 16, 128),
              bf16, dict(transpose_w=True)),
@@ -547,8 +579,9 @@ def check_gemm_rows(torch, randn):
     torch.cuda.synchronize()
     print(f"bitwise: row i of a launch of M = 4, 16, 20, 128 == its M = 1 "
           f"launch for {[name for name, _, _ in cases]}", flush=True)
-    for line in ptxas_usage("gemm"):
-        print(line, flush=True)
+    for stem in ("gemm", "gemm_int8", "moe_decode"):
+        for line in ptxas_usage(stem):
+            print(line, flush=True)
 
 
 def ptxas_usage(stem: str):
@@ -832,7 +865,7 @@ def check_mla_moe(torch, compare, randn, gen):
             lambda: moe_decode_ref(x, idx, gate, wg, wu, wd), None,
             2 * 3 * touched * d * hh + 2 * x.numel() + 8 * b * k6
             + 4 * b * d, 6 * n_assign * d * hh, "bfloat16", 1e-4, 1e-4,
-            representative=True)
+            representative=True, plan=md.moe_plan(d, hh))
     # repeated experts inside a row, a zero gate inside a live row, and a
     # dead slot (all gates zero, as the engine gives a free slot): its
     # experts are not read and its output row is zero
@@ -846,6 +879,9 @@ def check_mla_moe(torch, compare, randn, gen):
     err = float((got - want).abs().max())
     assert err <= 1e-4 + 1e-4 * float(want.abs().max()), err
     assert not bool(got[3].any()), "a dead slot's output row is not zero"
+    lib = md._lib()        # the wrapper's limits are the library's
+    assert (lib.moe_decode_max_assignments(), lib.moe_decode_max_experts()
+            ) == (md.MAX_ASSIGN, md.MAX_EXPERTS)
     print(f"kernel moe_decode repeated expert / zero gate / dead slot: "
           f"max_abs_err={err:.3e}; library: none (no single PyTorch call "
           f"routes tokens to experts)", flush=True)
@@ -1115,7 +1151,7 @@ def check_jamba(torch, compare, randn, gen):
             lambda: moe_decode_ref(x, idx, gate, wg, wu, wd), None,
             2 * 3 * touched * d * hh + 2 * x.numel() + 8 * b * k2
             + 4 * b * d, 6 * b * k2 * d * hh, "bfloat16", 1e-4, 1e-4,
-            representative=True)
+            representative=True, plan=md.moe_plan(d, hh))
 
     # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
     full = {"ssm_decode": sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h),
@@ -1389,27 +1425,19 @@ def check_layers(torch, lm, cfg, params, n_prompts: int = 16,
           f"rel L2 of the kernels vs fp32 {max(worst):.3e}", flush=True)
 
 
-def profile_decode(torch, name, engine, params, prompts):
-    """Where a decode step's time goes: fill every slot (on a paged engine,
-    with every page its three chunks need), then time one chunk of
-    ``engine.chunk`` steps by the host clock around a
-    synchronize (ms per step), and trace one more chunk with
-    torch.profiler for the device time per step by kernel and the
-    device's busy share of the untraced step. A measurement, not a check:
-    if the profiler shows no device time, that part is reported as not
-    measured."""
-    from torch.profiler import ProfilerActivity, profile
-
+def fill_slots(engine, params, prompts):
+    """Prefill every slot of ``engine`` (on a paged engine, with every page
+    its five chunks need) and run one warm-up chunk: (cache, state)."""
     from repro_torch.serve.paging import PageAllocator
 
     cache, st = engine.init_state()
-    new = 3 * engine.chunk + 1
+    new = 5 * engine.chunk + 1
     alloc = (PageAllocator(engine.num_pages, engine.capacity,
                            engine.max_pages, engine.page_size)
              if engine.paged else None)
     for slot in range(engine.capacity):
         ids = None
-        if alloc is not None:     # every page the three chunks will need
+        if alloc is not None:     # every page the five chunks will need
             t = len(prompts[slot])
             ids = alloc.admit(slot, engine._bucket(t), t, new)
             alloc.ensure(slot, t + new - 1)
@@ -1418,32 +1446,87 @@ def profile_decode(torch, name, engine, params, prompts):
     if alloc is not None:
         cache = engine.set_page_table(cache, alloc.table)
     cache, st, _ = engine.decode(params, cache, st)          # warm-up
+    return cache, st
+
+
+def timed_chunk(torch, engine, params, cache, st):
+    """One decode chunk between two synchronizes: (cache, state, host-clock
+    ms a step)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache, st, _ = engine.decode(params, cache, st)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / engine.chunk * 1e3
+    return cache, st, (time.perf_counter() - t0) / engine.chunk * 1e3
+
+
+def host_ab(torch, label, sides, prompts):
+    """The host clock of two engines' decode steps in turns, in one
+    process: both filled first, then a chunk each in the order A B B A A
+    B. Prints each side's ms a step over its three chunks, each chunk's
+    beside it: a difference between the sides that holds in every turn is
+    theirs, not the host's drift from one window to the next."""
+    state = {name: fill_slots(engine, params, prompts)
+             for name, engine, params in sides}
+    times = {name: [] for name, _, _ in sides}
+    for i in (0, 1, 1, 0, 0, 1):
+        name, engine, params = sides[i]
+        cache, st, ms = timed_chunk(torch, engine, params, *state[name])
+        state[name] = cache, st
+        times[name].append(ms)
+    print(f"host clock in turns, {label}: " + "; ".join(
+        f"{name} {sum(t) / len(t):.2f} ms a step (a chunk "
+        f"{[round(x, 2) for x in t]})" for name, t in times.items()),
+        flush=True)
+
+
+def profile_decode(torch, name, engine, params, prompts):
+    """Where a decode step's time goes: fill every slot, then time three
+    chunks of ``engine.chunk`` steps by the host clock, each between two
+    synchronizes (ms a step: the whole window's, the three chunks' times
+    over all their steps, with each chunk's beside it), and trace one more
+    chunk with torch.profiler for the device time a step by kernel, the
+    device kernels a step (the profiler's event counts), the device's busy
+    share of the untraced step and the traced step's host ops. A
+    measurement, not a check: if the profiler shows no device time, that
+    part is reported as not measured. Returns the device kernels a step
+    (None if not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache, st = fill_slots(engine, params, prompts)
+    walls = []
+    for _ in range(3):
+        cache, st, ms = timed_chunk(torch, engine, params, cache, st)
+        walls.append(ms)
+    wall = sum(walls) / len(walls)      # equal chunks: the window's mean
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cache, st, _ = engine.decode(params, cache, st)
-        torch.cuda.synchronize()
-    per = {}
+        cache, st, traced = timed_chunk(torch, engine, params, cache, st)
+    per, calls = {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0 and e.device_type.name == "CUDA":
             per[e.key] = per.get(e.key, 0.0) + t / 1e3 / engine.chunk
+            if not e.key.startswith(("Memcpy", "Memset")):
+                calls += e.count
     dev = sum(per.values())
+    kernels = calls / engine.chunk if dev > 0 else None
     # the GEMM kernels' share: csrc/gemm.cu's (bf16, int8-weight, fp32)
-    # and csrc/gemm_int8.cu's, by their own names (no library kernel)
+    # and csrc/gemm_int8.cu's (its activation quantization included), by
+    # their own names (no library kernel)
     gemm = sum(v for k, v in per.items()
                if any(s in k for s in ("bf::gemm_bf16_kernel<",
                                        "f32::gemm_f32_kernel<",
-                                       "gemm_int8_kernel")))
+                                       "i8::gemm_int8_kernel<")))
     # the decode-attention kernels' share: csrc/decode_tile.cuh's (GQA,
     # contiguous or paged) and csrc/mla_tile.cuh's (precise)
     attn = sum(v for k, v in per.items()
                if any(s in k for s in ("decode::gqa_decode_kernel<",
                                        "mla::mla_decode_kernel<")))
+    # the MoE kernels' share: csrc/moe_decode.cu's up / down passes and
+    # the combine
+    moe = sum(v for k, v in per.items()
+              if any(s in k for s in ("moe::moe_pass_kernel<",
+                                      "moe::moe_combine_kernel")))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     # the host's side of the traced step: self time and calls a step of
     # the costliest host ops (profiled, so larger than untraced)
@@ -1451,16 +1534,20 @@ def profile_decode(torch, name, engine, params, prompts):
                     e.count / engine.chunk) for e in prof.key_averages()
                    if e.device_type.name == "CPU"), key=lambda r: -r[1])[:6]
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
-            f"untraced step, GEMM kernels {gemm:.3f} ms, decode attention "
-            f"{attn:.3f} ms" if dev > 0 else
+            f"untraced step, {kernels:.1f} device kernels a step, GEMM "
+            f"kernels {gemm:.3f} ms, decode attention {attn:.3f} ms, MoE "
+            f"kernels {moe:.3f} ms" if dev > 0 else
             "device time not measured (the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
-          f"{engine.capacity} live slots, {engine.chunk} steps); {busy}; "
+          f"{3 * engine.chunk} steps in 3 chunks of {engine.chunk}, a chunk "
+          f"{[round(w, 2) for w in walls]}; traced {traced:.2f}; "
+          f"{engine.capacity} live slots); {busy}; "
           f"top kernels ms/step "
           f"{[(k[:48], round(v, 3)) for k, v in top]}; top host ops "
           f"(ms, calls) a traced step "
           f"{[(k[:32], round(v, 2), round(c)) for k, v, c in host]}",
           flush=True)
+    return kernels
 
 
 def make_prompts(torch, vocab: int, seed: int = 11):
@@ -1592,8 +1679,9 @@ def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
     assert ref_toks[0].tolist() == wq["tokens"][0], (
         "weight-only engine tokens differ from generate",
         ref_toks[0].tolist(), wq["tokens"][0])
-    profile_decode(torch, f"{cfg.name} weight-only int8", SlotEngine(
-        cfg, capacity=4, max_len=160, chunk=8), qparams, prompts)
+    wq_kernels = profile_decode(
+        torch, f"{cfg.name} weight-only int8",
+        SlotEngine(cfg, capacity=4, max_len=160, chunk=8), qparams, prompts)
     wqp = run_serve("wq-paged", cfg, qparams, prompts, paged=True,
                     page_size=16, num_pages=25)
     assert wqp["tokens"] == wq["tokens"], "weight-only paged tokens differ"
@@ -1617,14 +1705,26 @@ def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
     assert ref_toks[0].tolist() == run["tokens"][0], (
         "W8A8 engine tokens differ from generate", ref_toks[0].tolist(),
         run["tokens"][0])
-    profile_decode(torch, f"{cfg.name} W8A8", SlotEngine(
+    w8a8_kernels = profile_decode(torch, f"{cfg.name} W8A8", SlotEngine(
         RunConfig(arch=cfg, policy=w8a8), capacity=4, max_len=160, chunk=8),
         qparams, prompts)
+    # gemm_int8 quantizes the activations itself: a W8A8 step runs the
+    # kernels of a weight-only step, one a GEMM, and no PyTorch op more
+    # (one op a GEMM would add 338 a step; the profiler's counts of a
+    # traced chunk move by a fraction of a kernel a step between runs)
+    if wq_kernels is not None and w8a8_kernels is not None:
+        assert w8a8_kernels <= wq_kernels + 1, (w8a8_kernels, wq_kernels)
+    host_ab(torch, f"{cfg.name} weight-only int8 vs W8A8", [
+        ("weight-only", SlotEngine(cfg, capacity=4, max_len=160, chunk=8),
+         qparams),
+        ("W8A8", SlotEngine(RunConfig(arch=cfg, policy=w8a8), capacity=4,
+                            max_len=160, chunk=8), qparams)], prompts)
     agree = sum(a == b for x, y in zip(run["tokens"], wq["tokens"])
                 for a, b in zip(x, y))
     print(f"serve W8A8: request 0 == generate, bitwise; {steps_gemm} "
-          f"gemm_int8 a step, no bf16 gemm; tokens equal to weight-only's "
-          f"at {agree}/{6 * 24} positions", flush=True)
+          f"gemm_int8 a step, no bf16 gemm; device kernels a traced step "
+          f"{w8a8_kernels} (weight-only {wq_kernels}); tokens equal to "
+          f"weight-only's at {agree}/{6 * 24} positions", flush=True)
     return qparams
 
 

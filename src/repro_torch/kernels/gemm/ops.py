@@ -1,14 +1,15 @@
 """Wrappers of the GEMM kernels (``csrc/gemm.cu``, ``csrc/gemm_int8.cu``)
 and their XAIF ops: the fused GEMM (bf16 / fp32 weights, or int8
 ``WeightQ`` weights dequantized on the fly), its lossy W8A8 backend
-``int8`` (activations quantized per row, integer products), and
-``gemm_heads``, the per-head fp32 products of MLA's absorbed decode and of
-the xLSTM mixers' block-diagonal weights.
+``int8`` (activations quantized per row inside the kernel, integer
+products), and ``gemm_heads``, the per-head fp32 products of MLA's
+absorbed decode and of the xLSTM mixers' block-diagonal weights.
 
 The kernels' tile and split choices are made here, by :func:`gemm_plan`
-(the bf16 / int8-weight kernel) and :func:`f32_plan` (the fp32 kernel):
-functions of the shape of w alone, never of M, so that every output
-element is reduced over K in one order whatever the batch."""
+(the bf16 / int8-weight kernel), :func:`f32_plan` (the fp32 kernel) and
+:func:`int8_plan` (the W8A8 kernel): functions of the shape of w alone,
+never of M, so that every output element is reduced over K in one order
+whatever the batch."""
 from __future__ import annotations
 
 import ctypes
@@ -22,7 +23,7 @@ from repro_torch.core import xaif
 from repro_torch.kernels._build import (check, dtype_code, library,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.gemm.ref import (WeightQ, gemm_heads_ref, gemm_ref,
-                                          gemm_w8a8_ref, int8_operands)
+                                          gemm_w8a8_ref, quantize_int8)
 
 # csrc/gemm_epilogue.cuh Act
 ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
@@ -227,49 +228,121 @@ gemm.launches = 0
 gemm.instances = {"gemm_wq": 0}
 
 
+class Int8Plan(NamedTuple):
+    """The W8A8 kernel's launch: ``bn`` columns a block, ``kc`` rows of K
+    a block (its K range) and ``parts`` K ranges (blocks a column tile)."""
+    bn: int
+    kc: int
+    parts: int
+
+    def blocks(self, n: int) -> int:
+        """Blocks of one launch of at most 16 rows."""
+        return math.ceil(n / self.bn) * self.parts
+
+
+INT8_MT = 16                   # rows of x a block (csrc/gemm_int8.cu kMT)
+INT8_STAGE = 8192              # bytes of w a ring stage (kStageBytes)
+INT8_MAX_KC = 8192             # K rows a block at most (kMaxKc)
+INT8_BLOCKS = 256              # blocks a decode launch asks for
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(n: int, k: int) -> Int8Plan:
+    """The W8A8 kernel's tiles for wq [K, N]: 128 columns a block from N =
+    4096 up, else 64; then the fewest K ranges that give >= 256 blocks (two
+    an SM), a range at least two ring stages of 8192 / bn rows and at most
+    8192 rows. A function of (N, K) alone: the integer sums are exact, so
+    no plan changes a bit, and none depends on M."""
+    bn = 128 if n >= 4096 else 64
+    bk = INT8_STAGE // bn
+    parts = min(math.ceil(INT8_BLOCKS / math.ceil(n / bn)),
+                max(1, k // (2 * bk)))
+    parts = max(parts, math.ceil(k / INT8_MAX_KC))
+    kc = math.ceil(math.ceil(k / parts) / bk) * bk
+    return Int8Plan(bn, kc, math.ceil(k / kc))
+
+
 def _lib_int8() -> ctypes.CDLL:
     lib = library("gemm_int8")
     if lib.gemm_int8_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gemm_int8_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.gemm_int8_launch.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.gemm_int8_launch.restype = i
     return lib
+
+
+# (device, stream) -> (int32 sums [M, N], uint32 arrival counters): the
+# split W8A8 kernel's scratch, zero between launches (its last blocks zero
+# what they used), kept across calls and grown as needed
+_SCRATCH_INT8: dict = {}
+
+
+def _scratch_int8(x: torch.Tensor, stream: int, sums: int, counters: int):
+    key = (x.device, stream)
+    part, arrived = _SCRATCH_INT8.get(key, (None, None))
+    if part is None or part.numel() < sums:
+        part = torch.zeros(1 << (sums - 1).bit_length(), dtype=torch.int32,
+                           device=x.device)
+    if arrived is None or arrived.numel() < counters:
+        arrived = torch.zeros(1 << (counters - 1).bit_length(),
+                              dtype=torch.int32, device=x.device)
+    _SCRATCH_INT8[key] = part, arrived
+    return part.data_ptr(), arrived.data_ptr()
 
 
 def gemm_int8(x: torch.Tensor, w: Union[torch.Tensor, WeightQ],
               bias: Optional[torch.Tensor] = None,
               activation: str = "none") -> torch.Tensor:
-    """W8A8 on the card (the JAX ``gemm_int8_pallas_op``): x [..., K]
-    quantized per row in plain PyTorch, as JAX does outside its kernel;
-    a ``WeightQ``'s int8 tiles and scales used as they are, any other w
-    quantized per column; then the integer GEMM with int32 accumulation
-    and the epilogue (acc * x_scale) * w_scale (+ bias) -> act. bf16 x
-    and output (the serving path's dtype)."""
+    """W8A8 on the card (the JAX ``gemm_int8_pallas_op``): one launch that
+    quantizes x [..., K] per row as ``quantize_int8`` does (JAX quantizes
+    outside its kernel; here no PyTorch op runs on x) and runs the integer
+    GEMM with int32 accumulation and the epilogue (acc * x_scale) *
+    w_scale (+ bias) -> act. Beyond 16 rows (a prefill) the library runs
+    two kernels, the rows' quantization first, into scratch allocated
+    here. A ``WeightQ``'s int8 tiles and scales are used as they are; any
+    other w is quantized per column here, in PyTorch. bf16 x and output
+    (the serving path's dtype)."""
     require_cuda("gemm_int8", x)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"gemm_int8: the kernel takes bf16 x, got {x.dtype}")
     if activation not in ACT_CODE:
         raise ValueError(f"gemm_int8: unknown activation {activation!r}")
+    if isinstance(w, WeightQ):
+        wq, ws = w.q, w.scale
+    else:
+        wq, ws = quantize_int8(w, dim=0)
     k = x.shape[-1]
-    xq, xs, wq, ws = int8_operands(x.reshape(-1, k), w)
     if wq.dim() != 2 or wq.shape[0] != k or wq.dtype != torch.int8:
         raise ValueError(f"gemm_int8: x {tuple(x.shape)} against w "
                          f"{tuple(wq.shape)} {wq.dtype}")
-    m, n = xq.shape[0], wq.shape[1]
-    ws = ws.float().contiguous()
-    if ws.numel() != n:
-        raise ValueError(f"gemm_int8: scale {tuple(ws.shape)} for N={n}")
-    require_cuda("gemm_int8", x, xq, xs, wq, ws)
+    n = wq.shape[1]
+    if ws.dtype != torch.float32 or ws.numel() != n:
+        raise ValueError(f"gemm_int8: scale {tuple(ws.shape)} {ws.dtype} "
+                         f"for N={n}")
+    require_cuda("gemm_int8", x, wq, ws)
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=x.device)
+    m = x.numel() // k if k else 0
     if m == 0:
         return out
     b = _bias("gemm_int8", x, bias, n)
+    plan = int8_plan(n, k)
+    stream = stream_ptr(x)
+    part = arrived = None
+    if plan.parts > 1:
+        part, arrived = _scratch_int8(
+            x, stream, m * n, math.ceil(m / INT8_MT) * math.ceil(n / plan.bn))
+    xq = xs = None
+    if m > INT8_MT:          # a prefill: the rows are quantized first, once
+        xq = torch.empty(m, -(-k // 16) * 16, dtype=torch.int8,
+                         device=x.device)
+        xs = torch.empty(m, dtype=torch.float32, device=x.device)
     lib = _lib_int8()
-    rc = lib.gemm_int8_launch(xq.data_ptr(), wq.data_ptr(), xs.data_ptr(),
-                              ws.data_ptr(),
+    rc = lib.gemm_int8_launch(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
                               None if b is None else b.data_ptr(),
-                              out.data_ptr(), m, n, k, ACT_CODE[activation],
-                              stream_ptr(x))
+                              out.data_ptr(), part, arrived,
+                              None if xq is None else xq.data_ptr(),
+                              None if xs is None else xs.data_ptr(), m, n, k,
+                              ACT_CODE[activation], *plan, stream)
     gemm_int8.launches += 1
     check(lib, rc, "gemm_int8")
     return out

@@ -50,10 +50,20 @@ def quantize_int8(x: torch.Tensor, dim: int = -1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization along ``dim`` (-1: per row; 0 or -2:
     per column): (q int8, scale fp32 with ``dim`` kept). The JAX numerics:
-    amax in fp32, max(amax, 1e-8) / 127, round half to even, clip +-127."""
+    amax in fp32, max(amax, 1e-8) / 127, round half to even, clip +-127.
+
+    The divisor is a tensor on x's device, not a Python number: CUDA's
+    division by a host scalar multiplies by its reciprocal, which can
+    differ from the quotient in the last bit; a division of two tensors
+    rounds the quotient itself on either device, as the JAX function is
+    written (and as JAX computes it op by op) and as the W8A8 kernel
+    (``csrc/gemm_int8.cu``, ``__fdiv_rn``) does. Under ``jax.jit`` XLA
+    may rewrite JAX's division by the constant into that product, which
+    moves a few percent of the scales by one ulp: the port does not
+    follow the rewrite."""
     xf = x.float()
     amax = xf.abs().amax(dim=dim, keepdim=True)
-    scale = amax.clamp_min(1e-8) / 127.0
+    scale = amax.clamp_min(1e-8) / amax.new_full((), 127.0)
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

@@ -1,14 +1,60 @@
-"""Wrapper of the dropless MoE decode kernel (``csrc/moe_decode.cu``)."""
+"""Wrapper of the dropless MoE decode kernel (``csrc/moe_decode.cu``) and
+:func:`moe_plan`, the count of its column tiles at (d, h). The tile width
+is one constant, never a function of the batch or of the routing, so an
+assignment's sums go in one order whatever the step routes beside it."""
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import xaif
 from repro_torch.kernels._build import (check, dtype_code, library,
-                                        require_cuda, stream_ptr)
+                                        require_aligned, require_cuda,
+                                        stream_ptr)
 from repro_torch.kernels.moe_decode.ref import moe_decode_ref
+
+# csrc/moe_decode.cu
+MAX_ROWS = 4                   # kMaxRows: assignments a block at once
+MAX_ASSIGN = 2048              # kMaxAssign: B * K a launch
+MAX_EXPERTS = 1024             # kMaxExperts: E a launch
+STAGES, STAGE_ROWS = 4, 64     # kStages, kRows: the weight ring
+CHUNKS = 8                     # kCH: 16-byte chunks a tile row
+
+
+class MoEPlan(NamedTuple):
+    """Column tiles of one expert's bf16 panels: of the up pass (the [d, h]
+    panels of Wg and Wu) and of the down pass (Wd)."""
+    up_tiles: int
+    down_tiles: int
+
+    def blocks(self, experts: int):
+        """Blocks that read weights when ``experts`` experts are touched:
+        (up, down)."""
+        return self.up_tiles * experts, self.down_tiles * experts
+
+
+def moe_smem(itemsize: int = 2):
+    """Shared memory a block of each pass asks for, static arrays included
+    (the expert bitmap, the assignment list, two ints), with panels of
+    ``itemsize`` bytes: (up, down) bytes."""
+    static = 4 * (MAX_EXPERTS // 32) + 4 * MAX_ASSIGN + 8
+
+    def ring(mats, x_itemsize):
+        return STAGES * (mats * STAGE_ROWS * CHUNKS * 16
+                         + MAX_ROWS * STAGE_ROWS * x_itemsize)
+    return ring(2, itemsize) + static, ring(1, 4) + static
+
+
+def moe_plan(d: int, h: int) -> MoEPlan:
+    """The kernel's tiles at (d, h): 64 bf16 columns each (``CHUNKS``
+    chunks of 16 bytes), the same width at every shape. d is never split:
+    at every served shape the touched experts' tiles fill the card, and
+    one block reduces a whole column."""
+    cols = CHUNKS * 8
+    return MoEPlan(math.ceil(h / cols), math.ceil(d / cols))
 
 
 def _lib() -> ctypes.CDLL:
@@ -17,7 +63,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.moe_decode_launch.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.moe_decode_launch.restype = i
-        lib.moe_decode_max_assignments.restype = i
+        for limit in (lib.moe_decode_max_assignments,
+                      lib.moe_decode_max_experts):
+            limit.argtypes, limit.restype = [], i
     return lib
 
 
@@ -46,16 +94,19 @@ def moe_decode(x: torch.Tensor, expert_idx: torch.Tensor, gate: torch.Tensor,
                          f"{tuple(gate.shape)}, w_gate {tuple(w_gate.shape)}, "
                          f"w_up {tuple(w_up.shape)}, w_down "
                          f"{tuple(w_down.shape)}")
-    if d % 2 or h % 2:
-        raise ValueError(f"moe_decode: d ({d}) and h ({h}) must be even "
-                         f"(the panels are read two columns at a time)")
+    if d % 8 or h % 8:
+        raise ValueError(f"moe_decode: d ({d}) and h ({h}) must be multiples "
+                         f"of 8 (the panels are copied 16 bytes at a time)")
+    if e > MAX_EXPERTS:
+        raise ValueError(f"moe_decode: {e} experts, at most {MAX_EXPERTS}")
+    require_aligned("moe_decode", x, w_gate, w_up, w_down)
     out = torch.empty(b, d, dtype=torch.float32, device=x.device)
     if b == 0 or k == 0:
         return out.zero_()
-    lib = _lib()
-    if b * k > lib.moe_decode_max_assignments():
+    if b * k > MAX_ASSIGN:
         raise ValueError(f"moe_decode: {b * k} assignments, at most "
-                         f"{lib.moe_decode_max_assignments()}")
+                         f"{MAX_ASSIGN}")
+    lib = _lib()
     hidden = torch.empty(b * k, h, dtype=torch.float32, device=x.device)
     tok = torch.empty(b * k, d, dtype=torch.float32, device=x.device)
     rc = lib.moe_decode_launch(

@@ -1,7 +1,8 @@
-"""The tile and split choices of the port's two GEMM kernels
-(``csrc/gemm.cu``), which run only on the card: ``gemm_plan`` (the bf16
-and int8-weight tensor-core kernel) and ``f32_plan`` (the fp32 kernel of
-the routers, ``w_if`` and ``gemm_heads``).
+"""The tile and split choices of the port's GEMM kernels, which run only
+on the card: ``gemm_plan`` (the bf16 and int8-weight tensor-core kernel
+of ``csrc/gemm.cu``), ``f32_plan`` (its fp32 kernel of the routers,
+``w_if`` and ``gemm_heads``) and ``int8_plan`` (the W8A8 kernel of
+``csrc/gemm_int8.cu``, which quantizes the activations itself).
 
 A row's bits must not depend on how many rows share a launch (the serve
 engine's token identity with the one-request loop rests on it), so the
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.kernels.gemm import ops
 from repro_torch.kernels.gemm.ops import (HEAD_MAJOR, LHD, LHD_TRANSPOSED,
-                                          f32_plan, gemm_plan)
+                                          f32_plan, gemm_plan, int8_plan)
 from repro_torch.kernels.gemm.ref import WeightQ
 
 # The decode GEMMs (x [4, K] @ w [K, N], bf16) of each served model at
@@ -56,6 +57,7 @@ def test_plans_take_no_m():
     assert list(inspect.signature(gemm_plan).parameters) == ["n", "k", "wq"]
     assert list(inspect.signature(f32_plan).parameters) == [
         "n", "k", "h", "layout", "w_bf16"]
+    assert list(inspect.signature(int8_plan).parameters) == ["n", "k"]
 
 
 class _FakeLib:
@@ -75,6 +77,7 @@ def _stub_card(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(ops, "require_cuda", lambda *a: None)
     monkeypatch.setattr(ops, "_lib", lambda: lib)
+    monkeypatch.setattr(ops, "_lib_int8", lambda: lib)
     monkeypatch.setattr(ops, "stream_ptr", lambda t: 0)
     return lib
 
@@ -308,4 +311,171 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
     with pytest.raises(err, match=match):
         call()
     assert (ops.gemm.launches, ops.gemm_heads.launches) == before
+    assert not lib.calls
+
+
+# ----- the W8A8 kernel (csrc/gemm_int8.cu) -----------------------------------
+
+# yi-9b's W8A8 decode GEMMs (K, N): projections, MLP, unembedding
+INT8_SHAPES = BF16_SHAPES["yi-9b"]
+# gemm_int8_launch(x, wq, ws, bias, out, part, arrived, xq, xs, M, N, K,
+# act, bn, kc, parts, stream)
+_I8_M, _I8_PLAN, _I8_SCRATCH, _I8_XQ = 9, slice(13, 16), slice(5, 7), \
+    slice(7, 9)
+
+
+def _launch_int8(m, k=4096, n=4096, bias=False, activation="silu"):
+    """One W8A8 wrapper call at M = m on CPU tensors (the card stubbed
+    out), on a WeightQ."""
+    w = WeightQ(torch.zeros(k, n, dtype=torch.int8), torch.ones(1, n))
+    return ops.gemm_int8(torch.zeros(m, k, dtype=torch.bfloat16), w,
+                         torch.zeros(n) if bias else None, activation)
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES + ((1000, 300),))
+def test_int8_wrapper_passes_one_plan_for_every_m(shape, monkeypatch):
+    """The C entry point gets the plan of (N, K) whatever the number of
+    rows; only M changes, and each call counts one launch of
+    ``gemm_int8``."""
+    lib = _stub_card(monkeypatch)
+    k, n = shape
+    seen = set()
+    for m in ROWS:
+        before = ops.gemm_int8.launches
+        out = _launch_int8(m, k, n, bias=(k, n) == (1000, 300))
+        assert out.shape == (m, n) and out.dtype == torch.bfloat16
+        assert ops.gemm_int8.launches == before + 1
+        name, args = lib.calls[-1]
+        assert name == "gemm_int8_launch"
+        assert args[_I8_M] == m and args[10:12] == (n, k)
+        # the quantized rows' scratch: only beyond one M tile (a prefill)
+        assert (None in args[_I8_XQ]) == (m <= ops.INT8_MT), (m, args)
+        seen.add(args[_I8_PLAN])
+    assert seen == {tuple(int8_plan(n, k))}
+    assert len(lib.calls) == len(ROWS)
+
+
+def test_int8_wrapper_runs_no_torch_op_on_x(monkeypatch):
+    """With a WeightQ the activations go to the kernel as they are: the
+    wrapper never quantizes them (the kernel does), so neither
+    ``quantize_int8`` nor ``int8_operands`` is called, and x is passed by
+    its own pointer. A bare floating-point w is still quantized per column
+    in PyTorch, and only it."""
+    from repro_torch.kernels.gemm import ref
+
+    lib = _stub_card(monkeypatch)
+
+    def refuse(*a, **k):
+        raise AssertionError("the W8A8 wrapper quantized in PyTorch")
+    monkeypatch.setattr(ops, "quantize_int8", refuse)
+    monkeypatch.setattr(ref, "quantize_int8", refuse)
+    monkeypatch.setattr(ref, "int8_operands", refuse)
+    x = torch.zeros(4, 4096, dtype=torch.bfloat16)
+    w = WeightQ(torch.zeros(4096, 512, dtype=torch.int8), torch.ones(1, 512))
+    ops.gemm_int8(x, w)
+    args = lib.calls[-1][1]
+    assert args[0] == x.data_ptr() and args[1] == w.q.data_ptr()
+    assert args[2] == w.scale.data_ptr()
+    seen = []
+
+    def per_column(t, dim):
+        seen.append(dim)
+        return torch.zeros(t.shape, dtype=torch.int8), torch.ones(1, t.shape[1])
+    monkeypatch.setattr(ops, "quantize_int8", per_column)
+    ops.gemm_int8(x, torch.zeros(4096, 512, dtype=torch.bfloat16))
+    assert seen == [0]
+    assert lib.calls[-1][1][0] == x.data_ptr()
+
+
+def test_int8_plans_fill_the_card():
+    """>= 128 blocks at every yi-9b W8A8 decode shape (one launch of at
+    most 16 rows), with no more K ranges than the plan's target of 256
+    blocks (two an SM) takes."""
+    for k, n in INT8_SHAPES:
+        p = int8_plan(n, k)
+        assert p.blocks(n) >= 128, (k, n, p)
+        if p.parts > 1:
+            fewer = math.ceil(n / p.bn) * (p.parts - 1)
+            assert fewer < ops.INT8_BLOCKS, (k, n, p)
+
+
+def test_int8_plans_are_launchable():
+    """The constraints gemm_int8_launch checks and its shared memory
+    relies on, over a spread of shapes: 64 or 128 columns a block; a K
+    range a whole number of ring stages (8192 / bn rows), at most 8192
+    rows; the ranges cover K with none empty; the ring and 16 rows of
+    quantized x fit the 227 KB a block may have."""
+    rng = np.random.default_rng(1)
+    shapes = list(INT8_SHAPES) + [(int(a), int(b)) for a, b in
+                                  rng.integers(1, 40000, size=(300, 2))]
+    for k, n in shapes:
+        p = int8_plan(n, k)
+        assert p.bn in (64, 128)
+        bk = ops.INT8_STAGE // p.bn
+        assert p.kc % bk == 0 and 0 < p.kc <= ops.INT8_MAX_KC
+        assert p.kc * p.parts >= k > p.kc * (p.parts - 1), (k, n, p)
+        smem = 4 * ops.INT8_STAGE + ops.INT8_MT * (p.kc + 16)
+        assert smem + 64 <= 232448
+
+
+def test_int8_scratch_only_where_k_is_split_and_kept(monkeypatch):
+    """The split W8A8 kernel gets int32 sums and arrival counters, zeroed
+    once and kept across calls (the kernel leaves them zero), grown with M;
+    an unsplit plan (the 4096 -> 64000 unembedding) gets none."""
+    lib = _stub_card(monkeypatch)
+    monkeypatch.setattr(ops, "_SCRATCH_INT8", {})
+    ptrs = []
+    for m in (4, 4, 1, 128):
+        _launch_int8(m)
+        ptrs.append(lib.calls[-1][1][_I8_SCRATCH])
+    assert all(None not in p for p in ptrs)
+    assert ptrs[0] == ptrs[1] == ptrs[2]
+    (part, arrived), = ops._SCRATCH_INT8.values()
+    plan = int8_plan(4096, 4096)
+    assert plan.parts > 1
+    assert part.numel() >= 128 * 4096 and part.dtype == torch.int32
+    assert arrived.numel() >= (128 // ops.INT8_MT) * math.ceil(4096 / plan.bn)
+    assert not part.any() and not arrived.any()
+    _launch_int8(4, 4096, 64000, activation="none")
+    assert int8_plan(64000, 4096).parts == 1
+    assert lib.calls[-1][1][_I8_SCRATCH] == (None, None)
+
+
+_INT8_REFUSALS = {
+    "fp32 x": (TypeError, "takes bf16 x",
+               lambda: ops.gemm_int8(torch.zeros(4, 64), WeightQ(
+                   torch.zeros(64, 32, dtype=torch.int8),
+                   torch.ones(1, 32)))),
+    "shapes": (ValueError, "against w",
+               lambda: ops.gemm_int8(torch.zeros(4, 64, dtype=torch.bfloat16),
+                                     WeightQ(torch.zeros(32, 64,
+                                                         dtype=torch.int8),
+                                             torch.ones(1, 64)))),
+    "scale": (ValueError, "scale",
+              lambda: ops.gemm_int8(torch.zeros(4, 64, dtype=torch.bfloat16),
+                                    WeightQ(torch.zeros(64, 32,
+                                                        dtype=torch.int8),
+                                            torch.ones(1, 16)))),
+    "activation": (ValueError, "unknown activation",
+                   lambda: _launch_int8(4, activation="tanh")),
+    "bias": (ValueError, "bias",
+             lambda: ops.gemm_int8(torch.zeros(4, 64, dtype=torch.bfloat16),
+                                   WeightQ(torch.zeros(64, 32,
+                                                       dtype=torch.int8),
+                                           torch.ones(1, 32)),
+                                   torch.zeros(31))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_INT8_REFUSALS))
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(case,
+                                                            monkeypatch):
+    """With the device check stubbed out, the W8A8 wrapper raises before
+    it launches, and counts no launch."""
+    lib = _stub_card(monkeypatch)
+    err, match, call = _INT8_REFUSALS[case]
+    before = ops.gemm_int8.launches
+    with pytest.raises(err, match=match):
+        call()
+    assert ops.gemm_int8.launches == before
     assert not lib.calls

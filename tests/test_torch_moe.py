@@ -243,3 +243,96 @@ def test_apply_moe_decode_live_rows_ignore_dead_slots():
     for i in (0, 2, 3):
         assert torch.equal(y[i], y2[i])
     assert torch.isfinite(y).all()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's block plan (csrc/moe_decode.cu runs only on the card)
+# ---------------------------------------------------------------------------
+
+# (d, h, experts, top-k, experts a 4-slot step touches on the card): the
+# served MoE shapes at full width, with the touched counts chip_smoke.py's
+# routing reads (PERF.md section 6, row 8)
+MOE_SHAPES = {"deepseek-v2-lite-16b": (2048, 1408, 64, 6, 20),
+              "jamba-v0.1-52b": (4096, 14336, 16, 2, 5)}
+SMS, SMEM_PER_BLOCK = 132, 232448
+
+
+def test_moe_plan_takes_no_batch_or_k():
+    import inspect
+
+    from repro_torch.kernels.moe_decode.ops import moe_plan
+    assert list(inspect.signature(moe_plan).parameters) == ["d", "h"]
+
+
+@pytest.mark.parametrize("model", sorted(MOE_SHAPES))
+def test_moe_plan_fits_and_fills_the_card(model):
+    """Each pass's shared memory (the ring, the expert bitmap, the
+    assignment list) fits the 227 KB a block may have, in bf16 and fp32;
+    at a 4-slot step the touched experts' tiles give each pass at least
+    two blocks an SM, and one slot's K experts give the up pass (two
+    thirds of the bytes) at least one."""
+    from repro_torch.kernels.moe_decode.ops import moe_plan, moe_smem
+    d, h, e, k, touched = MOE_SHAPES[model]
+    plan = moe_plan(d, h)
+    for itemsize in (2, 4):
+        assert max(moe_smem(itemsize)) <= SMEM_PER_BLOCK, itemsize
+    up, down = plan.blocks(touched)
+    assert up >= 2 * SMS and down >= 2 * SMS, (model, plan, up, down)
+    assert plan.blocks(k)[0] >= SMS, (model, plan)
+    assert plan == (-(-h // 64), -(-d // 64))
+
+
+def _stub_moe(monkeypatch):
+    from repro_torch.kernels.moe_decode import ops as md
+
+    calls = []
+
+    class _Lib:
+        def moe_decode_launch(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(md, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(md, "_lib", lambda: _Lib())
+    monkeypatch.setattr(md, "stream_ptr", lambda t: 0)
+    return md, calls
+
+
+def _moe_call(md, b, k=6, e=64, d=2048, h=1408):
+    bf = torch.bfloat16
+    return md.moe_decode(torch.zeros(b, d, dtype=bf),
+                         torch.zeros(b, k, dtype=torch.int32),
+                         torch.ones(b, k), torch.zeros(e, d, h, dtype=bf),
+                         torch.zeros(e, d, h, dtype=bf),
+                         torch.zeros(e, h, d, dtype=bf))
+
+
+def test_moe_wrapper_passes_one_plan_for_every_batch(monkeypatch):
+    """The C entry point's tiles are one constant: whatever B, it gets the
+    same integers but B (no plan argument a batch could move), and each
+    call counts one launch."""
+    md, calls = _stub_moe(monkeypatch)
+    seen = set()
+    for b in (1, 4, 8):
+        before = md.moe_decode.launches
+        out = _moe_call(md, b)
+        assert out.shape == (b, 2048) and out.dtype == torch.float32
+        assert md.moe_decode.launches == before + 1
+        args = calls[-1]
+        assert len(args) == 16 and args[9] == b
+        seen.add(args[10:15])
+    assert seen == {(6, 64, 2048, 1408, 1)}
+
+
+@pytest.mark.parametrize("case", ["d not a multiple of 8", "too many experts",
+                                  "too many assignments"])
+def test_moe_wrapper_refuses_what_the_kernel_does_not_take(case,
+                                                           monkeypatch):
+    md, calls = _stub_moe(monkeypatch)
+    before = md.moe_decode.launches
+    kw = {"d not a multiple of 8": dict(d=36, h=16, e=4, k=2),
+          "too many experts": dict(d=16, h=16, e=md.MAX_EXPERTS + 1, k=2),
+          "too many assignments": dict(d=16, h=16, e=4, k=2)}[case]
+    b = md.MAX_ASSIGN // 2 + 1 if case == "too many assignments" else 4
+    with pytest.raises(ValueError, match="multiples of 8|experts|assignments"):
+        _moe_call(md, b, **kw)
+    assert md.moe_decode.launches == before and not calls

@@ -127,6 +127,35 @@ def test_quantize_int8_matches_jax(dim):
         assert q[0, :4].tolist() == [127, 2, -4, 0]
 
 
+@pytest.mark.parametrize("dim", [-1, 0])
+def test_quantize_int8_divides_as_jax_writes_it(dim):
+    """On random rows (no forced 127), where the quotient max(amax, 1e-8)
+    / 127 and the product with fl(1/127) give different scales in some
+    rows, the port follows ``quantize_int8`` as JAX writes it (a division,
+    as JAX computes it op by op) bitwise. Under ``jax.jit`` XLA may turn
+    the division by the constant into that product: the jitted scales may
+    then differ from the port's, and only in those rows."""
+    x = np.random.default_rng(8).normal(size=(512, 96)).astype(np.float32)
+    x *= np.random.default_rng(9).uniform(0.01, 10.0, size=(512, 1)
+                                          ).astype(np.float32)
+    if dim == 0:
+        x = np.ascontiguousarray(x.T)
+    q, s = quantize_int8(torch.from_numpy(x), dim=dim)
+    jq, js = jref.quantize_int8(jnp.asarray(x), axis=dim)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    amax = np.maximum(np.abs(x).max(axis=dim, keepdims=True),
+                      np.float32(1e-8))
+    moved = amax / np.float32(127) != amax * (np.float32(1) / np.float32(127))
+    assert moved.any()          # the data tells the two roundings apart
+    tq, ts = jax.jit(lambda a: jref.quantize_int8(a, axis=dim))(
+        jnp.asarray(x))
+    differs = s.numpy() != np.asarray(ts)
+    assert not (differs & ~moved).any()
+    kept = np.broadcast_to(~moved, x.shape)
+    np.testing.assert_array_equal(q.numpy()[kept], np.asarray(tq)[kept])
+
+
 # ----- the GEMMs -------------------------------------------------------------
 
 
