@@ -108,15 +108,21 @@ attention at K1 = 2 and 4; and the precise (MLA) paged
 decode kernel against its plain version, bitwise against the contiguous
 precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
-cache_pos kept out. Each decode-attention kernel's time line names its
-block plan (``decode_plan`` / ``mla_plan``, read from the card's
-library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
+cache_pos kept out. rmsnorm is held at every shape the serving path gives
+it (the layer norms, exit heads, MLA ``kv_norm`` and xLSTM norms at 4
+live slots, and [128, 4096]), its line naming its thread map
+(``rmsnorm_plan``), and, bitwise, the rows of an M = 4 launch equal their
+M = 1 launches, rows of an M = 128 launch their M = 4 launch, and an input
+at a 2-element offset its aligned copy. Each decode-attention kernel's
+time line names its block plan (``decode_plan`` / ``mla_plan``, read
+from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
 line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each model
 also has three decode chunks timed by the host clock and one traced per
-engine (``decode step`` lines, with the device kernels a step and the
-GEMM, decode-attention and MoE kernels' shares), paged beside contiguous;
+engine (``decode step`` lines, with the device kernels a step, the GEMM,
+decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
+step's ms and launches a step), paged beside contiguous;
 yi-9b's weight-only and W8A8 engines are also timed in turns (``host
 clock in turns``).
 
@@ -298,7 +304,9 @@ def check_kernels(torch, timer):
             lambda: rn.rmsnorm(x, sc), lambda: rmsnorm_ref(x, sc),
             lambda: F.rms_norm(x, (4096,), sc.to(bf16), 1e-5),
             2 * 128 * 4096 * 2 + 4096 * 4, 4 * 128 * 4096, "bfloat16",
-            1e-2, 1e-2, representative=True)
+            1e-2, 1e-2, representative=True,
+            plan=rn.rmsnorm_plan(4096, bf16))
+    check_rmsnorm(torch, compare)
 
     # flash attention: fp32 online softmax (P rounded to bf16 for the
     # tensor cores) vs the materialized fp32 softmax, bf16 output: one
@@ -355,6 +363,85 @@ def check_kernels(torch, timer):
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True)
     return records
+
+
+def check_rmsnorm(torch, compare):
+    """Phase 2 for rmsnorm at every other shape the serving path gives it
+    (4 live slots at decode): yi-9b's and jamba's layer norms [4, 4096]
+    bf16 with an fp32 scale, the exit head's with a bf16 scale, deepseek's
+    [4, 2048] (and its exit head's) and its ``kv_norm`` [4, 512], xlstm's
+    block norms [4, 1024], its mLSTM head norm [16, 512] fp32 with a unit
+    scale and its sLSTM norm [4, 1024] fp32; each line names the kernel's
+    thread map. A call at decode sits under the cold-L2 timer's floor (~8.5
+    us), so these times say little (``kernel_ab.py --kernel rmsnorm`` and
+    the decode-step traces time it). Bitwise, at [*, 4096] bf16 (both
+    scales) and the other served widths: the rows of an M = 4 launch == their
+    M = 1 launches, rows 60-63 of an M = 128 launch == the M = 4 launch of
+    those rows, and an input at a 2-element offset (not 16-byte aligned:
+    the kernel's scalar loads) == its aligned copy. Inputs from a generator
+    of their own, so that the later phases draw what they drew before."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def inputs(m, d, dt, sdt):
+        x = (torch.randn(m, d, generator=g, device="cuda") * 3).to(dt)
+        sc = (torch.ones(d, device="cuda") if sdt is None else torch.randn(
+            d, generator=g, device="cuda")).to(sdt or f32)
+        return x, sc
+
+    # (M, d, x dtype, scale dtype (None: a unit fp32 scale), where)
+    for m, d, dt, sdt, what in (
+            (4, 4096, bf16, f32, "yi-9b / jamba layer norms"),
+            (4, 4096, bf16, bf16, "exit head"),
+            (4, 2048, bf16, f32, "deepseek layer norms"),
+            (4, 2048, bf16, bf16, "deepseek exit head"),
+            (4, 512, bf16, f32, "deepseek kv_norm"),
+            (4, 1024, bf16, f32, "xlstm block norms"),
+            (16, 512, f32, None, "xlstm mLSTM head norm"),
+            (4, 1024, f32, f32, "xlstm sLSTM norm")):
+        x, sc = inputs(m, d, dt, sdt)
+        # bf16 output: one bf16 ulp; fp32 output: rsqrt and summation order
+        tol = 1e-2 if dt == bf16 else 1e-4
+        compare("rmsnorm", f"[{m}, {d}] {what}",
+                lambda x=x, sc=sc: rn.rmsnorm(x, sc),
+                lambda x=x, sc=sc: rmsnorm_ref(x, sc),
+                lambda x=x, sc=sc, d=d: F.rms_norm(x, (d,), sc.to(x.dtype),
+                                                   1e-5),
+                2 * x.numel() * x.element_size() + d * sc.element_size(),
+                4 * x.numel(), "bfloat16" if dt == bf16 else "float32",
+                tol, tol, plan=rn.rmsnorm_plan(d, dt))
+
+    widths = []
+    for d, dt, sdt in ((4096, bf16, f32), (4096, bf16, bf16),
+                       (2048, bf16, f32), (1024, bf16, f32), (512, bf16, f32),
+                       (512, f32, f32), (1024, f32, f32)):
+        x, sc = inputs(128, d, dt, sdt)
+        full = rn.rmsnorm(x, sc)
+        four = rn.rmsnorm(x[:4].contiguous(), sc)
+        for i in range(4):
+            assert torch.equal(four[i:i + 1], rn.rmsnorm(
+                x[i:i + 1].contiguous(), sc)), ("rmsnorm M=1", d, dt, i)
+        assert torch.equal(full[:4], four), ("rmsnorm M=128", d, dt)
+        assert torch.equal(full[60:64], rn.rmsnorm(x[60:64].contiguous(),
+                                                   sc)), ("rmsnorm", d, dt)
+        buf = torch.empty(4 * d + 2, dtype=dt, device="cuda")
+        buf[2:] = x[:4].reshape(-1)
+        xu = buf[2:].view(4, d)
+        assert xu.data_ptr() % 16, "the offset input is 16-byte aligned"
+        assert torch.equal(rn.rmsnorm(xu, sc), four), ("rmsnorm offset", d,
+                                                       dt)
+        widths.append(f"{d} {'bf16' if dt == bf16 else 'fp32'}"
+                      f"{' (bf16 scale)' if sdt == bf16 else ''}")
+    torch.cuda.synchronize()
+    print(f"bitwise: rmsnorm rows of an M = 4 launch == their M = 1 "
+          f"launches, rows 60-63 of an M = 128 launch == their M = 4 "
+          f"launch, an input at a 2-element offset == its aligned copy, at "
+          f"d = {widths}", flush=True)
 
 
 def check_flash_padding(torch, randn, hkv: int, dqk: int):
@@ -579,7 +666,8 @@ def check_gemm_rows(torch, randn):
     torch.cuda.synchronize()
     print(f"bitwise: row i of a launch of M = 4, 16, 20, 128 == its M = 1 "
           f"launch for {[name for name, _, _ in cases]}", flush=True)
-    for stem in ("gemm", "gemm_int8", "moe_decode"):
+    for stem in ("gemm", "gemm_int8", "moe_decode", "mlstm_decode",
+                 "rmsnorm"):
         for line in ptxas_usage(stem):
             print(line, flush=True)
 
@@ -1501,11 +1589,12 @@ def profile_decode(torch, name, engine, params, prompts):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         cache, st, traced = timed_chunk(torch, engine, params, cache, st)
-    per, calls = {}, 0
+    per, count, calls = {}, {}, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0 and e.device_type.name == "CUDA":
             per[e.key] = per.get(e.key, 0.0) + t / 1e3 / engine.chunk
+            count[e.key] = count.get(e.key, 0) + e.count / engine.chunk
             if not e.key.startswith(("Memcpy", "Memset")):
                 calls += e.count
     dev = sum(per.values())
@@ -1527,6 +1616,13 @@ def profile_decode(torch, name, engine, params, prompts):
     moe = sum(v for k, v in per.items()
               if any(s in k for s in ("moe::moe_pass_kernel<",
                                       "moe::moe_combine_kernel")))
+    # rmsnorm's and the mLSTM step's kernels: ms and launches a step
+    named = {}
+    for label, sub in (("rmsnorm", "rmsnorm_kernel<"),
+                       ("mLSTM", "mlstm_decode_kernel")):
+        keys = [k for k in per if sub in k]
+        named[label] = (sum(per[k] for k in keys),
+                        sum(count[k] for k in keys))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     # the host's side of the traced step: self time and calls a step of
     # the costliest host ops (profiled, so larger than untraced)
@@ -1536,7 +1632,9 @@ def profile_decode(torch, name, engine, params, prompts):
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
             f"untraced step, {kernels:.1f} device kernels a step, GEMM "
             f"kernels {gemm:.3f} ms, decode attention {attn:.3f} ms, MoE "
-            f"kernels {moe:.3f} ms" if dev > 0 else
+            f"kernels {moe:.3f} ms, "
+            + ", ".join(f"{k} {v:.3f} ms ({n:.1f} launches)"
+                        for k, (v, n) in named.items()) if dev > 0 else
             "device time not measured (the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
           f"{3 * engine.chunk} steps in 3 chunks of {engine.chunk}, a chunk "

@@ -10,9 +10,12 @@ the plain version), and timed in turns.
     python3 kernel_ab.py --baseline DIR --kernel attention
     python3 kernel_ab.py --baseline DIR --kernel gemm
     python3 kernel_ab.py --baseline DIR --kernel gemm_heads
+    python3 kernel_ab.py --baseline DIR --kernel mlstm_decode
+    python3 kernel_ab.py --baseline DIR --kernel rmsnorm
 
-DIR is the root of another checkout. For the decode-attention, flash
-and ``moe_decode`` modes its ``csrc/<kernel>.cu`` is built with this
+DIR is the root of another checkout. For the decode-attention, flash,
+``moe_decode``, ``mlstm_decode`` and ``rmsnorm`` modes its
+``csrc/<kernel>.cu`` is built with this
 checkout's nvcc flags into ``build/ab/`` and called through its C entry
 point (the same signature); this checkout's kernel runs through its
 wrapper. The GEMM modes call each checkout's own wrapper instead, so they
@@ -74,15 +77,38 @@ the fp32 kernel's split of K changes its sums by design. The W8A8 cases
 (``gemm_int8``: yi-9b's five shapes at M = 4, 16 and 128, and M = 5, K =
 1000, N = 300 with a bias) hold each side's own ``gemm_int8`` against
 ``gemm_w8a8_ref``: the integer sums are exact in any order and the
-epilogue is fixed, so their bits must equal the baseline's too, except in
-rows where a baseline that quantized x in PyTorch rounded the
-activations' scale otherwise (its CUDA division by the host scalar 127.0
-multiplies by the reciprocal; JAX's function as written and the kernel
-divide):
-those rows are counted and reported, and no other row may differ.
+epilogue is fixed, so their bits must equal the baseline's too, on every
+row.
 
-Times are medians of 20 cold-L2 calls each (CUDA events): one JSON line
-per shape, then the card's name and power limit.
+``mlstm_decode`` (the mLSTM mode of ``ssm_decode``): at xlstm-350m's
+serving shape (B = 4 slots, 4 heads, dh 512, fp32) and at B = 1. C', n'
+and m' must keep the baseline's bits (the exit code); h, whose sum over
+rows may take another order, is held on each side to the plain version
+within 1e-4 of the largest |h| plus 1e-4 |ref|, its bits equal or not
+beside it; baseline, change, change, baseline are timed, and traced with
+torch.profiler for the device's own time a call (``traced_us``; the
+events' reading also holds the launch and the flush's aftermath); beside
+them, PyTorch's copy of C (``copy_ms``, ``copy_traced_us``), which moves
+the same bytes.
+
+``rmsnorm``: at every shape the serving path gives it (yi-9b's and
+jamba's layer norms [4, 4096] bf16 with an fp32 scale, the exit head's
+with a bf16 scale, deepseek's [4, 2048] and its ``kv_norm`` [4, 512],
+xlstm's block norms [4, 1024], its mLSTM head norm [16, 512] fp32 with a
+unit scale and its sLSTM norm [4, 1024] fp32) and at yi-9b's prefill of
+128 tokens [128, 4096]: each side's max abs error against the plain
+version (held to 1e-2 + 1e-2 |ref| for bf16 outputs, one bf16 ulp, and
+1e-4 + 1e-4 |ref| for fp32; the exit code), bits equal or not (the
+reduction's order changed by design). A call at decode takes a few
+microseconds, under the cold-L2 timer's floor (6-9 us a call whatever the
+kernel does), so each side is also timed as one CUDA graph of 100
+back-to-back launches on the same inputs, replayed (us a launch, the
+inputs warm in L2 as the decode step leaves x), in turns baseline,
+change, change, baseline; and 100 eager launches of each side are traced
+with torch.profiler for the device's own time a launch (``traced_us``).
+
+Times are medians of 20 cold-L2 calls each (CUDA events) unless said
+otherwise: one JSON line per shape, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -147,6 +173,13 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
         lib.attn_decode_mla_launch.argtypes = [p] * 6 + [
             i, i, i, ctypes.c_float, i, p]
         lib.attn_decode_mla_launch.restype = i
+    elif kernel == "mlstm_decode":
+        lib.mlstm_decode_launch.argtypes = [p] * 12 + [i] * 3 + [p]
+        lib.mlstm_decode_launch.restype = i
+    elif kernel == "rmsnorm":
+        lib.rmsnorm_launch.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
+                                       p]
+        lib.rmsnorm_launch.restype = i
     else:
         lib.moe_decode_launch.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.moe_decode_launch.restype = i
@@ -161,7 +194,8 @@ def main() -> int:
     ap.add_argument("--kernel", choices=("attn_decode", "attn_decode_mla",
                                          "moe_decode", "verify_decode",
                                          "attention", "gemm",
-                                         "gemm_heads"),
+                                         "gemm_heads", "mlstm_decode",
+                                         "rmsnorm"),
                     default="attn_decode")
     # one process of a GEMM A/B (``ab_gemm`` starts them): the wrapper of
     # the checkout at --baseline, outputs to --save
@@ -187,13 +221,14 @@ def main() -> int:
                                          PAGED_SOURCE[args.kernel]))
         ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
               "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
-              "attention": ab_attention}[args.kernel]
+              "attention": ab_attention, "mlstm_decode": ab_mlstm,
+              "rmsnorm": ab_rmsnorm}[args.kernel]
         rows = ab(torch, base, Timer(torch))
     print(card_line())
     # the decode kernels keep each row's arithmetic ("bitwise": the
-    # baseline's bits, contiguous and paged), and the bf16 and int8-weight
-    # GEMM keep one K order (k16 steps from 0): their bits must equal the
-    # baseline's
+    # baseline's bits, contiguous and paged), the bf16, int8-weight and
+    # W8A8 GEMMs keep one K order (k16 steps from 0) and mlstm_decode its
+    # state's expressions: their bits must equal the baseline's
     ok = all((r["bitwise"] if "bitwise" in r else r["within_tol"])
              and (not r.get("bits_required") or r["bits_equal"])
              for r in rows)
@@ -561,28 +596,13 @@ def ab_gemm(torch, baseline: Path, kernel: str):
             err = (outs[side][i].float() - want).abs()
             errs[side] = float(err.max())
             ok = ok and bool((err <= tol + tol * want.abs()).all())
-        bits_equal = torch.equal(outs["baseline"][i], outs["change"][i])
-        moved_rows = 0
-        if not bits_equal and case[-1].startswith("w8a8"):
-            # a baseline that quantized x in PyTorch, where the card's
-            # division of a tensor by a host scalar (``amax / 127.0``)
-            # multiplies by the reciprocal: its scale differs from the
-            # quotient (JAX's function as written, and this kernel's) in
-            # ~4% of rows.
-            # Such rows alone may differ; every other row keeps its bits
-            amax = x.float().abs().amax(-1, keepdim=True).clamp_min(1e-8)
-            moved = (amax / 127.0 != amax / amax.new_full((), 127.0)
-                     ).reshape(-1).cpu()
-            same = (outs["baseline"][i] == outs["change"][i]).all(-1)
-            moved_rows = int((~same).sum())
-            bits_equal = bool((same | moved).all())
         del x, w
         row = dict(shape=case_label(kernel, case), within_tol=ok,
-                   bits_equal=bits_equal, bits_required=not fp32,
+                   bits_equal=torch.equal(outs["baseline"][i],
+                                          outs["change"][i]),
+                   bits_required=not fp32,
                    max_abs_err_baseline=errs["baseline"],
                    max_abs_err_change=errs["change"],
-                   **({"rows_differing_by_the_baselines_scale": moved_rows}
-                      if moved_rows else {}),
                    baseline_ms=[r["ms"][i] for r in runs["baseline"]],
                    change_ms=[r["ms"][i] for r in runs["change"]])
         print(json.dumps(row), flush=True)
@@ -738,6 +758,206 @@ def ab_moe_decode(torch, base, timer):
             rows.append(row)
         del w
         torch.cuda.empty_cache()
+    return rows
+
+
+def ab_mlstm(torch, base, timer):
+    """mlstm_decode, baseline against change at xlstm-350m's serving shape
+    (4 slots, 4 heads, dh 512) and at one slot: C', n' and m' must keep
+    the baseline's bits (``bits_equal``, required); h is held on each side
+    to the plain version (1e-4 of the largest |h| + 1e-4 |ref|), its bits
+    equal or not beside it; baseline, change, change, baseline are timed
+    (cold L2), and traced for the device's own time a call; so is a
+    PyTorch copy of C, the same bytes moved."""
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.ssm_decode.ops import mlstm_decode
+    from repro_torch.kernels.ssm_decode.ref import mlstm_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    f32 = torch.float32
+    h, dh = 4, 512
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def run_base(q, k, v, li, lf, m, c, n):
+        b = q.shape[0]
+        h_out, c_new, n_new = (torch.empty_like(q), torch.empty_like(c),
+                               torch.empty_like(n))
+        m_new = torch.empty_like(m)
+        rc = base.mlstm_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(),
+            lf.data_ptr(), m.data_ptr(), c.data_ptr(), n.data_ptr(),
+            h_out.data_ptr(), c_new.data_ptr(), n_new.data_ptr(),
+            m_new.data_ptr(), b, h, dh, stream_ptr(q))
+        assert rc == 0, base.kernel_error_string(rc)
+        return h_out, (c_new, n_new, m_new)
+
+    rows = []
+    for b in (4, 1):
+        # the cell's scales, as chip_smoke.py's check_xlstm draws them
+        q, v = randn(b, h, dh), randn(b, h, dh)
+        k = randn(b, h, dh, scale=dh ** -0.5)
+        li = randn(b, h)
+        lf = torch.nn.functional.logsigmoid(3 + randn(b, h))
+        m = torch.rand(b, h, generator=gen, device="cuda", dtype=f32) * 6 - 4
+        c = randn(b, h, dh, dh, scale=4 * dh ** -0.5)
+        n = randn(b, h, dh, scale=4 * dh ** -0.5)
+        args = (q, k, v, li, lf, m, c, n)
+        want_h = mlstm_decode_ref(*args)[0]
+        got = {"baseline": run_base(*args), "change": mlstm_decode(*args)}
+        torch.cuda.synchronize()
+        h_scale = float(want_h.abs().max())
+        errs, ok = {}, True
+        for side, (h_out, _) in got.items():
+            err = (h_out - want_h).abs()
+            errs[side] = float(err.max())
+            ok = ok and bool((err <= 1e-4 * h_scale + 1e-4 * want_h.abs()
+                              ).all())
+        state_equal = all(torch.equal(x, y) for x, y in zip(
+            got["baseline"][1], got["change"][1]))
+        fns = (lambda: run_base(*args), lambda: mlstm_decode(*args),
+               lambda: mlstm_decode(*args), lambda: run_base(*args))
+        t = [timer(fn, iters=20) for fn in fns]
+        tr = [traced_us(torch, fn, "mlstm_decode_kernel", 20,
+                        timer.flush.zero_) for fn in fns]
+        # a yardstick that moves the same bytes: PyTorch's copy of C
+        c_copy = torch.empty_like(c)
+        copy_ms = timer(lambda: c_copy.copy_(c), iters=20)
+        copy_us = traced_us(torch, lambda: c_copy.copy_(c), "Memcpy", 20,
+                            timer.flush.zero_)
+        row = dict(shape=f"q[{b},{h},{dh}] C[{b},{h},{dh},{dh}] fp32",
+                   within_tol=ok, bits_equal=state_equal, bits_required=True,
+                   h_bits_equal=torch.equal(got["baseline"][0],
+                                            got["change"][0]),
+                   max_abs_err_h_baseline=errs["baseline"],
+                   max_abs_err_h_change=errs["change"], h_scale=h_scale,
+                   baseline_ms=[t[0], t[3]], change_ms=[t[1], t[2]],
+                   traced_us_baseline=[tr[0], tr[3]],
+                   traced_us_change=[tr[1], tr[2]], copy_ms=copy_ms,
+                   copy_traced_us=copy_us)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def traced_us(torch, fn, kernel: str, calls: int, flush=None) -> float:
+    """The device's own time a call of ``fn`` in the kernels (or copies)
+    whose name holds ``kernel``, by torch.profiler over ``calls`` calls
+    (each after ``flush()``, if given); None if the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    tot = cnt = 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            tot += getattr(e, "self_device_time_total", 0) or 0
+            cnt += e.count
+    return tot / calls if cnt else None
+
+
+# (M, d, x dtype, scale dtype, where the serving path calls it)
+RMSNORM_CASES = (
+    (4, 4096, "bf16", "fp32", "yi-9b / jamba layer norms"),
+    (4, 4096, "bf16", "bf16", "yi-9b exit head"),
+    (4, 2048, "bf16", "fp32", "deepseek layer norms"),
+    (4, 512, "bf16", "fp32", "deepseek kv_norm"),
+    (4, 1024, "bf16", "fp32", "xlstm block norms"),
+    (16, 512, "fp32", "unit", "xlstm mLSTM head norm"),
+    (4, 1024, "fp32", "fp32", "xlstm sLSTM norm"),
+    (128, 4096, "bf16", "fp32", "yi-9b prefill of 128 tokens"))
+# launches in one CUDA graph (and in one traced run) of the rmsnorm A/B
+GRAPH_LAUNCHES = 100
+
+
+def ab_rmsnorm(torch, base, timer):
+    """rmsnorm, baseline against change at every served shape
+    (RMSNORM_CASES): each side held to the plain version (one bf16 ulp for
+    bf16 outputs, 1e-4 for fp32), bits equal or not reported; the cold-L2
+    time of one call, us a launch of a replayed CUDA graph of 100 launches
+    and the traced device us a launch, in turns."""
+    from repro_torch.kernels._build import DTYPE_CODE, stream_ptr
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plan
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32,
+           "unit": torch.float32}
+    rows = []
+    for m, d, xdt, sdt, what in RMSNORM_CASES:
+        x = (torch.randn(m, d, generator=gen, device="cuda") * 3).to(dts[xdt])
+        sc = (torch.ones(d, device="cuda") if sdt == "unit" else torch.randn(
+            d, generator=gen, device="cuda")).to(dts[sdt])
+        out = torch.empty_like(x)
+
+        def run_base(x=x, sc=sc, out=out):
+            rc = base.rmsnorm_launch(
+                x.data_ptr(), sc.data_ptr(), out.data_ptr(), x.shape[0],
+                x.shape[1], 1e-5, DTYPE_CODE[x.dtype], DTYPE_CODE[sc.dtype],
+                stream_ptr(x))
+            assert rc == 0, base.kernel_error_string(rc)
+            return out
+
+        def run_new(x=x, sc=sc):
+            return rmsnorm(x, sc)
+
+        want = rmsnorm_ref(x, sc).float()
+        tol = 1e-2 if x.dtype == torch.bfloat16 else 1e-4
+        got = {"baseline": run_base().clone(), "change": run_new()}
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for side, o in got.items():
+            err = (o.float() - want).abs()
+            errs[side] = float(err.max())
+            ok = ok and bool((err <= tol + tol * want.abs()).all())
+        graphs = {}
+        for side, fn in (("baseline", run_base), ("change", run_new)):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(GRAPH_LAUNCHES):
+                    fn()
+            graphs[side] = g
+        torch.cuda.synchronize()
+
+        def graph_us(g):
+            g.replay()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(11):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                g.replay()
+                e.record()
+                e.synchronize()
+                times.append(s.elapsed_time(e) * 1e3 / GRAPH_LAUNCHES)
+            return sorted(times)[5]
+
+        order = ("baseline", "change", "change", "baseline")
+        fns = {"baseline": run_base, "change": run_new}
+        g_us = [graph_us(graphs[side]) for side in order]
+        cold = [timer(fns[side], iters=20) for side in order]
+        tr = [traced_us(torch, fns[side], "rmsnorm_kernel", GRAPH_LAUNCHES)
+              for side in order]
+        del graphs
+        row = dict(shape=f"[{m}, {d}] {xdt} x, {sdt} scale ({what}); "
+                   f"{rmsnorm_plan(d, x.dtype)}", within_tol=ok,
+                   bits_equal=torch.equal(got["baseline"], got["change"]),
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   graph_us_baseline=[g_us[0], g_us[3]],
+                   graph_us_change=[g_us[1], g_us[2]],
+                   traced_us_baseline=[tr[0], tr[3]],
+                   traced_us_change=[tr[1], tr[2]],
+                   baseline_ms=[cold[0], cold[3]],
+                   change_ms=[cold[1], cold[2]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 

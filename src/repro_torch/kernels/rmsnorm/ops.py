@@ -6,8 +6,8 @@ import ctypes
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import (check, dtype_code, library,
-                                        require_cuda, stream_ptr)
+from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
+                                        library, require_cuda, stream_ptr)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 
@@ -17,7 +17,18 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rmsnorm_launch.argtypes = [p, p, p, i, i, ctypes.c_float, i, i, p]
         lib.rmsnorm_launch.restype = i
+        lib.rmsnorm_threads_per_row.argtypes = [i, i]
+        lib.rmsnorm_threads_per_row.restype = i
     return lib
+
+
+def rmsnorm_plan(d: int, dtype: torch.dtype) -> str:
+    """The thread map the kernel takes for rows of d values of ``dtype``,
+    as the card's library computes it: threads a row and rows a block (a
+    row of fewer than 256 threads shares its block)."""
+    tpr = _lib().rmsnorm_threads_per_row(d, DTYPE_CODE[dtype])
+    rows = max(1, 256 // tpr)
+    return f"{tpr} threads a row, {rows} row{'s' if rows > 1 else ''} a block"
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,

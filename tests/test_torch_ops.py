@@ -81,17 +81,22 @@ def test_gemm_leading_dims_and_dispatch():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(5, 64), (3, 4, 48)])
+@pytest.mark.parametrize("shape", [(5, 64), (3, 4, 48), (4, 512), (4, 1024),
+                                   (4, 2048), (4, 4096)])
 def test_rmsnorm_matches_jax(shape, dtype):
+    """The reduced configs' widths and the served ones (4 live slots at d
+    = 512, 1024, 2048, 4096), with an fp32 scale (the layer norms) and a
+    scale in x's dtype (the exit heads: bf16 in a bf16 model)."""
     rng = np.random.default_rng(len(shape) * 7 + shape[-1])
     x, tx = _pair(rng.standard_normal(shape, np.float32) * 3.0, dtype)
     s = rng.standard_normal(shape[-1]).astype(np.float32)
-    out = rmsnorm_ref(tx, torch.from_numpy(s), 1e-5)
-    assert out.dtype == tx.dtype
-    js = jnp.asarray(s)
-    _close(out, [jax_rn_ref.rmsnorm_ref(x, js, 1e-5),
-                 jax_rn_ops.rmsnorm_pallas_op(x, js, 1e-5, interpret=True)],
-           dtype)
+    for sdt in dict.fromkeys(("float32", dtype)):
+        js, ts = _pair(s, sdt)
+        out = rmsnorm_ref(tx, ts, 1e-5)
+        assert out.dtype == tx.dtype
+        _close(out, [jax_rn_ref.rmsnorm_ref(x, js, 1e-5),
+                     jax_rn_ops.rmsnorm_pallas_op(x, js, 1e-5,
+                                                  interpret=True)], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
