@@ -1095,7 +1095,8 @@ def check_jamba(torch, compare, randn, gen):
     120-token prompt with and without h0, the Mamba decode step, dropless
     MoE decode at h = 14336, GQA attention at group 4 and the decode
     GEMMs. Bitwise: row b of a B = 4 launch of ssm_decode and moe_decode
-    == its B = 1 launch, and a scan of 57 then 63 tokens with the state
+    == its B = 1 launch, the decode step written in place (``out=h``) ==
+    its separate output, and a scan of 57 then 63 tokens with the state
     carried == the scan of all 120."""
     import torch.nn.functional as F
 
@@ -1186,16 +1187,23 @@ def check_jamba(torch, compare, randn, gen):
           + 1e-3).to(torch.bfloat16)
     bm, cm = randn(1, t, n), randn(1, t, n)
     h0 = randn(1, din, n, dtype=f32)
-    # (the engine's prefill hands the scan its zeroed cache state as h0)
-    for name, h_ in (("ssm_scan_no_h0", None), ("ssm_scan", h0)):
-        nbytes = (3 * 2 * t * din + 4 * din * n + 2 * 2 * t * n + 4 * din
+    # (the engine's prefill hands the scan its zeroed cache state as h0);
+    # the served prompts are 20-120 tokens: T = 20 and 57 end in a short
+    # chunk
+    for name, tt, h_ in (("ssm_scan", 20, h0), ("ssm_scan", 57, h0),
+                         ("ssm_scan_no_h0", t, None), ("ssm_scan", t, h0)):
+        nbytes = (3 * 2 * tt * din + 4 * din * n + 2 * 2 * tt * n + 4 * din
                   + 4 * din * n * (2 if h_ is not None else 1))
-        compare(name, f"u[1,{t},{din}] N={n}"
+        ut, dtt, bt, ct = (z[:, :tt] for z in (u, dt, bm, cm))
+        compare(name, f"u[1,{tt},{din}] N={n}"
                 f"{' h0' if h_ is not None else ''}",
-                lambda h_=h_: ss.ssm_scan(u, dt, a, bm, cm, dsk, h_),
-                lambda h_=h_: selective_scan_ref(u, dt, a, bm, cm, dsk, h_),
-                None, nbytes, 9 * t * din * n, "float32", (1e-2, 1e-4),
-                (1e-2, 1e-4), representative=h_ is not None)
+                lambda h_=h_, z=(ut, dtt, bt, ct): ss.ssm_scan(
+                    z[0], z[1], a, z[2], z[3], dsk, h_),
+                lambda h_=h_, z=(ut, dtt, bt, ct): selective_scan_ref(
+                    z[0], z[1], a, z[2], z[3], dsk, h_),
+                None, nbytes, 9 * tt * din * n, "float32", (1e-2, 1e-4),
+                (1e-2, 1e-4),
+                representative=(tt, h_ is not None) == (t, True))
     t1 = 57
     whole = ss.ssm_scan(u, dt, a, bm, cm, dsk, h0)
     y1, h1 = ss.ssm_scan(u[:, :t1].contiguous(), dt[:, :t1].contiguous(), a,
@@ -1212,12 +1220,24 @@ def check_jamba(torch, compare, randn, gen):
         b, din, generator=gen, device="cuda") * 0.099 + 1e-3
     bd_, cd_ = randn(b, n, dtype=f32), randn(b, n, dtype=f32)
     h = randn(b, din, n, dtype=f32)
-    compare("ssm_decode", f"x[{b},{din}] h[{b},{din},{n}] fp32",
-            lambda: sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h),
-            lambda: ssm_decode_ref(xs, g, a, bd_, cd_, dsk, h), None,
-            4 * (2 * b * din + din * n + 2 * b * n + din + b * din * n)
-            + 4 * (b * din + b * din * n), 8 * b * din * n, "float32",
-            (1e-4, 1e-4), (1e-4, 1e-4), representative=True)
+    for bb in (1, b):       # one slot, then the four of the serve runs
+        one = slice(0, bb)
+        compare("ssm_decode", f"x[{bb},{din}] h[{bb},{din},{n}] fp32",
+                lambda one=one: sd.ssm_decode(xs[one], g[one], a, bd_[one],
+                                              cd_[one], dsk, h[one]),
+                lambda one=one: ssm_decode_ref(xs[one], g[one], a, bd_[one],
+                                               cd_[one], dsk, h[one]), None,
+                4 * (2 * bb * din + din * n + 2 * bb * n + din + bb * din * n)
+                + 4 * (bb * din + bb * din * n), 8 * bb * din * n, "float32",
+                (1e-4, 1e-4), (1e-4, 1e-4), representative=bb == b)
+    # the step as the mixer calls it, writing the new state over the old:
+    # bitwise the separate output
+    sep = sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h)
+    h_in = h.clone()
+    y_in, h_ret = sd.ssm_decode(xs, g, a, bd_, cd_, dsk, h_in, out=h_in)
+    assert h_ret is h_in, "ssm_decode out"
+    assert torch.equal(y_in, sep[0]) and torch.equal(h_in, sep[1]), \
+        "ssm_decode in place"
     print("library: none for ssm_scan and ssm_decode (no single PyTorch "
           "call runs the selective-SSM recurrence)", flush=True)
 
@@ -1261,8 +1281,9 @@ def check_jamba(torch, compare, randn, gen):
     torch.cuda.empty_cache()
     print("bitwise: ssm_decode, moe_decode (h = 14336), attn_decode and "
           "attn_decode_paged (group of 4) rows of a B = 4 launch == their "
-          "B = 1 launches; ssm_scan of 57 then 63 tokens with the state "
-          "carried == the scan of 120", flush=True)
+          "B = 1 launches; ssm_decode in place == its separate output; "
+          "ssm_scan of 57 then 63 tokens with the state carried == the "
+          "scan of 120", flush=True)
 
 
 def check_xlstm(torch, compare, randn, gen):
@@ -1272,8 +1293,8 @@ def check_xlstm(torch, compare, randn, gen):
     GEMMs (the FFN's K = 1365 and N = 2730 take the element-wise load
     path) and the head-major ``gemm_heads`` of the block-diagonal q/k/v
     (bf16) and sLSTM recurrent (fp32) weights. Bitwise: row b of a B = 4
-    launch of mlstm_decode and head-major gemm_heads == its B = 1
-    launch."""
+    launch of mlstm_decode and head-major gemm_heads == its B = 1 launch,
+    and the step writing C' over C (``out=c``) == its separate output."""
     from repro_torch.kernels.gemm import ops as gm
     from repro_torch.kernels.gemm.ref import gemm_heads_ref, gemm_ref
     from repro_torch.kernels.ssm_decode import ops as sd
@@ -1345,8 +1366,16 @@ def check_xlstm(torch, compare, randn, gen):
     print("library: none for mlstm_decode (no single PyTorch call runs the "
           "mLSTM recurrence)", flush=True)
 
-    # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
+    # the step as the mixer calls it, C' written over C: bitwise the
+    # separate output (n' and m' new either way)
     full = flat(sd.ssm_decode(*args))
+    c_in = c.clone()
+    got = flat(sd.ssm_decode(q, k, v, li, lf, m, c_in, n, out=c_in))
+    assert got[1] is c_in, "mlstm_decode out"
+    for j, (x_, y_) in enumerate(zip(got, full)):
+        assert torch.equal(x_, y_), ("mlstm_decode in place", j)
+
+    # row independence, bitwise: row i of the B = 4 launch == B = 1 launch
     full_heads = {name: gm.gemm_heads(xh, wh, head_major=True)
                   for name, (xh, wh) in heads.items()}
     for i in range(b):
@@ -1359,7 +1388,8 @@ def check_xlstm(torch, compare, randn, gen):
                 xh[one], wh, head_major=True)), (name, i)
     torch.cuda.synchronize()
     print("bitwise: mlstm_decode (h, C', n', m') and head-major gemm_heads "
-          "rows of a B = 4 launch == their B = 1 launches", flush=True)
+          "rows of a B = 4 launch == their B = 1 launches; mlstm_decode "
+          "with C' written over C == its separate output", flush=True)
 
 
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
@@ -1616,10 +1646,13 @@ def profile_decode(torch, name, engine, params, prompts):
     moe = sum(v for k, v in per.items()
               if any(s in k for s in ("moe::moe_pass_kernel<",
                                       "moe::moe_combine_kernel")))
-    # rmsnorm's and the mLSTM step's kernels: ms and launches a step
+    # rmsnorm's, the mLSTM and Mamba steps' kernels and the device to
+    # device copies (recurrent state written back): ms and launches a step
     named = {}
     for label, sub in (("rmsnorm", "rmsnorm_kernel<"),
-                       ("mLSTM", "mlstm_decode_kernel")):
+                       ("mLSTM", "mlstm_decode_kernel"),
+                       ("Mamba decode", "mamba_decode_kernel"),
+                       ("Memcpy DtoD", "Memcpy DtoD")):
         keys = [k for k in per if sub in k]
         named[label] = (sum(per[k] for k in keys),
                         sum(count[k] for k in keys))

@@ -12,9 +12,12 @@ the plain version), and timed in turns.
     python3 kernel_ab.py --baseline DIR --kernel gemm_heads
     python3 kernel_ab.py --baseline DIR --kernel mlstm_decode
     python3 kernel_ab.py --baseline DIR --kernel rmsnorm
+    python3 kernel_ab.py --baseline DIR --kernel mamba_decode
+    python3 kernel_ab.py --baseline DIR --kernel ssm_scan
 
 DIR is the root of another checkout. For the decode-attention, flash,
-``moe_decode``, ``mlstm_decode`` and ``rmsnorm`` modes its
+``moe_decode``, ``mlstm_decode``, ``rmsnorm``, ``mamba_decode`` (its
+``csrc/ssm_decode.cu``) and ``ssm_scan`` modes its
 ``csrc/<kernel>.cu`` is built with this
 checkout's nvcc flags into ``build/ab/`` and called through its C entry
 point (the same signature); this checkout's kernel runs through its
@@ -107,6 +110,23 @@ inputs warm in L2 as the decode step leaves x), in turns baseline,
 change, change, baseline; and 100 eager launches of each side are traced
 with torch.profiler for the device's own time a launch (``traced_us``).
 
+``mamba_decode`` (the Mamba mode of ``ssm_decode``): at jamba-v0.1-52b's
+serving shape (B = 4 slots, d_inner 8192, d_state 16, fp32) and at B = 1.
+y and h' must keep the baseline's bits, from a separate output and
+written in place (``out=h``, as the mixer calls it): the exit code. Each
+side is held to the plain version within 1e-4 + 1e-4 |ref|. Baseline,
+change, change in place, change in place, change, baseline are timed
+(cold L2; at the timer's floor for a kernel this size) and traced for
+the device's own time a call (``traced_us``), beside PyTorch's copy of h
+(``copy_ms``, ``copy_traced_us``), which moves the same bytes.
+
+``ssm_scan``: at jamba-v0.1-52b's prefill, one prompt of 20, 57 and 120
+tokens (d_inner 8192, d_state 16, bf16 u, dt, B and C, with h0 as the
+engine passes it; at 120 also without). y and h_T must keep the
+baseline's bits (the exit code); each side is held to the plain version
+(y one bf16 ulp, h_T 1e-4 + 1e-4 |ref|); baseline, change, change,
+baseline are timed (cold L2) and traced (``traced_us``).
+
 Times are medians of 20 cold-L2 calls each (CUDA events) unless said
 otherwise: one JSON line per shape, then the card's name and power limit.
 """
@@ -176,6 +196,12 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
     elif kernel == "mlstm_decode":
         lib.mlstm_decode_launch.argtypes = [p] * 12 + [i] * 3 + [p]
         lib.mlstm_decode_launch.restype = i
+    elif kernel == "ssm_decode":
+        lib.mamba_decode_launch.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.mamba_decode_launch.restype = i
+    elif kernel == "ssm_scan":
+        lib.ssm_scan_launch.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.ssm_scan_launch.restype = i
     elif kernel == "rmsnorm":
         lib.rmsnorm_launch.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                        p]
@@ -195,7 +221,8 @@ def main() -> int:
                                          "moe_decode", "verify_decode",
                                          "attention", "gemm",
                                          "gemm_heads", "mlstm_decode",
-                                         "rmsnorm"),
+                                         "rmsnorm", "mamba_decode",
+                                         "ssm_scan"),
                     default="attn_decode")
     # one process of a GEMM A/B (``ab_gemm`` starts them): the wrapper of
     # the checkout at --baseline, outputs to --save
@@ -213,8 +240,8 @@ def main() -> int:
     if args.kernel in ("gemm", "gemm_heads"):
         rows = ab_gemm(torch, args.baseline.resolve(), args.kernel)
     else:
-        source = {"attention": "flash_attention"}.get(args.kernel,
-                                                      args.kernel)
+        source = {"attention": "flash_attention",
+                  "mamba_decode": "ssm_decode"}.get(args.kernel, args.kernel)
         base = build_baseline(args.baseline.resolve(), source)
         if args.kernel in PAGED_SOURCE:      # the baseline's paged kernel
             base = (base, build_baseline(args.baseline.resolve(),
@@ -222,13 +249,15 @@ def main() -> int:
         ab = {"attn_decode": ab_attn_decode, "attn_decode_mla": ab_mla,
               "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
               "attention": ab_attention, "mlstm_decode": ab_mlstm,
-              "rmsnorm": ab_rmsnorm}[args.kernel]
+              "rmsnorm": ab_rmsnorm, "mamba_decode": ab_mamba,
+              "ssm_scan": ab_scan}[args.kernel]
         rows = ab(torch, base, Timer(torch))
     print(card_line())
     # the decode kernels keep each row's arithmetic ("bitwise": the
     # baseline's bits, contiguous and paged), the bf16, int8-weight and
-    # W8A8 GEMMs keep one K order (k16 steps from 0) and mlstm_decode its
-    # state's expressions: their bits must equal the baseline's
+    # W8A8 GEMMs keep one K order (k16 steps from 0), mlstm_decode its
+    # state's expressions and the two Mamba kernels all their arithmetic:
+    # their bits must equal the baseline's
     ok = all((r["bitwise"] if "bitwise" in r else r["within_tol"])
              and (not r.get("bits_required") or r["bits_equal"])
              for r in rows)
@@ -841,24 +870,185 @@ def ab_mlstm(torch, base, timer):
     return rows
 
 
+def ab_mamba(torch, base, timer):
+    """mamba_decode (the Mamba mode of ssm_decode), baseline against
+    change at jamba-v0.1-52b's serving shape (4 slots, d_inner 8192,
+    d_state 16, fp32) and at one slot: y and h' must keep the baseline's
+    bits (``bits_equal``, required), this checkout's step written in place
+    (``out=h``, as the mixer calls it) too, and each side is held to the
+    plain version (1e-4 + 1e-4 |ref|); baseline, change, change in place,
+    change in place, change, baseline are timed (cold L2) and traced for
+    the device's own time a call; so is a PyTorch copy of h, which moves
+    the same bytes."""
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.ssm_decode.ops import ssm_decode
+    from repro_torch.kernels.ssm_decode.ref import mamba_decode_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f32 = torch.float32
+    din, n = 8192, 16
+    # the mixer's scales: A = -exp(a_log) with a_log = log(1..N), dt in
+    # [1e-3, 0.1], x the conv + silu output, D = 1
+    a = -torch.exp(torch.log(torch.arange(
+        1, n + 1, dtype=f32, device="cuda"))).repeat(din, 1)
+    dsk = torch.ones(din, dtype=f32, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def run_base(x, g, b, c, h):
+        y, h_new = torch.empty_like(x), torch.empty_like(h)
+        rc = base.mamba_decode_launch(
+            x.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dsk.data_ptr(), h.data_ptr(), y.data_ptr(),
+            h_new.data_ptr(), x.shape[0], din, n, stream_ptr(x))
+        assert rc == 0, base.kernel_error_string(rc)
+        return y, h_new
+
+    rows = []
+    for bsz in (4, 1):
+        x = torch.nn.functional.silu(randn(bsz, din))
+        g = torch.rand(bsz, din, generator=gen, device="cuda") * 0.099 + 1e-3
+        b, c = randn(bsz, n), randn(bsz, n)
+        h = randn(bsz, din, n)
+        args = (x, g, a, b, c, dsk, h)
+        want = mamba_decode_ref(*args)
+        got = {"baseline": run_base(x, g, b, c, h),
+               "change": ssm_decode(*args)}
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for side, outs in got.items():
+            errs[side] = []
+            for o, w in zip(outs, want):
+                err = (o - w).abs()
+                errs[side].append(float(err.max()))
+                ok = ok and bool((err <= 1e-4 + 1e-4 * w.abs()).all())
+        h_in = h.clone()
+        in_place = ssm_decode(*args[:-1], h_in, out=h_in)
+        bits = all(torch.equal(p, q) for side in ("change", "in place")
+                   for p, q in zip(got["baseline"], {
+                       "change": got["change"], "in place": in_place}[side]))
+        # the state in place moves on call by call, as in the serve runs
+        fns = (lambda: run_base(x, g, b, c, h), lambda: ssm_decode(*args),
+               lambda: ssm_decode(*args[:-1], h_in, out=h_in),
+               lambda: ssm_decode(*args[:-1], h_in, out=h_in),
+               lambda: ssm_decode(*args), lambda: run_base(x, g, b, c, h))
+        t = [timer(fn, iters=20) for fn in fns]
+        tr = [traced_us(torch, fn, "mamba_decode_kernel", 20,
+                        timer.flush.zero_) for fn in fns]
+        h_copy = torch.empty_like(h)
+        copy_ms = timer(lambda: h_copy.copy_(h), iters=20)
+        copy_us = traced_us(torch, lambda: h_copy.copy_(h), "Memcpy", 20,
+                            timer.flush.zero_)
+        row = dict(shape=f"x[{bsz},{din}] h[{bsz},{din},{n}] fp32",
+                   within_tol=ok, bits_equal=bits, bits_required=True,
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   baseline_ms=[t[0], t[5]], change_ms=[t[1], t[4]],
+                   in_place_ms=[t[2], t[3]],
+                   traced_us_baseline=[tr[0], tr[5]],
+                   traced_us_change=[tr[1], tr[4]],
+                   traced_us_in_place=[tr[2], tr[3]], copy_ms=copy_ms,
+                   copy_traced_us=copy_us)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def ab_scan(torch, base, timer):
+    """ssm_scan, baseline against change at jamba-v0.1-52b's prefill (one
+    prompt of 20, 57 and 120 tokens, d_inner 8192, d_state 16, bf16 u, dt,
+    B, C; with h0 as the engine passes it, and at 120 also without): y and
+    h_T must keep the baseline's bits (required), each side held to the
+    plain version (y one bf16 ulp, h_T 1e-4 + 1e-4 |ref|); baseline,
+    change, change, baseline are timed (cold L2) and traced."""
+    from repro_torch.kernels._build import stream_ptr
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan
+    from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    din, n = 8192, 16
+    a = -torch.exp(torch.log(torch.arange(
+        1, n + 1, dtype=f32, device="cuda"))).repeat(din, 1)
+    dsk = torch.ones(din, dtype=f32, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def run_base(u, dt, b, c, h0):
+        y = torch.empty_like(u)
+        h = torch.empty(u.shape[0], din, n, dtype=f32, device="cuda")
+        rc = base.ssm_scan_launch(
+            u.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dsk.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h.data_ptr(), u.shape[0], u.shape[1], din, n, 1, stream_ptr(u))
+        assert rc == 0, base.kernel_error_string(rc)
+        return y, h
+
+    rows = []
+    for t, with_h0 in ((20, True), (57, True), (120, True), (120, False)):
+        u = torch.nn.functional.silu(randn(1, t, din)).to(bf16)
+        dt = (torch.rand(1, t, din, generator=gen, device="cuda") * 0.099
+              + 1e-3).to(bf16)
+        b, c = randn(1, t, n).to(bf16), randn(1, t, n).to(bf16)
+        h0 = randn(1, din, n) if with_h0 else None
+        args = (u, dt, a, b, c, dsk, h0)
+        want = selective_scan_ref(*args)
+        got = {"baseline": run_base(u, dt, b, c, h0),
+               "change": ssm_scan(*args)}
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for side, outs in got.items():
+            errs[side] = []
+            for o, w, tol in zip(outs, want, (1e-2, 1e-4)):
+                err = (o.float() - w.float()).abs()
+                errs[side].append(float(err.max()))
+                ok = ok and bool((err <= tol + tol * w.float().abs()).all())
+        bits = all(torch.equal(p, q) for p, q in zip(got["baseline"],
+                                                      got["change"]))
+        fns = (lambda: run_base(u, dt, b, c, h0), lambda: ssm_scan(*args),
+               lambda: ssm_scan(*args), lambda: run_base(u, dt, b, c, h0))
+        tm = [timer(fn, iters=20) for fn in fns]
+        tr = [traced_us(torch, fn, "ssm_scan_kernel", 20, timer.flush.zero_)
+              for fn in fns]
+        row = dict(shape=f"u[1,{t},{din}] N={n} bf16"
+                   f"{' h0' if with_h0 else ''}", within_tol=ok,
+                   bits_equal=bits, bits_required=True,
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   baseline_ms=[tm[0], tm[3]], change_ms=[tm[1], tm[2]],
+                   traced_us_baseline=[tr[0], tr[3]],
+                   traced_us_change=[tr[1], tr[2]])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def traced_us(torch, fn, kernel: str, calls: int, flush=None) -> float:
     """The device's own time a call of ``fn`` in the kernels (or copies)
     whose name holds ``kernel``, by torch.profiler over ``calls`` calls
-    (each after ``flush()``, if given); None if the trace shows none."""
+    (each after ``flush()``, if given); None if the trace shows none. A
+    trace that lost some of the calls' events (fewer than ``calls``) is
+    taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    tot = cnt = 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            tot += getattr(e, "self_device_time_total", 0) or 0
-            cnt += e.count
-    return tot / calls if cnt else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        tot = cnt = 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                tot += getattr(e, "self_device_time_total", 0) or 0
+                cnt += e.count
+        if cnt >= calls:
+            return tot / calls
+    return None
 
 
 # (M, d, x dtype, scale dtype, where the serving path calls it)

@@ -7,7 +7,10 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_decode/ssm_decode.py
 // (mlstm_decode_pallas -> _mlstm_kernel), the mLSTM mode of the ssm_decode
 // op. Same contract: q, k, v [B, H, dh]; li, lf, m [B, H]; C [B, H, dh, dh];
-// n [B, H, dh]; returns h [B, H, dh] and (C', n', m'), new tensors.
+// n [B, H, dh]; returns h [B, H, dh] and (C', n', m'). C' may be C itself
+// (the cell updated in place: each element of C is read, then C' written,
+// by one thread, so neither pointer is __restrict__); n' and m' are new
+// tensors, since other blocks read n and m while the first writes them.
 //
 // Bound on the H100: bytes. C is read once and C' written once, 2 * B * H
 // * dh^2 * 4 bytes (33.6 MB at B = H = 4, dh = 512: 10 us at 3.35 TB/s);
@@ -72,9 +75,9 @@ __global__ void __cluster_dims__(1, kSplit, 1) __launch_bounds__(kThreads, 4)
                         const float* __restrict__ li,
                         const float* __restrict__ lf,
                         const float* __restrict__ m,
-                        const float* __restrict__ C,
-                        const float* __restrict__ n, float* __restrict__ h,
-                        float* __restrict__ C_new, float* __restrict__ n_new,
+                        const float* C, const float* __restrict__ n,
+                        float* __restrict__ h, float* C_new,
+                        float* __restrict__ n_new,
                         float* __restrict__ m_new, int dh) {
   __shared__ float part[kThreads / 32];
   __shared__ float red[kRowGroups][kCols];

@@ -10,6 +10,11 @@ JAX ``ssm_decode_ref``), in two modes told apart by the rank of ``x``:
   ``c`` = the input and forget log-gates [B, H]; ``m`` = the stabilizer
   [B, H]; ``h`` = the cell state [B, H, dh, dh]; ``n`` [B, H, dh], all
   fp32. Returns (h_out [B, H, dh], (c_new, n_new, m_new)).
+
+``out``, when given, receives the new state (h_new in the Mamba mode, C'
+in the mLSTM mode) and is returned in its place. It has the state's shape
+and dtype and may be the state itself (``out=h``): the step then updates
+the state in place, as the JAX engine's jitted scan updates its carry.
 """
 from __future__ import annotations
 
@@ -43,9 +48,27 @@ def mlstm_decode_ref(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     return h_num / denom[..., None], (c_new, n_new, m_new)
 
 
+def check_out(name: str, out: Optional[torch.Tensor],
+              state: torch.Tensor) -> None:
+    """``out`` must take the new state whole: the state's shape, dtype and
+    device."""
+    if out is not None and (out.shape != state.shape
+                            or out.dtype != state.dtype
+                            or out.device != state.device):
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} for a state {tuple(state.shape)} "
+                         f"{state.dtype} on {state.device}")
+
+
 def ssm_decode_ref(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, m: torch.Tensor,
-                   h: torch.Tensor, n: Optional[torch.Tensor] = None):
+                   h: torch.Tensor, n: Optional[torch.Tensor] = None, *,
+                   out: Optional[torch.Tensor] = None):
+    check_out("ssm_decode", out, h)
     if n is None:
-        return mamba_decode_ref(x, g, a, b, c, m, h)
-    return mlstm_decode_ref(x, g, a, b, c, m, h, n)
+        y, h_new = mamba_decode_ref(x, g, a, b, c, m, h)
+        return y, (h_new if out is None else out.copy_(h_new))
+    h_out, (c_new, n_new, m_new) = mlstm_decode_ref(x, g, a, b, c, m, h, n)
+    if out is not None:
+        c_new = out.copy_(c_new)
+    return h_out, (c_new, n_new, m_new)

@@ -8,7 +8,8 @@ import torch
 
 from repro_torch.core import xaif
 from repro_torch.kernels._build import (check, dtype_code, library,
-                                        require_cuda, stream_ptr)
+                                        require_aligned, require_cuda,
+                                        stream_ptr)
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
 STATE_SIZE = 16              # the d_state the kernel is built for (Jamba's)
@@ -50,6 +51,12 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if n != STATE_SIZE:
         raise ValueError(f"ssm_scan: d_state {n}, the kernel is built for "
                          f"{STATE_SIZE}")
+    # u, dt, b and c are staged by 16-byte copies, a and h0 read 4 values
+    # at a time
+    require_aligned("ssm_scan", u, dt, a, b, c, *tensors[6:])
+    if din % (16 // u.element_size()):
+        raise ValueError(f"ssm_scan: d_inner {din} must be a multiple of "
+                         f"{16 // u.element_size()} (16-byte rows)")
     y = torch.empty_like(u)
     h = torch.empty(bsz, din, n, dtype=torch.float32, device=u.device)
     if bsz == 0 or din == 0:

@@ -129,14 +129,14 @@ def apply_mamba_decode(params, x: torch.Tensor, cfg: ArchConfig,
     xc, z, new_conv = _in_proj(params, x, policy, state.conv)
     dt, b, c = _split_xdbc(params, xc, cfg, policy)          # [B, 1, ...]
     a = -torch.exp(params["a_log"])                          # [Din, N]
-    y, h = xaif.call("ssm_decode", policy,
+    # the step writes the new SSM state over the old one
+    y, _ = xaif.call("ssm_decode", policy,
                      xc.float()[:, 0].contiguous(), dt[:, 0].contiguous(), a,
                      b.float()[:, 0].contiguous(),
                      c.float()[:, 0].contiguous(), params["d_skip"],
-                     state.ssm)                              # [B, Din]
+                     state.ssm, out=state.ssm)               # [B, Din]
     y = y * torch.nn.functional.silu(z.float()[:, 0])
     out = xaif.call("gemm", policy, y[:, None].to(x.dtype),
                     params["out_proj"])
     state.conv.copy_(new_conv)
-    state.ssm.copy_(h)
     return out, state

@@ -249,11 +249,11 @@ def apply_mlstm_decode(params, x: torch.Tensor, cfg: ArchConfig,
     def first(a):
         return a[:, :, 0].float().contiguous()
 
-    h_out, (c, n, m) = xaif.call(
+    # the step writes C' over C; n' and m' come back new
+    h_out, (_, n, m) = xaif.call(
         "ssm_decode", policy, first(q), first(k), first(v), first(logi),
-        first(logf), state.m, state.c, state.n)               # [B, H, dh]
+        first(logf), state.m, state.c, state.n, out=state.c)  # [B, H, dh]
     out = _mlstm_out(params, h_out[:, :, None], z, x, cfg, policy)
-    state.c.copy_(c)
     state.n.copy_(n)
     state.m.copy_(m)
     state.conv.copy_(new_conv)

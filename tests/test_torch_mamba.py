@@ -556,3 +556,89 @@ def test_ssm_decode_kernel_refuses_the_mlstm_mode():
         ssm_decode(z3, z3, z3, z2, z2, z2, torch.zeros(2, 3, 8, 8),
                    torch.zeros(2, 3, 8))
     assert xaif.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the decode step's new state, written in place
+# ---------------------------------------------------------------------------
+
+
+def _mamba_step_inputs(rng, b, din, n):
+    x = rng.standard_normal((b, din)).astype(np.float32)
+    g = rng.uniform(1e-3, 0.1, (b, din)).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (din, 1))
+    bm = rng.standard_normal((b, n)).astype(np.float32)
+    cm = rng.standard_normal((b, n)).astype(np.float32)
+    m = rng.standard_normal(din).astype(np.float32)
+    h = rng.standard_normal((b, din, n)).astype(np.float32)
+    return tuple(map(_t, (x, g, a, bm, cm, m, h)))
+
+
+@pytest.mark.parametrize("via_op", [False, True], ids=["plain", "op"])
+def test_mamba_decode_writes_its_state_in_place(via_op):
+    """``out=h``: the new state lands in h itself, bitwise the values of a
+    separate output, with the same y; a separate ``out`` is filled and
+    returned and leaves h as it was. Plain version, directly and through
+    the ``ssm_decode`` op on CPU tensors."""
+    from repro_torch.core import xaif
+    rng = np.random.default_rng(37)
+    args = _mamba_step_inputs(rng, 3, 24, 8)
+    want_y, want_h = ssm_decode_ref(*args)
+    call = (lambda *a, **k: xaif.call("ssm_decode", "auto", *a, **k)) \
+        if via_op else ssm_decode_ref
+    h = args[-1].clone()
+    ptr = h.data_ptr()
+    y, h_new = call(*args[:-1], h, out=h)
+    assert h_new is h and h.data_ptr() == ptr
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    assert not torch.equal(h, args[-1])          # the state did move
+    dst = torch.empty_like(h)
+    y2, h2 = call(*args, out=dst)
+    assert h2 is dst and torch.equal(dst, want_h) and torch.equal(y2, want_y)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype"])
+def test_ssm_decode_refuses_an_out_that_does_not_fit_the_state(bad):
+    """``out`` takes the new state whole: another shape or dtype raises
+    before anything is written."""
+    rng = np.random.default_rng(39)
+    args = _mamba_step_inputs(rng, 2, 16, 8)
+    out = (torch.zeros(2, 16, 4) if bad == "shape"
+           else torch.zeros(2, 16, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="out"):
+        ssm_decode_ref(*args, out=out)
+    assert not out.any()
+
+
+def test_mamba_decode_steps_advance_the_cache_stack_in_place():
+    """Decode steps through one layer's view of the stacked [L, B, ...]
+    state write the stack's own memory (no copy back): after 5 steps from
+    a carried state, the views keep their storage, row 1 of the stacks
+    agrees with the JAX mixer's state, and row 0 is untouched."""
+    jcfg, pcfg = _configs()
+    jp, pp = _mixer(jcfg)
+    rng = np.random.default_rng(38)
+    b = 2
+    stack = mamba.init_mamba_state(pcfg, b, torch.float32, "cpu", layers=2)
+    jst = jmamba.init_mamba_state(jcfg, b, jnp.float32)
+    arrs = [rng.standard_normal(np.shape(a)).astype(np.float32) * 0.5
+            for a in jst]
+    jst = jmamba.MambaState(*map(jnp.asarray, arrs))
+    for s_, a_ in zip(stack, arrs):
+        s_[1].copy_(_t(a_))
+        s_[0].copy_(_t(a_) + 1.0)
+    row0 = [s_[0].clone() for s_ in stack]
+    pst = mamba.MambaState(*(s_[1] for s_ in stack))
+    ptrs = [t_.data_ptr() for t_ in pst]
+    for _ in range(5):
+        xt = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+        jy, jst = jmamba.apply_mamba_decode(jp, jnp.asarray(xt), jcfg, POLICY,
+                                            jst)
+        py, pst = mamba.apply_mamba_decode(pp, _t(xt), pcfg, "auto", pst)
+        np.testing.assert_allclose(py.numpy(), np.asarray(jy), rtol=TOL,
+                                   atol=TOL)
+    assert [t_.data_ptr() for t_ in pst] == ptrs
+    for s_, w_, r_ in zip(stack, jst, row0):
+        np.testing.assert_allclose(s_[1].numpy(), np.asarray(w_), rtol=TOL,
+                                   atol=TOL)
+        assert torch.equal(s_[0], r_)

@@ -630,3 +630,63 @@ def test_mlstm_decode_kernel_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="Mamba mode"):
         ssm_decode(ops[0][:, 0], *ops[1:])
     assert xaif.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the decode step's new cell, written in place
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("via_op", [False, True], ids=["plain", "op"])
+def test_mlstm_decode_writes_c_in_place(via_op):
+    """``out=c``: C' lands in c itself, bitwise the values of a separate
+    output, with the same h, n' and m' (those two always new tensors); a
+    separate ``out`` is filled and returned and leaves c as it was. Plain
+    version, directly and through the ``ssm_decode`` op on CPU tensors."""
+    rng = np.random.default_rng(44)
+    args = tuple(map(_t, _mlstm_inputs(rng, 2, 3, 16)))
+    want_h, want_s = ssm_decode_ref(*args)
+    call = (lambda *a, **k: xaif.call("ssm_decode", "auto", *a, **k)) \
+        if via_op else ssm_decode_ref
+    c = args[6].clone()
+    ptr = c.data_ptr()
+    h, (c_new, n_new, m_new) = call(*args[:6], c, args[7], out=c)
+    assert c_new is c and c.data_ptr() == ptr
+    assert n_new is not args[7] and m_new is not args[5]
+    for got, want in zip((h, c, n_new, m_new), (want_h,) + want_s):
+        assert torch.equal(got, want)
+    assert not torch.equal(c, args[6])           # the cell did move
+    dst = torch.empty_like(c)
+    h2, (c2, _, _) = call(*args, out=dst)
+    assert c2 is dst and torch.equal(dst, want_s[0])
+    assert torch.equal(h2, want_h)
+
+
+def test_mlstm_decode_steps_advance_the_cache_stack_in_place():
+    """Decode steps through one layer's view of the stacked mLSTM state
+    write the stack's own memory: after 5 steps from a carried state the
+    views keep their storage, row 1 of the stacks agrees with the JAX
+    mixer's state (C written in place, n, m and the conv window copied
+    back) and row 0 is untouched."""
+    jcfg, pcfg = _configs()
+    jp, pp = _mixer(jcfg, jxlstm.init_mlstm)
+    rng = np.random.default_rng(45)
+    b = 2
+    stack = xlstm.init_mlstm_state(pcfg, b, torch.float32, "cpu", layers=2)
+    jst, one = _random_mlstm_state(rng, jcfg, pcfg, b)
+    for s_, o_ in zip(stack, one):
+        s_[1].copy_(o_)
+        s_[0].copy_(o_ * 0.5)
+    row0 = [s_[0].clone() for s_ in stack]
+    pst = xlstm.MLSTMState(*(s_[1] for s_ in stack))
+    ptrs = [t_.data_ptr() for t_ in pst]
+    for _ in range(5):
+        xt = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+        jy, jst = jxlstm.apply_mlstm_decode(jp, jnp.asarray(xt), jcfg,
+                                            POLICY, jst)
+        py, pst = xlstm.apply_mlstm_decode(pp, _t(xt), pcfg, "auto", pst)
+        _close(py, jy, TOL)
+    assert [t_.data_ptr() for t_ in pst] == ptrs
+    for s_, w_, r_ in zip(stack, jst, row0):
+        _close(s_[1], w_, TOL)
+        assert torch.equal(s_[0], r_)
