@@ -113,7 +113,14 @@ it (the layer norms, exit heads, MLA ``kv_norm`` and xLSTM norms at 4
 live slots, and [128, 4096]), its line naming its thread map
 (``rmsnorm_plan``), and, bitwise, the rows of an M = 4 launch equal their
 M = 1 launches, rows of an M = 128 launch their M = 4 launch, and an input
-at a 2-element offset its aligned copy. Each decode-attention kernel's
+at a 2-element offset its aligned copy. entropy_exit is held at every
+served vocabulary (4 live slots: 50304, 64000, 65536, 102400 bf16), at
+[4, 64000] fp32 and at two odd widths (scalar loads), its lines naming
+its cluster plan (``entropy_plan``), and, bitwise, row b of an M = 4
+launch equals its M = 1 launch, rows of an M = 16 launch their M = 4
+launch, an input at a 2-element offset its aligned copy, and a row
+holding a NaN gives NaN while the other rows keep their bits. Each
+decode-attention kernel's
 time line names its block plan (``decode_plan`` / ``mla_plan``, read
 from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
 ``moe_plan``). Each serve run resets every launch counter just
@@ -122,7 +129,8 @@ line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each mo
 also has three decode chunks timed by the host clock and one traced per
 engine (``decode step`` lines, with the device kernels a step, the GEMM,
 decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
-step's ms and launches a step), paged beside contiguous;
+step's, entropy_exit's and the Mamba step's ms and launches a step),
+paged beside contiguous;
 yi-9b's weight-only and W8A8 engines are also timed in turns (``host
 clock in turns``).
 
@@ -356,13 +364,88 @@ def check_kernels(torch, timer):
     # the entropy of torch.distributions.Categorical over log V
     lg = randn(4, 64000, scale=3.0)
     log_v = math.log(64000)
-    compare("entropy_exit", "[4, 64000]",
+    compare("entropy_exit", "[4, 64000] yi-9b",
             lambda: ee.entropy(lg), lambda: entropy_ref(lg),
             lambda: torch.distributions.Categorical(
                 logits=lg.float()).entropy() / log_v,
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
-            representative=True)
+            representative=True, plan=ee.entropy_plan(64000, bf16))
+    check_entropy(torch, compare)
     return records
+
+
+def check_entropy(torch, compare):
+    """Phase 2 for entropy_exit at the other served vocabularies (4 live
+    slots, bf16: xlstm-350m's 50304, jamba-v0.1-52b's 65536,
+    deepseek-v2-lite-16b's 102400), at yi-9b's [4, 64000] in fp32, and at
+    two odd widths, [3, 1001] and [4, 50257], whose rows start off 16-byte
+    boundaries (the kernel's scalar loads); each line names the kernel's
+    plan (``entropy_plan``). Tolerance 1e-4 + 1e-4 |ref|: fp32 sums in
+    another order. Bitwise, at every served V (and [*, 64000] fp32): row b
+    of an M = 4 launch == its M = 1 launch, rows 0-3 and 12-15 of an M = 16
+    launch == their M = 4 launches, an input at a 2-element offset (not
+    16-byte aligned) == its aligned copy, and a NaN (in row 1 at the last
+    element, which the cluster's last block reads, and in row 2 at element
+    777) gives NaN on exactly those rows and leaves rows 0 and 3 equal to
+    their M = 1 launches. Inputs from a generator of their own, so that the
+    later phases draw what they drew before."""
+    from repro_torch.kernels.entropy_exit import ops as ee
+    from repro_torch.kernels.entropy_exit.ref import entropy_ref, log_vocab
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def logits(m, v, dt):
+        return (torch.randn(m, v, generator=g, device="cuda") * 3).to(dt)
+
+    for m, v, dt, what in ((4, 50304, bf16, "xlstm-350m"),
+                           (4, 65536, bf16, "jamba-v0.1-52b"),
+                           (4, 102400, bf16, "deepseek-v2-lite-16b"),
+                           (4, 64000, f32, "yi-9b fp32"),
+                           (3, 1001, bf16, "odd V"),
+                           (4, 50257, bf16, "odd V")):
+        x = logits(m, v, dt)
+        compare("entropy_exit", f"[{m}, {v}] {what}",
+                lambda x=x: ee.entropy(x), lambda x=x: entropy_ref(x),
+                lambda x=x, v=v: torch.distributions.Categorical(
+                    logits=x.float()).entropy() / log_vocab(v),
+                x.numel() * x.element_size() + 4 * m, 6 * x.numel(),
+                "bfloat16" if dt == bf16 else "float32", 1e-4, 1e-4,
+                plan=ee.entropy_plan(v, dt))
+
+    widths = []
+    for v, dt in ((50304, bf16), (64000, bf16), (65536, bf16),
+                  (102400, bf16), (64000, f32)):
+        x = logits(16, v, dt)
+        full = ee.entropy(x)
+        four = ee.entropy(x[:4].contiguous())
+        solo = [ee.entropy(x[b:b + 1].contiguous()) for b in range(4)]
+        for b in range(4):
+            assert torch.equal(four[b:b + 1], solo[b]), ("entropy M=1", v,
+                                                         dt, b)
+        assert torch.equal(full[:4], four), ("entropy M=16", v, dt)
+        assert torch.equal(full[12:], ee.entropy(x[12:].contiguous())), (
+            "entropy M=16", v, dt)
+        buf = torch.empty(4 * v + 2, dtype=dt, device="cuda")
+        buf[2:] = x[:4].reshape(-1)
+        xu = buf[2:].view(4, v)
+        assert xu.data_ptr() % 16, "the offset input is 16-byte aligned"
+        assert torch.equal(ee.entropy(xu), four), ("entropy offset", v, dt)
+        xn = x[:4].clone()
+        xn[1, v - 1] = float("nan")
+        xn[2, 777] = float("nan")
+        got = ee.entropy(xn)
+        assert torch.isnan(got).tolist() == [False, True, True, False], (
+            "entropy NaN rows", v, dt, got)
+        assert torch.equal(got[0:1], solo[0]) and torch.equal(
+            got[3:4], solo[3]), ("entropy NaN: other rows", v, dt)
+        widths.append(f"{v} {'bf16' if dt == bf16 else 'fp32'}")
+    torch.cuda.synchronize()
+    print(f"bitwise: entropy_exit row b of an M = 4 launch == its M = 1 "
+          f"launch, rows 0-3 and 12-15 of an M = 16 launch == their M = 4 "
+          f"launches, an input at a 2-element offset == its aligned copy, "
+          f"NaN rows NaN and the others' bits kept, at V = {widths}",
+          flush=True)
 
 
 def check_rmsnorm(torch, compare):
@@ -1646,10 +1729,12 @@ def profile_decode(torch, name, engine, params, prompts):
     moe = sum(v for k, v in per.items()
               if any(s in k for s in ("moe::moe_pass_kernel<",
                                       "moe::moe_combine_kernel")))
-    # rmsnorm's, the mLSTM and Mamba steps' kernels and the device to
-    # device copies (recurrent state written back): ms and launches a step
+    # rmsnorm's and entropy_exit's kernels, the mLSTM and Mamba steps' and
+    # the device to device copies (recurrent state written back): ms and
+    # launches a step
     named = {}
     for label, sub in (("rmsnorm", "rmsnorm_kernel<"),
+                       ("entropy_exit", "entropy_kernel<"),
                        ("mLSTM", "mlstm_decode_kernel"),
                        ("Mamba decode", "mamba_decode_kernel"),
                        ("Memcpy DtoD", "Memcpy DtoD")):

@@ -14,10 +14,11 @@ the plain version), and timed in turns.
     python3 kernel_ab.py --baseline DIR --kernel rmsnorm
     python3 kernel_ab.py --baseline DIR --kernel mamba_decode
     python3 kernel_ab.py --baseline DIR --kernel ssm_scan
+    python3 kernel_ab.py --baseline DIR --kernel entropy_exit
 
 DIR is the root of another checkout. For the decode-attention, flash,
 ``moe_decode``, ``mlstm_decode``, ``rmsnorm``, ``mamba_decode`` (its
-``csrc/ssm_decode.cu``) and ``ssm_scan`` modes its
+``csrc/ssm_decode.cu``), ``ssm_scan`` and ``entropy_exit`` modes its
 ``csrc/<kernel>.cu`` is built with this
 checkout's nvcc flags into ``build/ab/`` and called through its C entry
 point (the same signature); this checkout's kernel runs through its
@@ -127,6 +128,18 @@ baseline's bits (the exit code); each side is held to the plain version
 (y one bf16 ulp, h_T 1e-4 + 1e-4 |ref|); baseline, change, change,
 baseline are timed (cold L2) and traced (``traced_us``).
 
+``entropy_exit``: at each served vocabulary with 4 live slots (bf16:
+xlstm-350m's 50304, yi-9b's 64000, jamba-v0.1-52b's 65536,
+deepseek-v2-lite-16b's 102400), yi-9b's at one live slot and its fp32
+logits [4, 64000]. Each side is held to the plain version within 1e-4 +
+1e-4 |ref| and, bitwise, row b of the M = 4 launch must equal its M = 1
+launch (both the exit code); bits equal to the baseline's are reported,
+not required (the sum order changed by design). Baseline, change,
+change, baseline are timed cold, as one replayed CUDA graph of 100
+launches (``graph_us``) and traced (``traced_us``); the plain version and
+the library yardstick (``Categorical(logits=...).entropy() / log V``)
+are timed cold beside them.
+
 Times are medians of 20 cold-L2 calls each (CUDA events) unless said
 otherwise: one JSON line per shape, then the card's name and power limit.
 """
@@ -206,6 +219,9 @@ def build_baseline(baseline: Path, kernel: str) -> ctypes.CDLL:
         lib.rmsnorm_launch.argtypes = [p, p, p, i, i, ctypes.c_float, i, i,
                                        p]
         lib.rmsnorm_launch.restype = i
+    elif kernel == "entropy_exit":
+        lib.entropy_launch.argtypes = [p, p, i, i, ctypes.c_float, i, p]
+        lib.entropy_launch.restype = i
     else:
         lib.moe_decode_launch.argtypes = [p] * 9 + [i] * 6 + [p]
         lib.moe_decode_launch.restype = i
@@ -222,7 +238,7 @@ def main() -> int:
                                          "attention", "gemm",
                                          "gemm_heads", "mlstm_decode",
                                          "rmsnorm", "mamba_decode",
-                                         "ssm_scan"),
+                                         "ssm_scan", "entropy_exit"),
                     default="attn_decode")
     # one process of a GEMM A/B (``ab_gemm`` starts them): the wrapper of
     # the checkout at --baseline, outputs to --save
@@ -250,17 +266,18 @@ def main() -> int:
               "moe_decode": ab_moe_decode, "verify_decode": ab_verify,
               "attention": ab_attention, "mlstm_decode": ab_mlstm,
               "rmsnorm": ab_rmsnorm, "mamba_decode": ab_mamba,
-              "ssm_scan": ab_scan}[args.kernel]
+              "ssm_scan": ab_scan, "entropy_exit": ab_entropy}[args.kernel]
         rows = ab(torch, base, Timer(torch))
     print(card_line())
     # the decode kernels keep each row's arithmetic ("bitwise": the
     # baseline's bits, contiguous and paged), the bf16, int8-weight and
     # W8A8 GEMMs keep one K order (k16 steps from 0), mlstm_decode its
     # state's expressions and the two Mamba kernels all their arithmetic:
-    # their bits must equal the baseline's
+    # their bits must equal the baseline's; entropy_exit's rows must not
+    # depend on the batch
     ok = all((r["bitwise"] if "bitwise" in r else r["within_tol"])
              and (not r.get("bits_required") or r["bits_equal"])
-             for r in rows)
+             and r.get("rows_independent", True) for r in rows)
     print(json.dumps({"ok": ok, "kernel": args.kernel, "rows": len(rows)}))
     return 0 if ok else 1
 
@@ -1061,8 +1078,35 @@ RMSNORM_CASES = (
     (16, 512, "fp32", "unit", "xlstm mLSTM head norm"),
     (4, 1024, "fp32", "fp32", "xlstm sLSTM norm"),
     (128, 4096, "bf16", "fp32", "yi-9b prefill of 128 tokens"))
-# launches in one CUDA graph (and in one traced run) of the rmsnorm A/B
+# launches in one CUDA graph (and in one traced run) of the rmsnorm and
+# entropy_exit A/Bs
 GRAPH_LAUNCHES = 100
+
+
+def capture(torch, fn):
+    """One CUDA graph of GRAPH_LAUNCHES back-to-back calls of ``fn``."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def graph_us(torch, g) -> float:
+    """us a launch of graph ``g`` replayed: the median of 11 replays."""
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(11):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) * 1e3 / GRAPH_LAUNCHES)
+    return sorted(times)[5]
 
 
 def ab_rmsnorm(torch, base, timer):
@@ -1105,32 +1149,10 @@ def ab_rmsnorm(torch, base, timer):
             err = (o.float() - want).abs()
             errs[side] = float(err.max())
             ok = ok and bool((err <= tol + tol * want.abs()).all())
-        graphs = {}
-        for side, fn in (("baseline", run_base), ("change", run_new)):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                for _ in range(GRAPH_LAUNCHES):
-                    fn()
-            graphs[side] = g
-        torch.cuda.synchronize()
-
-        def graph_us(g):
-            g.replay()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(11):
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                g.replay()
-                e.record()
-                e.synchronize()
-                times.append(s.elapsed_time(e) * 1e3 / GRAPH_LAUNCHES)
-            return sorted(times)[5]
-
-        order = ("baseline", "change", "change", "baseline")
         fns = {"baseline": run_base, "change": run_new}
-        g_us = [graph_us(graphs[side]) for side in order]
+        graphs = {side: capture(torch, fn) for side, fn in fns.items()}
+        order = ("baseline", "change", "change", "baseline")
+        g_us = [graph_us(torch, graphs[side]) for side in order]
         cold = [timer(fns[side], iters=20) for side in order]
         tr = [traced_us(torch, fns[side], "rmsnorm_kernel", GRAPH_LAUNCHES)
               for side in order]
@@ -1149,6 +1171,94 @@ def ab_rmsnorm(torch, base, timer):
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+# (M, V, logits dtype, the model that serves it)
+ENTROPY_CASES = (
+    (4, 50304, "bf16", "xlstm-350m"),
+    (4, 64000, "bf16", "yi-9b"),
+    (4, 65536, "bf16", "jamba-v0.1-52b"),
+    (4, 102400, "bf16", "deepseek-v2-lite-16b"),
+    (1, 64000, "bf16", "yi-9b, one live slot"),
+    (4, 64000, "fp32", "yi-9b, fp32 logits"))
+
+
+def ab_entropy(torch, base, timer):
+    """entropy_exit, baseline against change at every served vocabulary
+    (ENTROPY_CASES): each side held to the plain version (1e-4 + 1e-4
+    |ref|) and its rows to their M = 1 launches (bitwise), bits equal to
+    the baseline's reported; cold-L2 ms, us a launch of a replayed CUDA
+    graph of 100 launches and traced device us a launch, in turns; the
+    plain version's and the library yardstick's cold ms beside them."""
+    from repro_torch.kernels.entropy_exit.ops import entropy
+    from repro_torch.kernels.entropy_exit.ref import entropy_ref, log_vocab
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    rows = []
+    for m, v, dt, what in ENTROPY_CASES:
+        x = (torch.randn(m, v, generator=gen, device="cuda") * 3).to(dts[dt])
+        out = torch.empty(m, dtype=torch.float32, device="cuda")
+
+        def run_base(x=x, out=out):
+            return base_entropy(base, x, out)
+
+        def run_new(x=x):
+            return entropy(x)
+
+        want = entropy_ref(x)
+        fns = {"baseline": run_base, "change": run_new}
+        got, errs, ok, alone = {}, {}, True, True
+        for side, fn in fns.items():
+            got[side] = fn().clone()
+            err = (got[side] - want).abs()
+            errs[side] = float(err.max())
+            ok = ok and bool((err <= 1e-4 + 1e-4 * want.abs()).all())
+            for b in range(m):
+                xb = x[b:b + 1].contiguous()
+                one = entropy(xb) if side == "change" else base_entropy(
+                    base, xb, torch.empty(1, device="cuda"))
+                alone = alone and torch.equal(one, got[side][b:b + 1])
+        torch.cuda.synchronize()
+        graphs = {side: capture(torch, fn) for side, fn in fns.items()}
+        order = ("baseline", "change", "change", "baseline")
+        g_us = [graph_us(torch, graphs[side]) for side in order]
+        cold = [timer(fns[side], iters=20) for side in order]
+        tr = [traced_us(torch, fns[side], "entropy_kernel", GRAPH_LAUNCHES)
+              for side in order]
+        plain_ms = timer(lambda x=x: entropy_ref(x), iters=20)
+        lib_ms = timer(lambda x=x, v=v: torch.distributions.Categorical(
+            logits=x.float()).entropy() / log_vocab(v), iters=20)
+        del graphs
+        row = dict(shape=f"[{m}, {v}] {dt} ({what})", within_tol=ok,
+                   rows_independent=alone,
+                   bits_equal=torch.equal(got["baseline"], got["change"]),
+                   max_abs_err_baseline=errs["baseline"],
+                   max_abs_err_change=errs["change"],
+                   graph_us_baseline=[g_us[0], g_us[3]],
+                   graph_us_change=[g_us[1], g_us[2]],
+                   traced_us_baseline=[tr[0], tr[3]],
+                   traced_us_change=[tr[1], tr[2]],
+                   baseline_ms=[cold[0], cold[3]],
+                   change_ms=[cold[1], cold[2]],
+                   plain_ms=plain_ms, library_ms=lib_ms)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def base_entropy(base, x, out):
+    """The baseline's entropy kernel on x [M, V], through its C entry
+    point, into ``out`` (fp32 [M])."""
+    from repro_torch.kernels._build import DTYPE_CODE, stream_ptr
+    from repro_torch.kernels.entropy_exit.ref import log_vocab
+
+    m, v = x.shape
+    rc = base.entropy_launch(x.data_ptr(), out.data_ptr(), m, v,
+                             log_vocab(v), DTYPE_CODE[x.dtype],
+                             stream_ptr(x))
+    assert rc == 0, base.kernel_error_string(rc)
+    return out
 
 
 if __name__ == "__main__":

@@ -60,6 +60,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Cluster barrier halves: arrive with release semantics (this thread's
+// earlier memory operations, shared memory included, are visible to the
+// cluster after the matching wait), arrive without, and wait (acquire).
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // Each library exports its own copy, so Python can name an error code.
 KERNEL_API const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -55,19 +55,6 @@ constexpr int kSplit = 4;                 // row quarters: blocks a cluster
 constexpr int kUnroll = 4;                // rows of C a thread reads a pass
 constexpr int kPass = kRowGroups * kUnroll;  // 32 rows a pass of a block
 
-// Cluster barrier halves: arrive with release semantics (this thread's
-// earlier memory operations, shared memory included, are visible to the
-// cluster after the matching wait), arrive without, and wait (acquire).
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __global__ void __cluster_dims__(1, kSplit, 1) __launch_bounds__(kThreads, 4)
     mlstm_decode_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,

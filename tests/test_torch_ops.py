@@ -149,18 +149,36 @@ def test_precise_paged_plain_equals_contiguous_plain():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m,v", [(3, 1000), (2, 2500)])
-def test_entropy_matches_jax(m, v, dtype):
-    """V not a multiple of the Pallas vocab block (masked tail)."""
+@pytest.mark.parametrize("m,v,nan_row", [
+    pytest.param(3, 1000, None, id="3-1000"),
+    pytest.param(2, 2500, None, id="2-2500"),
+    # the served vocabularies at 4 live slots
+    pytest.param(4, 50304, None, id="4-50304-xlstm-350m"),
+    pytest.param(4, 64000, None, id="4-64000-yi-9b"),
+    pytest.param(4, 65536, None, id="4-65536-jamba-v0.1-52b"),
+    pytest.param(4, 102400, None, id="4-102400-deepseek-v2-lite-16b"),
+    # a slot whose logits hold a NaN (a quarantined slot)
+    pytest.param(4, 64000, 2, id="4-64000-nan-row")])
+def test_entropy_matches_jax(m, v, nan_row, dtype):
+    """V not a multiple of the Pallas vocab block (masked tail), and the
+    served vocabularies. A row holding a NaN gives NaN on both sides, on
+    exactly that row; the other rows agree."""
     rng = np.random.default_rng(m + v)
-    lg, tlg = _pair(rng.standard_normal((m, v), np.float32) * 4.0, dtype)
+    a = rng.standard_normal((m, v), np.float32) * 4.0
+    if nan_row is not None:
+        a[nan_row, v // 3] = np.nan
+    lg, tlg = _pair(a, dtype)
     out = entropy_ref(tlg)
     assert out.dtype == torch.float32 and out.shape == (m,)
+    want = [jax_ee_ref.entropy_ref(lg),
+            jax_ee_ops.entropy_pallas_op(lg, interpret=True)]
+    nan = [r == nan_row for r in range(m)]
+    for o in [out.numpy()] + want:
+        assert np.isnan(np.asarray(o)).tolist() == nan
     # the entropy is computed in fp32 from the same (rounded) logits on
-    # both sides, so fp32's tolerance holds for either input dtype
-    _close(out, [jax_ee_ref.entropy_ref(lg),
-                 jax_ee_ops.entropy_pallas_op(lg, interpret=True)],
-           "float32")
+    # both sides, so fp32's tolerance holds for either input dtype (NaN
+    # equals NaN here)
+    _close(out, want, "float32")
 
 
 def test_plain_ops_keep_jax_names():
