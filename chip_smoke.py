@@ -82,8 +82,25 @@ Phases (any failure raises; nothing is caught):
      accounted, nothing is stored in them): tokens equal the contiguous
      run's, bitwise;
  13. a check that no serve run launched the fp32 flash instance (its
-     own counter), one JSON line listing the kernels, the card's name and
-     power limit, and the final ``{"ok": true, ...}`` line.
+     own counter);
+ 14. the paper's seizure workload at its published configs (the CNN and
+     the encoder transformer, window 1024, 18 channels, fp32): each model
+     trained at its operating point on the card (300 steps of batch 64,
+     seed 0, the plain policy under autograd), its first 20 steps held
+     against the port's CPU training from the same init and batches (from
+     the CPU's parameters before each step: loss and gradients; the
+     free-running losses' difference printed), cuDNN deterministic; 2048
+     windows (seed 1) evaluated through the kernels and through plain from
+     the same parameters: logits and entropies within tolerance, exit
+     decisions equal (rows within 1e-5 of the threshold counted apart),
+     launches exact a batch of 256 (transformer: attention 4, all of the
+     fp32 (16, 16) instance, rmsnorm 8, gemm 2, entropy_exit 1; CNN: gemm
+     2, entropy_exit 1); exit rate, F1 and accuracy printed, F1 >= 0.9 and
+     exit rate > 0.5 asserted, and the exit rate never falling over
+     thresholds 0.1-0.5; the Fig. 3 table from the measured exit rates;
+     and a kernel launch on a tensor that requires grad raises;
+ 15. one JSON line listing the kernels, the card's name and power limit,
+     and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
 serving shapes, and the int8 kernels at yi-9b's (``gemm_int8``, which
@@ -119,13 +136,19 @@ served vocabulary (4 live slots: 50304, 64000, 65536, 102400 bf16), at
 its cluster plan (``entropy_plan``), and, bitwise, row b of an M = 4
 launch equals its M = 1 launch, rows of an M = 16 launch their M = 4
 launch, an input at a 2-element offset its aligned copy, and a row
-holding a NaN gives NaN while the other rows keep their bits. Each
+holding a NaN gives NaN while the other rows keep their bits. The
+seizure models' evaluation shapes are held too (``check_seizure_kernels``):
+the fp32 flash instance at (16, 16), non-causal (and causal, ragged, GQA),
+the fp32 gemm with bias at N = 2 (and 3, 6), rmsnorm fp32 d 64 and
+entropy_exit fp32 V = 2, with row b of a B = 4 launch == its B = 1 launch
+for the attention instance and the N = 2 gemm, bitwise. Each
 decode-attention kernel's
 time line names its block plan (``decode_plan`` / ``mla_plan``, read
 from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
-line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10 or 12). Each model
+line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10, 12 or
+14). Each served model
 also has three decode chunks timed by the host clock and one traced per
 engine (``decode step`` lines, with the device kernels a step, the GEMM,
 decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
@@ -171,6 +194,30 @@ W8A8_PREFILL = (0.10, 0.096, 1)
 QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
 # the fewest rows torch._int_mm takes on the card (the library yardstick)
 INT_MM_MIN_ROWS = 17
+# the seizure workload: training steps on the card; the first 20 held
+# against the port's CPU training from the same init and batches, in two
+# ways. Step by step from the CPU's parameters before each step, the card's
+# loss within 1e-5 relative and each gradient leaf within a tolerance of
+# its largest element: the transformer's 1e-4 (fp32 sums in other orders);
+# the CNN's 1e-2, because its max-pool windows and ReLUs route a gradient
+# by which input wins a near-tie, which rounding decides (on the CPU, a
+# 1e-7 relative perturbation of its parameters moves its gradients by up
+# to 5.9e-4 of a leaf's largest element, the transformer's by 8e-6; the
+# card's first run read 1.8e-3 and 1.2e-5). Free-running, the card's
+# losses within 1e-2 + 5e-2 |loss| of the CPU's: a step's update is
+# lr * m / sqrt(v), near lr * sign(g) in the first steps whatever |g|, so
+# a gradient element within rounding of 0 moves its weight by +-lr on one
+# side and the other, and max-pool windows within rounding of a tie route
+# the gradient elsewhere; the CNN's trajectories part (two runs on the
+# card: 3e-5 apart at step 2, cuDNN's backward is not deterministic; 5.3e-4
+# and 2.9e-3 from the CPU's at a loss of 0.038 at step 17), the
+# transformer's (no pooling) stay within 1e-6. Then the thresholds of the
+# exit-rate sweep.
+SEIZURE_STEPS = 300
+SEIZURE_CPU_STEPS = 20
+SEIZURE_LOSS_TOL = 1e-5                 # relative, from the same parameters
+SEIZURE_GRAD_TOL = {"transformer": 1e-4, "cnn": 1e-2}   # of a leaf's max
+SEIZURE_THRESHOLDS = (0.1, 0.2, 0.35, 0.45, 0.5)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -371,7 +418,120 @@ def check_kernels(torch, timer):
             2 * lg.numel() + 4 * 4, 6 * lg.numel(), "bfloat16", 1e-4, 1e-4,
             representative=True, plan=ee.entropy_plan(64000, bf16))
     check_entropy(torch, compare)
+    check_seizure_kernels(torch, compare)
     return records
+
+
+def check_seizure_kernels(torch, compare):
+    """Phase 2 for the seizure models' evaluation (batches of 256 windows,
+    fp32 throughout): the fp32 flash instance at (16, 16), non-causal, q /
+    k / v [256, 4, 16, 16] (the transformer's 4 heads of 16 over 16
+    tokens), also causal, ragged (T = S = 20) and GQA; the fp32 gemm with
+    bias at N = 2 (the heads: CNN exit [256, 32] @ [32, 2] and head [256,
+    128] @ [128, 2], transformer [256, 64] @ [64, 2]), at N = 3, 6, 7
+    (gelu, K = 100) and 1 (relu, K = 2048) (the narrow kernel, a warp a
+    row) and at N = 8 (the tiled kernel);
+    rmsnorm fp32 [256, 16, 64] with an fp32 scale; entropy_exit fp32
+    [256, 2]. Tolerance 1e-4 + 1e-4 |ref|: fp32 on both sides, sums in
+    another order. Library calls: SDPA (fp32, TF32 off), ``torch.addmm``
+    (bias + x @ w in one call), ``F.rms_norm``, ``Categorical``. Bitwise:
+    row b of a B = 4 launch == its B = 1 launch for the attention instance,
+    and row i of an M = 20 launch == its M = 1 launch for the N = 2 gemm.
+    Inputs from a generator of their own."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.entropy_exit import ops as ee
+    from repro_torch.kernels.entropy_exit.ref import entropy_ref, log_vocab
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    # attention: (B, Hq, Hkv, T, causal); the first is the evaluation's
+    for b, hq, hkv, t, causal in ((256, 4, 4, 16, False),
+                                  (256, 4, 4, 16, True),
+                                  (4, 4, 2, 20, False), (4, 4, 4, 20, True)):
+        q, k, v = randn(b, hq, t, 16), randn(b, hkv, t, 16), \
+            randn(b, hkv, t, 16)
+        pairs = t * (t + 1) // 2 if causal else t * t
+        compare("attention_fp32_d16" if not causal and b == 256
+                else "attention",
+                f"q[{b},{hq},{t},16] kv[{b},{hkv},{t},16] fp32 "
+                f"{'causal' if causal else 'non-causal'}",
+                lambda q=q, k=k, v=v, c=causal: fa.attention(q, k, v,
+                                                             causal=c),
+                lambda q=q, k=k, v=v, c=causal: attention_ref(q, k, v,
+                                                              causal=c),
+                lambda q=q, k=k, v=v, c=causal:
+                    F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                                   enable_gqa=True),
+                4 * (2 * q.numel() + 2 * k.numel()), 4 * b * hq * 16 * pairs,
+                "float32", 1e-4, 1e-4,
+                representative=(b == 256 and not causal))
+    q, k, v = randn(4, 4, 16, 16), randn(4, 4, 16, 16), randn(4, 4, 16, 16)
+    four = fa.attention(q, k, v, causal=False)
+    for i in range(4):
+        assert torch.equal(four[i:i + 1], fa.attention(
+            q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+            v[i:i + 1].contiguous(), causal=False)), ("attention d16", i)
+
+    # gemm fp32 with bias: (K, N, activation, where); the transformer's is
+    # the record. Below 8 columns the narrow kernel (a warp a row) runs.
+    for kk, n, act, what in ((32, 2, "none", "CNN exit head"),
+                             (128, 2, "none", "CNN head"),
+                             (64, 2, "none", "transformer heads"),
+                             (64, 3, "none", "N = 3"),
+                             (128, 6, "none", "N = 6"),
+                             (100, 7, "gelu", "N = 7, ragged K"),
+                             (2048, 1, "relu", "N = 1, long K"),
+                             (64, 8, "none", "N = 8, the tiled kernel")):
+        x, w, bias = randn(256, kk), randn(kk, n, scale=kk ** -0.5), \
+            randn(n)
+        compare("gemm_fp32_n2" if what == "transformer heads" else "gemm",
+                f"M=256 K={kk} N={n} bias {act} fp32 {what}",
+                lambda x=x, w=w, bias=bias, a=act: gm.gemm(x, w, bias, a),
+                lambda x=x, w=w, bias=bias, a=act: gemm_ref(x, w, bias, a),
+                (lambda x=x, w=w, bias=bias: torch.addmm(bias, x, w))
+                if act == "none" else None,
+                4 * (256 * kk + kk * n + n + 256 * n), 2 * 256 * kk * n,
+                "float32", 1e-4, 1e-4,
+                representative=(what == "transformer heads"),
+                plan=("gemm_f32_narrow_kernel, a warp a row"
+                      if n < gm.F32_NARROW else str(gm.f32_plan(n, kk))))
+    for kk in (32, 64, 128):
+        x, w, bias = randn(20, kk), randn(kk, 2, scale=kk ** -0.5), randn(2)
+        many = gm.gemm(x, w, bias)
+        for i in (0, 1, 2, 3, 9, 19):     # the first and second blocks
+            assert torch.equal(many[i:i + 1], gm.gemm(
+                x[i:i + 1].contiguous(), w, bias)), ("gemm N=2", kk, i)
+
+    x, sc = randn(256, 16, 64, scale=3.0), randn(64)
+    compare("rmsnorm_fp32_d64", "[256, 16, 64] fp32 scale fp32",
+            lambda: rn.rmsnorm(x, sc), lambda: rmsnorm_ref(x, sc),
+            lambda: F.rms_norm(x, (64,), sc, 1e-5),
+            4 * (2 * x.numel() + 64), 4 * x.numel(), "float32", 1e-4, 1e-4,
+            representative=True, plan=rn.rmsnorm_plan(64, f32))
+
+    lg = randn(256, 2, scale=3.0)
+    compare("entropy_exit_fp32_v2", "[256, 2] fp32 seizure exit",
+            lambda: ee.entropy(lg), lambda: entropy_ref(lg),
+            lambda: torch.distributions.Categorical(
+                logits=lg).entropy() / log_vocab(2),
+            4 * (lg.numel() + 256), 6 * lg.numel(), "float32", 1e-4, 1e-4,
+            representative=True, plan=ee.entropy_plan(2, f32))
+    torch.cuda.synchronize()
+    print("bitwise: attention fp32 (16, 16) non-causal row b of a B = 4 "
+          "launch == its B = 1 launch; gemm fp32 N = 2 with bias row i of "
+          "an M = 20 launch == its M = 1 launch (K = 32, 64, 128)",
+          flush=True)
 
 
 def check_entropy(torch, compare):
@@ -2155,6 +2315,156 @@ def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
           f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
+def check_seizure_steps(torch, tr, kind, w, batches):
+    """The port's CPU training of ``kind`` over ``batches`` (on the card),
+    and before each step the card's loss and gradients from the CPU's
+    parameters, held to ``SEIZURE_LOSS_TOL`` and ``SEIZURE_GRAD_TOL``.
+    Returns (the CPU's losses, the largest relative loss difference, the
+    largest gradient difference relative to its leaf's largest element)."""
+    config, init, fwd = tr.MODELS[kind]
+    cfg = config()
+    cpu, card = init(cfg, 0, "cpu"), init(cfg, 0, "cuda")
+    for t in tr.leaves(cpu) + tr.leaves(card):
+        t.requires_grad_(True)
+    step, opt = tr.make_train_step(cfg, fwd, w), tr.adam_state(cpu)
+    losses, worst_loss, worst_grad = [], 0.0, 0.0
+    for x, y in batches:
+        with torch.no_grad():
+            for a, b in zip(tr.leaves(card), tr.leaves(cpu)):
+                a.copy_(b)
+        got = tr.joint_loss(card, x, y, cfg, fwd, w)
+        grads = torch.autograd.grad(got, tr.leaves(card))
+        want = tr.joint_loss(cpu, x.cpu(), y.cpu(), cfg, fwd, w)
+        wgrads = torch.autograd.grad(want, tr.leaves(cpu))
+        worst_loss = max(worst_loss, abs(float(got.detach())
+                                         - float(want.detach()))
+                         / abs(float(want.detach())))
+        for g, wg in zip(grads, wgrads):
+            worst_grad = max(worst_grad, float(
+                (g.cpu() - wg).abs().max() / wg.abs().max().clamp_min(
+                    1e-30)))
+        losses.append(float(step(cpu, opt, x.cpu(), y.cpu())))
+    assert worst_loss <= SEIZURE_LOSS_TOL and \
+        worst_grad <= SEIZURE_GRAD_TOL[kind], (kind, worst_loss, worst_grad)
+    return losses, worst_loss, worst_grad
+
+
+def run_seizure(torch, card, t_start):
+    """Phase 14: the paper's seizure workload at the published configs
+    (window 1024, 18 channels; CNN channels (32, 64, 64, 128); transformer
+    d_model 64, 4 heads, 4 layers, patch 64), each at its operating point:
+    300 steps of batch 64 from seed 0 on the card under the plain policy
+    (autograd; the first 20 steps held against the port's CPU training
+    from the same init and batches), then 2048 windows from seed 1
+    evaluated through the kernels and through plain from the same trained
+    parameters (launches counted over the kernels' run alone), the exit
+    rate re-read at five thresholds, and the Fig. 3 table from the measured
+    rates. Returns {kind: the kernels' launches}."""
+    from repro_torch.core import xaif
+    from repro_torch.train import early_exit as tr
+
+    # cuDNN's deterministic convolutions, so that card runs repeat
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    cfg = tr.MODELS["cnn"][0]()        # both models read the same windows
+    data = list(tr.signal_batches(range(SEIZURE_STEPS), 64, cfg, 0, "cuda"))
+    evalb = tr.eval_batches(cfg, 2048, 1, "cuda")
+    torch.cuda.synchronize()
+    print(f"seizure data: {SEIZURE_STEPS} training batches of 64 and "
+          f"{len(evalb)} evaluation batches of 256 on the card in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    per_batch = {"cnn": {"gemm": 2, "entropy_exit": 1},
+                 "transformer": {"attention": 4, "attention_fp32": 4,
+                                 "rmsnorm": 8, "gemm": 2,
+                                 "entropy_exit": 1}}
+    launches, rates = {}, {}
+    for kind, w, th in tr.OPERATING_POINTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg, params, fwd, losses = tr.train_model(
+            kind, w, steps=SEIZURE_STEPS, device="cuda", batches=data)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tr.leaves(params))
+        print(f"seizure {kind}: {n_params} params, {SEIZURE_STEPS} steps "
+              f"(weight {w}) on the card in {secs:.2f}s; loss {losses[0]:.4f}"
+              f" -> {losses[-1]:.4f} on {card}", flush=True)
+        # the card's training against the CPU's (cuDNN's convolutions with
+        # TF32 off; tolerances above). The free-running trajectories part
+        # (the CNN's max-pool / ReLU near-ties, Adam's early ~lr * sign(g)
+        # steps), so their difference is printed, not held.
+        t0 = time.perf_counter()
+        cpu_losses, step_loss, step_grad = check_seizure_steps(
+            torch, tr, kind, w, data[:SEIZURE_CPU_STEPS])
+        diff = [abs(a - b) / b for a, b in zip(losses, cpu_losses)]
+        print(f"seizure {kind}: first {SEIZURE_CPU_STEPS} steps against the "
+              f"CPU's: from the CPU's parameters, loss max rel diff "
+              f"{step_loss:.3e}, gradients max diff {step_grad:.3e} of the "
+              f"leaf's largest (tol {SEIZURE_LOSS_TOL:g}, "
+              f"{SEIZURE_GRAD_TOL[kind]:g}); free-running, losses max rel "
+              f"diff {max(diff):.3e} (not held); CPU run "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+        # through the kernels, counted, then plain on the same parameters
+        torch.cuda.synchronize()
+        xaif.reset_launch_counts()
+        kern = tr.predict(cfg, params, fwd, evalb, th, "auto")
+        torch.cuda.synchronize()
+        launches[kind] = {k: n for k, n in xaif.launch_counts().items() if n}
+        plain = tr.predict(cfg, params, fwd, evalb, th, "ref")
+        errs = {}
+        for key in ("logits", "exit_logits", "entropy"):
+            a, b = kern[key], plain[key]
+            errs[key] = float((a - b).abs().max())
+            assert bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all()), (
+                kind, key, errs[key])
+        near = (plain["entropy"] - th).abs() < 1e-5
+        assert torch.equal(kern["exited"][~near], plain["exited"][~near]), (
+            kind, "exit decisions differ")
+        want = {k: len(evalb) * n for k, n in per_batch[kind].items()}
+        assert launches[kind] == want, (kind, launches[kind], want)
+        m = tr.metrics(kern)
+        print(f"seizure {kind}: 2048 windows through the kernels against "
+              f"plain: max abs err {errs} (tol 1e-4 + 1e-4*|ref|); exit "
+              f"decisions equal ({int(near.sum())} rows within 1e-5 of the "
+              f"threshold {th}); launches {launches[kind]}; exit rate "
+              f"{m['exit_rate']:.4f}, F1 {m['f1_full']:.4f} -> "
+              f"{m['f1_early_exit']:.4f}, accuracy {m['accuracy_full']:.4f} "
+              f"-> {m['accuracy_early_exit']:.4f}", flush=True)
+        assert m["f1_full"] >= 0.9 and m["exit_rate"] > 0.5, (kind, m)
+        sweep = [tr.metrics(tr.predict(cfg, params, fwd, evalb, t,
+                                       "auto"))["exit_rate"]
+                 for t in SEIZURE_THRESHOLDS]
+        assert all(a <= b for a, b in zip(sweep, sweep[1:])), (kind, sweep)
+        print(f"seizure {kind}: exit rate at thresholds "
+              f"{dict(zip(SEIZURE_THRESHOLDS, sweep))}: never falls",
+              flush=True)
+        rates[kind] = m["exit_rate"]
+
+    for kind, table in tr.fig3_table(rates).items():
+        print(f"fig3 {kind} exit rate {table['exit_rate']:.4f}: " + "; ".join(
+            f"{name} speedup {v['speedup']:.2f}x energy {v['energy_gain']:.2f}x"
+            f" (paper {v['paper_speedup']}x, {v['paper_energy_gain']}x)"
+            for name, v in table.items()
+            if name not in ("exit_rate", "cpu_baseline")),
+            flush=True)
+
+    # a kernel launch under autograd raises, and launches nothing
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    before = xaif.launch_counts()
+    try:
+        xaif.call("gemm", "auto", x, torch.randn(64, 2, device="cuda"))
+    except RuntimeError as e:
+        assert "requires grad" in str(e), e
+    else:
+        raise AssertionError("a gemm launch under autograd did not raise")
+    assert xaif.launch_counts() == before
+    torch.backends.cudnn.deterministic = False
+    print(f"seizure: a kernel launch under autograd raises; phase done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
 def main() -> int:
 
     import torch
@@ -2300,13 +2610,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_xlstm(torch, run_serve, t_start)
 
-    # the scalar fp32 flash instance is on no serving path
+    # -- 13. the scalar fp32 flash instance is on no serving path ----------
     fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
     assert not fp32, f"fp32 flash attention launched on {fp32}"
     print(f"launches: no fp32 flash attention in the {len(runs)} serve runs",
           flush=True)
 
-    # -- 11. the kernels line, the card, the verdict -------------------------
+    # -- 14. the paper's seizure workload: train, evaluate, Fig. 3 ---------
+    torch.cuda.empty_cache()
+    seizure = run_seizure(torch, card, t_start)
+    tf, cnn = seizure["transformer"], seizure["cnn"]
+
+    # -- 15. the kernels line, the card, the verdict -------------------------
     replaces = {   # kernel: (what it replaces, source, run, counter)
         "gemm": ("kernels/gemm/gemm.py:48", "gemm", "contiguous", "gemm"),
         "rmsnorm": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm", "contiguous",
@@ -2369,6 +2684,24 @@ def main() -> int:
                     replaces=f"src/repro/{tpu}",
                     launches=runs[run]["launches"][counter], **records[name])
                for name, (tpu, src, run, counter) in replaces.items()]
+    # the seizure evaluation's instances (phase 14's kernels run): the
+    # transformer's attention and norms; both models' heads and exits
+    seizure_kernels = {
+        "attention_fp32_d16": ("kernels/flash_attention/flash_attention.py:70",
+                               "flash_attention", tf["attention_fp32"]),
+        "rmsnorm_fp32_d64": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm",
+                             tf["rmsnorm"]),
+        "gemm_fp32_n2": ("kernels/gemm/gemm.py:48", "gemm",
+                         tf["gemm"] + cnn["gemm"]),
+        "entropy_exit_fp32_v2": ("kernels/entropy_exit/entropy_exit.py:68",
+                                 "entropy_exit",
+                                 tf["entropy_exit"] + cnn["entropy_exit"]),
+    }
+    kernels += [dict(name=name, route="cuda",
+                     source=f"src/repro_torch/csrc/{src}.cu",
+                     replaces=f"src/repro/{tpu}", launches=n,
+                     **records[name])
+                for name, (tpu, src, n) in seizure_kernels.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

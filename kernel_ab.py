@@ -65,11 +65,13 @@ baseline, change, change, baseline are timed.
 the fp32 GEMM): at every decode GEMM shape of yi-9b, deepseek-v2-lite-16b,
 jamba-v0.1-52b and xlstm-350m that ``chip_smoke.py`` times (M = 4 slots),
 yi-9b's at M = 16 (spec verify) and M = 128 (prefill), and the fp32
-routers, ``w_if`` and 4096 -> 512. ``gemm_heads``: at the three layouts'
-serving shapes (MLA's absorbed products, xLSTM's head-major q/k/v and
-sLSTM ``wr``). Each checkout's wrapper runs in processes of its own,
-baseline, change, change, baseline, baseline, change, on the same inputs
-(made on the card from fixed seeds): each process times every shape and
+routers, ``w_if`` and 4096 -> 512, and the seizure models' two-class
+heads (M = 256, K = 32 / 128 / 64, N = 2). ``gemm_heads``: at the
+three layouts' serving shapes (MLA's absorbed products, xLSTM's
+head-major q/k/v and sLSTM ``wr``). Each checkout's wrapper runs in
+processes of its own, baseline, change, change, baseline, baseline,
+change, on the same inputs (made on the card from fixed seeds): each
+process times every shape and
 the host's us a wrapper call at a few (bf16, int8-weight and the fp32
 router 2048 -> 64; MLA's transposed ``w_uk`` and xLSTM's head-major
 q/k/v: the median of 11 runs of 100 enqueued calls). Reported per shape:
@@ -505,7 +507,10 @@ GEMM_CASES = (
     # W8A8 (``gemm_int8``, activations quantized by the wrapper or kernel):
     # yi-9b's shapes at M = 4, 16 and 128, and a ragged shape with a bias
     + [(m, k, n, a, "w8a8") for m in (4, 16, 128) for k, n, a in GEMM_BF16]
-    + [(5, 1000, 300, "relu", "w8a8+bias")])
+    + [(5, 1000, 300, "relu", "w8a8+bias")]
+    # the seizure models' fp32 heads at an evaluation batch of 256 (the
+    # narrow kernel from PR 25 on; the tiled fp32 kernel before)
+    + [(256, k, 2, "none", "fp32") for k in (32, 128, 64)])
 
 
 # (M, H, K, w shape, w dtype, layout) of gemm_heads: MLA's w_uk (read

@@ -1,6 +1,6 @@
 """Early-exit dynamic networks (port of ``repro.core.early_exit``,
-inference side): exit heads, the normalized-entropy exit decision and the
-batched merge of exit and final logits.
+inference side): exit heads, the normalized-entropy confidence and exit
+decision and the batched merge of exit and final logits.
 
 The exit decision goes through the XAIF ``entropy_exit`` op, so on the card
 the entropy of each exit row is one pass of the entropy kernel.
@@ -13,6 +13,14 @@ import torch
 
 from repro_torch.configs.base import EarlyExitConfig
 from repro_torch.core import xaif
+from repro_torch.kernels.entropy_exit.ref import entropy_ref
+
+
+def normalized_entropy(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Entropy of softmax(logits) normalized to [0, 1] by log(C), in fp32
+    (the JAX ``normalized_entropy``: the paper's thresholds 0.1-0.5 only
+    make sense on a normalized scale). The plain ``entropy_exit``."""
+    return entropy_ref(logits.movedim(dim, -1))
 
 
 def should_exit(logits: torch.Tensor, threshold: float, policy: str

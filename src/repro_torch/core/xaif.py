@@ -24,7 +24,10 @@ behind the one wrapper and counter.
 ``call(op, policy, *args)`` picks the backend from the device of the first
 tensor argument: CUDA tensors launch the kernel, CPU tensors run the plain
 version. Policy ``"ref"`` forces the plain version on any device; nothing
-else does — there is no fallback from a kernel to the plain version.
+else does — there is no fallback from a kernel to the plain version. No
+kernel has a backward (nor had the Pallas kernels), so a call that would
+launch one on a tensor that requires grad, with autograd on, raises
+instead of cutting the gradient: training runs under ``"ref"``.
 
 An op may also carry further, named backends, each again a plain version
 and a kernel: ``gemm`` has ``int8`` (W8A8: activations quantized per row,
@@ -152,6 +155,14 @@ def call(op: str, policy: PolicyLike, *args, **kwargs):
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     if mode == "ref" or device.type == "cpu":
         return e.plain(*args, **kwargs)
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in args + tuple(kwargs.values())):
+        raise RuntimeError(
+            f"xaif: op {op!r} would launch its CUDA kernel on a tensor that "
+            f"requires grad, and no kernel has a backward: the gradient "
+            f"would stop here. Train under the 'ref' policy, or run "
+            f"inference under torch.no_grad()")
     return e.kernel(*args, **kwargs)
 
 

@@ -5,8 +5,9 @@
 // (flash_attention_pallas -> _fa_kernel): the prefill attention.
 // q/k [B, H, T|S, Dqk], v [B, Hkv, S, Dv] in the model dtype, with (Dqk,
 // Dv) = (128, 128) (GQA) or (192, 128) (MLA prefill: 128 latent-decompressed
-// dims + 64 rotary dims per head, values of 128); query head h reads KV
-// head h / (Hq / Hkv). Causal mode masks bottom-right:
+// dims + 64 rotary dims per head, values of 128), and in fp32 also (16,
+// 16) (the seizure transformer's 4 heads of 16, non-causal, T = S = 16);
+// query head h reads KV head h / (Hq / Hkv). Causal mode masks bottom-right:
 // key j is visible to query i iff j <= i + (S - T). Output in q's dtype.
 //
 // Bound on the H100: bytes (q, k, v read once, the output written once;
@@ -43,11 +44,22 @@
 // sees nothing of leaves its (m, l, acc) unchanged (m stays, alpha =
 // exp2(0) = 1, P = 0 adds exact zeros), whichever warp runs it.
 //
-// The fp32 instance (flash_kernel<float>, on no serving path) keeps the
-// scalar design: one block per (64 query rows, head, sequence), K and V
-// tiles converted to fp32 in shared memory, one thread per (row, 4
-// columns), scalar fmaf dot products; ~115 KB of shared memory at (128,
-// 128), ~148 KB at (192, 128).
+// The fp32 instances (on no serving path: the fp32 references, and the
+// seizure transformer's evaluation) are scalar:
+//  - (128, 128) and (192, 128), flash_kernel<float>: one block per (64
+//    query rows, head, sequence), K and V tiles converted to fp32 in
+//    shared memory, one thread per (row, 4 columns), scalar fmaf dot
+//    products; ~115 KB of shared memory at (128, 128), ~148 KB at (192,
+//    128);
+//  - (16, 16), small::flash_small_kernel: a warp per (32 query rows,
+//    head, sequence), 4 warps a block on 4 such items (no block-wide
+//    barrier), a thread per query row holding its q row and its output
+//    row in registers; K and V in tiles of 32 keys in the warp's own
+//    4 KB of shared memory, read as broadcasts. At the seizure
+//    transformer's T = S = 16 (1024 (head, sequence) pairs a batch of
+//    256) half of each warp idles; flash_kernel's 64-row blocks idled
+//    3/4 of their threads and ran their full loops on them (0.0387 ms
+//    against plain's 0.0277 on the card).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -415,6 +427,123 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// fp32, small heads (16, 16)
+// ---------------------------------------------------------------------------
+
+namespace small {
+
+constexpr int kWarps = 4, kRows = 32, kKeys = 32;
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * kWarps)
+    flash_small_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int B, int Hq, int Hkv, int T_, int S, int causal,
+                       float scale) {
+  __shared__ __align__(16) float Ks[kWarps][kKeys][DQK];
+  __shared__ __align__(16) float Vs[kWarps][kKeys][DV];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (T_ + kRows - 1) / kRows;
+  const long long item = (long long)blockIdx.x * kWarps + warp;
+  if (item >= (long long)B * Hq * chunks) return;  // no block barrier below
+  const int chunk = (int)(item % chunks);
+  const int h = (int)(item / chunks % Hq), b = (int)(item / chunks / Hq);
+  const int hk = h / (Hq / Hkv), r0 = chunk * kRows, qi = r0 + lane;
+  const int off = S - T_;  // causal offset: query i sees keys j <= i + off
+  const float* kb = k + (((size_t)b * Hkv + hk) * S) * DQK;
+  const float* vb = v + (((size_t)b * Hkv + hk) * S) * DV;
+
+  float qr[DQK], acc[DV];
+  const float* qp = q + (((size_t)b * Hq + h) * T_ + (qi < T_ ? qi : 0)) * DQK;
+#pragma unroll
+  for (int d = 0; d < DQK; d += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(qp + d);
+    qr[d] = u.x * scale;
+    qr[d + 1] = u.y * scale;
+    qr[d + 2] = u.z * scale;
+    qr[d + 3] = u.w * scale;
+  }
+#pragma unroll
+  for (int d = 0; d < DV; ++d) acc[d] = 0.f;
+  float m_i = kNeg, l_i = 0.f;
+  const int last = min(T_ - 1, r0 + kRows - 1);
+  const int kv_end = causal ? min(S, last + off + 1) : S;
+
+  for (int kv0 = 0; kv0 < kv_end; kv0 += kKeys) {
+    __syncwarp();  // the previous tile is consumed
+    for (int c = lane; c < kKeys * DQK / 4; c += 32) {
+      const int j = c / (DQK / 4), d = (c % (DQK / 4)) * 4;
+      *reinterpret_cast<float4*>(&Ks[warp][j][d]) =
+          kv0 + j < S
+              ? *reinterpret_cast<const float4*>(kb + (size_t)(kv0 + j) * DQK + d)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int c = lane; c < kKeys * DV / 4; c += 32) {
+      const int j = c / (DV / 4), d = (c % (DV / 4)) * 4;
+      *reinterpret_cast<float4*>(&Vs[warp][j][d]) =
+          kv0 + j < S
+              ? *reinterpret_cast<const float4*>(vb + (size_t)(kv0 + j) * DV + d)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncwarp();
+    float s[kKeys], mt = kNeg;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < DQK; ++d) dot = fmaf(qr[d], Ks[warp][j][d], dot);
+      const int kj = kv0 + j;
+      const bool ok = kj < S && (!causal || kj <= qi + off);
+      s[j] = ok ? dot : kNeg;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float m_new = fmaxf(m_i, mt);
+    const float alpha = expf(m_i - m_new);
+    float lsum = 0.f;
+#pragma unroll
+    for (int d = 0; d < DV; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int kj = kv0 + j;
+      const bool ok = kj < S && (!causal || kj <= qi + off);
+      const float p = ok ? expf(s[j] - m_new) : 0.f;
+      lsum += p;
+#pragma unroll
+      for (int d = 0; d < DV; ++d) acc[d] = fmaf(p, Vs[warp][j][d], acc[d]);
+    }
+    l_i = l_i * alpha + lsum;
+    m_i = m_new;
+  }
+  if (qi < T_) {
+    const float inv_l = 1.f / fmaxf(l_i, 1e-30f);
+    float* ob = out + (((size_t)b * Hq + h) * T_ + qi) * DV;
+#pragma unroll
+    for (int d = 0; d < DV; d += 4)
+      *reinterpret_cast<float4*>(ob + d) =
+          make_float4(acc[d] * inv_l, acc[d + 1] * inv_l, acc[d + 2] * inv_l,
+                      acc[d + 3] * inv_l);
+  }
+}
+
+template <int DQK, int DV>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int T_, int S, int causal, float scale,
+           cudaStream_t s) {
+  const long long items =
+      (long long)B * Hq * ((T_ + kRows - 1) / kRows);
+  const long long blocks = (items + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_small_kernel<DQK, DV><<<(unsigned)blocks, 32 * kWarps, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B, Hq, Hkv, T_,
+      S, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace small
+
 KERNEL_API int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int T_, int S, int dqk, int dv,
@@ -430,6 +559,9 @@ KERNEL_API int flash_attention_launch(const void* q, const void* k,
                                   scale, s);
     return (int)cudaErrorInvalidValue;
   }
+  if (dqk == 16 && dv == 16)
+    return small::launch<16, 16>(q, k, v, out, B, Hq, Hkv, T_, S, causal,
+                                 scale, s);
   return launch_dims<float>(q, k, v, out, B, Hq, Hkv, T_, S, dqk, dv, causal,
                             scale, s);
 }

@@ -662,6 +662,86 @@ static int dispatch(const void* x, const void* w, const float* bias,
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// fp32 GEMM at 1-7 columns (the seizure models' two-class heads, x [256,
+// 32-128] @ w [32-128, 2]): narrower than the fp32 kernel's tiles (8
+// columns at least), whose block there reduces 16 rows through a tree of
+// 128 lanes along a K of a few dozen. Here one warp a row of x: lane l
+// takes k = l, l + 32, ... (coalesced reads of the row; w, a few hundred
+// bytes, stays in L1), one fmaf chain a column, then the warp's butterfly
+// (xor 16, 8, 4, 2, 1); lane 0 adds the bias, activates and stores. The
+// arithmetic is fixed by (N, K): a row's result never depends on M.
+// ---------------------------------------------------------------------------
+namespace f32n {
+
+constexpr int kWarps = 8;
+
+template <int N>
+__global__ void __launch_bounds__(kWarps * 32)
+    gemm_f32_narrow_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w,
+                           const float* __restrict__ bias,
+                           float* __restrict__ out, int M, int K, int act) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (m >= M) return;  // the whole warp: m is the warp's
+  const float* xr = x + (size_t)m * K;
+  float acc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n] = 0.f;
+#pragma unroll 4
+  for (int k = lane; k < K; k += 32) {
+    const float xv = __ldg(xr + k);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      acc[n] = fmaf(xv, __ldg(w + (size_t)k * N + n), acc[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      acc[n] += __shfl_xor_sync(0xffffffffu, acc[n], s);
+  if (lane) return;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float v = acc[n];
+    if (bias) v += bias[n];
+    out[(size_t)m * N + n] = activate(v, act);
+  }
+}
+
+template <int N>
+static int run(const float* x, const float* w, const float* bias, float* out,
+               int M, int K, int act, cudaStream_t s) {
+  gemm_f32_narrow_kernel<N><<<(M + kWarps - 1) / kWarps, kWarps * 32, 0, s>>>(
+      x, w, bias, out, M, K, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32n
+
+// x fp32 [M, K]; w fp32 [K, N], 1 <= N <= 7; bias fp32 [N] or null; out
+// fp32 [M, N].
+KERNEL_API int gemm_f32_narrow_launch(const void* x, const void* w,
+                                      const void* bias, void* out, int M,
+                                      int N, int K, int act, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto wf = static_cast<const float*>(w);
+  auto b = static_cast<const float*>(bias);
+  auto o = static_cast<float*>(out);
+  switch (N) {
+    case 1: return f32n::run<1>(xf, wf, b, o, M, K, act, s);
+    case 2: return f32n::run<2>(xf, wf, b, o, M, K, act, s);
+    case 3: return f32n::run<3>(xf, wf, b, o, M, K, act, s);
+    case 4: return f32n::run<4>(xf, wf, b, o, M, K, act, s);
+    case 5: return f32n::run<5>(xf, wf, b, o, M, K, act, s);
+    case 6: return f32n::run<6>(xf, wf, b, o, M, K, act, s);
+    case 7: return f32n::run<7>(xf, wf, b, o, M, K, act, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // The layouts of w in gemm_heads_launch.
 enum HeadLayout { kLHD = 0, kLHDTransposed = 1, kHeadMajor = 2 };
 

@@ -13,8 +13,10 @@ from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # (q/k head dim, v head dim) the kernel is instantiated for: GQA, and MLA
-# prefill (128 decompressed + 64 rotary dims per head, values of 128)
+# prefill (128 decompressed + 64 rotary dims per head, values of 128); the
+# fp32 instance also for the seizure transformer's heads of 16
 HEAD_DIMS = ((128, 128), (192, 128))
+HEAD_DIMS_FP32 = HEAD_DIMS + ((16, 16),)
 
 
 def _lib() -> ctypes.CDLL:
@@ -32,19 +34,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Hq, T, Dqk], k [B, Hkv, S, Dqk], v [B, Hkv, S, Dv] ->
     [B, Hq, T, Dv] on the card, causal mask bottom-right; (Dqk, Dv) is one
-    of ``HEAD_DIMS``. bf16 runs the tensor-core kernel; fp32 runs the
-    scalar one, whose launches are also counted apart
-    (``attention.instances["attention_fp32"]``)."""
+    of ``HEAD_DIMS`` (fp32: ``HEAD_DIMS_FP32``). bf16 runs the tensor-core
+    kernel; fp32 runs the scalar one, whose launches are also counted
+    apart (``attention.instances["attention_fp32"]``)."""
     require_cuda("attention", q, k, v)
     code = dtype_code("attention", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("attention: q, k, v must share one dtype")
     b, hq, t, d = q.shape
     dv = v.shape[-1]
-    if ((d, dv) not in HEAD_DIMS or k.shape[-1] != d
+    dims = HEAD_DIMS_FP32 if code == DTYPE_CODE[torch.float32] else HEAD_DIMS
+    if ((d, dv) not in dims or k.shape[-1] != d
             or v.shape[:-1] != k.shape[:-1]):
         raise ValueError(f"attention: the kernel takes (q/k, v) head dims "
-                         f"{HEAD_DIMS}; got q {tuple(q.shape)}, k "
+                         f"{dims} in {q.dtype}; got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     hkv, s = k.shape[1], k.shape[2]
     if k.shape[0] != b or hq % hkv:

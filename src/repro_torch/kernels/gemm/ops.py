@@ -9,7 +9,8 @@ The kernels' tile and split choices are made here, by :func:`gemm_plan`
 (the bf16 / int8-weight kernel), :func:`f32_plan` (the fp32 kernel) and
 :func:`int8_plan` (the W8A8 kernel): functions of the shape of w alone,
 never of M, so that every output element is reduced over K in one order
-whatever the batch."""
+whatever the batch. The fused fp32 GEMM at fewer than ``F32_NARROW``
+columns runs a kernel of its own (a warp a row), planless."""
 from __future__ import annotations
 
 import ctypes
@@ -71,6 +72,8 @@ class F32Plan(NamedTuple):
 
 
 F32_MT = 16                    # rows of x a block (csrc/gemm.cu f32::kMT)
+F32_NARROW = 8                 # the fused fp32 GEMM at fewer columns runs
+                               # f32n::gemm_f32_narrow_kernel: a warp a row
 F32_MAX_LOADS = 8              # 16-byte loads of w a thread
 F32_MAX_KC = 512               # K rows a block stages (16 x 512 fp32 of x)
 
@@ -124,6 +127,8 @@ def _lib() -> ctypes.CDLL:
         lib.gemm_bf16_launch.restype = i
         lib.gemm_heads_launch.argtypes = [p] * 6 + [i] * 12 + [p]
         lib.gemm_heads_launch.restype = i
+        lib.gemm_f32_narrow_launch.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.gemm_f32_narrow_launch.restype = i
     return lib
 
 
@@ -208,7 +213,11 @@ def gemm(x: torch.Tensor, w: Union[torch.Tensor, WeightQ],
     b = _bias("gemm", x, bias, n)
     bp = None if b is None else b.data_ptr()
     lib = _lib()
-    if code == 0:                            # fp32: gemm_heads' kernel, H = 1
+    if code == 0 and n < F32_NARROW:         # fp32, 1-7 columns
+        rc = lib.gemm_f32_narrow_launch(x.data_ptr(), mat.data_ptr(), bp,
+                                        out.data_ptr(), m, n, k,
+                                        ACT_CODE[activation], stream_ptr(x))
+    elif code == 0:                          # fp32: gemm_heads' kernel, H = 1
         rc = _launch_f32(lib, x, mat, bp, out, m, 1, k, n, HEAD_MAJOR,
                          ACT_CODE[activation])
     else:

@@ -98,6 +98,10 @@ def _launch(kind, m):
     if kind == "fp32":
         ops.gemm(torch.zeros(m, 2048), torch.zeros(2048, 64, dtype=f32))
         return
+    if kind == "fp32-narrow":
+        ops.gemm(torch.zeros(m, 64), torch.zeros(64, 2, dtype=f32),
+                 torch.zeros(2))
+        return
     layout = {"heads-transposed": dict(transpose_w=True),
               "heads": {}, "heads-major": dict(head_major=True)}[kind]
     k = 128 if kind == "heads-transposed" else 512
@@ -109,14 +113,18 @@ def _launch(kind, m):
 
 # where M is among each entry point's arguments, and the arguments after
 # it: N, K, act and the plan (bf16); H, L, D, layout, wdtype, act and the
-# plan (fp32)
-_M_ARG = {"gemm_bf16_launch": 5, "gemm_heads_launch": 6}
+# plan (fp32); N, K and act (fp32 below 8 columns)
+_M_ARG = {"gemm_bf16_launch": 5, "gemm_heads_launch": 6,
+          "gemm_f32_narrow_launch": 4}
 _PLAN_ARGS = {"gemm_bf16_launch": slice(6, 12),
-              "gemm_heads_launch": slice(7, 18)}
+              "gemm_heads_launch": slice(7, 18),
+              "gemm_f32_narrow_launch": slice(5, 8)}
+_ENTRY = {"bf16": "gemm_bf16_launch", "int8-weight": "gemm_bf16_launch",
+          "fp32-narrow": "gemm_f32_narrow_launch"}
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8-weight", "fp32",
-                                  "heads-transposed", "heads",
+                                  "fp32-narrow", "heads-transposed", "heads",
                                   "heads-major"])
 def test_wrappers_pass_one_plan_for_every_m(kind, monkeypatch):
     """The C entry point gets the same plan (tile, stage, split) whatever
@@ -128,8 +136,7 @@ def test_wrappers_pass_one_plan_for_every_m(kind, monkeypatch):
         wq_before = ops.gemm.instances["gemm_wq"]
         _launch(kind, m)
         name, args = lib.calls[-1]
-        assert name == ("gemm_bf16_launch" if kind in ("bf16", "int8-weight")
-                        else "gemm_heads_launch")
+        assert name == _ENTRY.get(kind, "gemm_heads_launch")
         assert args[_M_ARG[name]] == m
         seen.add((name, args[_PLAN_ARGS[name]]))
         assert ops.gemm.instances["gemm_wq"] == wq_before + (
@@ -138,9 +145,28 @@ def test_wrappers_pass_one_plan_for_every_m(kind, monkeypatch):
     assert len(lib.calls) == len(ROWS)
 
 
+@pytest.mark.parametrize("n", range(1, 10))
+def test_fp32_below_8_columns_runs_the_narrow_kernel(n, monkeypatch):
+    """The fused fp32 GEMM takes the narrow kernel (a warp a row) at 1-7
+    columns and the tiled kernel from 8 on; bf16 never the narrow one."""
+    lib = _stub_card(monkeypatch)
+    ops.gemm(torch.zeros(4, 64), torch.zeros(64, n), torch.zeros(n), "relu")
+    ops.gemm(torch.zeros(4, 64, dtype=torch.bfloat16),
+             torch.zeros(64, n, dtype=torch.bfloat16))
+    (f32_name, f32_args), (bf_name, _) = lib.calls
+    assert bf_name == "gemm_bf16_launch"
+    if n < ops.F32_NARROW:
+        assert f32_name == "gemm_f32_narrow_launch"
+        assert f32_args[4:8] == (4, n, 64, ops.ACT_CODE["relu"])
+        assert f32_args[2] is not None        # the bias
+    else:
+        assert f32_name == "gemm_heads_launch"
+
+
 def test_launch_counters_count_each_call(monkeypatch):
     _stub_card(monkeypatch)
     for kind, wrapper in (("bf16", ops.gemm), ("fp32", ops.gemm),
+                          ("fp32-narrow", ops.gemm),
                           ("heads", ops.gemm_heads)):
         before = wrapper.launches
         _launch(kind, 4)
