@@ -81,6 +81,20 @@ Phases (any failure raises; nothing is caught):
      every step); then the paged engine (no pool: 24 usable pages are
      accounted, nothing is stored in them): tokens equal the contiguous
      run's, bitwise;
+ 12b. musicgen-medium at full width and full depth (48 layers, d_model
+     1536, 24 query heads over 24 KV heads of 64: group 1, the head-dim-64
+     instances of the GQA decode kernels and of bf16 flash attention; 1.818
+     B params, bf16, random weights; xlstm's weights freed first), served
+     from codebook ids (its frontend is a stub): 8 prompts prefilled
+     through the kernels, the plain policy and the plain policy on an fp32
+     weight copy;
+ 12c. the 6-request serve of phase 4 on musicgen, contiguous (request 0 ==
+     ``generate`` bitwise; launches exactly gemm, rmsnorm, attention (48 a
+     prefill), attn_decode (48 a step) and entropy_exit (1 a step)) and
+     paged (tokens equal, attn_decode_paged 48 a step), then greedy
+     speculative decoding without its exit as in phase 6 (a tied draft,
+     paged, and a 2-layer draft, contiguous: tokens == plain greedy,
+     bitwise; verify_decode(_paged) 48 a round);
  13. a check that no serve run launched the fp32 flash instance (its
      own counter);
  14. the paper's seizure workload at its published configs (the CNN and
@@ -102,8 +116,10 @@ Phases (any failure raises; nothing is caught):
  15. one JSON line listing the kernels, the card's name and power limit,
      and the final ``{"ok": true, ...}`` line.
 
-Phase 2 also holds deepseek's, jamba's and xlstm's kernels at their
-serving shapes, and the int8 kernels at yi-9b's (``gemm_int8``, which
+Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
+at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
+fp32, with the bitwise identities of the paged and verify kernels at D =
+64, and its bf16 flash (64, 64) with the padded-prompt rows), and the int8 kernels at yi-9b's (``gemm_int8``, which
 quantizes the activations itself, bitwise == plain for none / relu; the
 int8-weight ``gemm`` bitwise == the bf16 kernel on the dequantized
 weight), and asserts, bitwise, that row b of a
@@ -147,8 +163,8 @@ time line names its block plan (``decode_plan`` / ``mla_plan``, read
 from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
-line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10, 12 or
-14). Each served model
+line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10, 12,
+12c or 14). Each served model
 also has three decode chunks timed by the host clock and one traced per
 engine (``decode step`` lines, with the device kernels a step, the GEMM,
 decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
@@ -406,6 +422,7 @@ def check_kernels(torch, timer):
     check_paged_mla(torch, compare, randn, gen)
     check_jamba(torch, compare, randn, gen)
     check_xlstm(torch, compare, randn, gen)
+    check_musicgen(torch, compare)
 
     # entropy: fp32 sums in another order; the result is O(1). Library:
     # the entropy of torch.distributions.Categorical over log V
@@ -537,7 +554,8 @@ def check_seizure_kernels(torch, compare):
 def check_entropy(torch, compare):
     """Phase 2 for entropy_exit at the other served vocabularies (4 live
     slots, bf16: xlstm-350m's 50304, jamba-v0.1-52b's 65536,
-    deepseek-v2-lite-16b's 102400), at yi-9b's [4, 64000] in fp32, and at
+    deepseek-v2-lite-16b's 102400, musicgen-medium's 2048), at yi-9b's
+    [4, 64000] in fp32, and at
     two odd widths, [3, 1001] and [4, 50257], whose rows start off 16-byte
     boundaries (the kernel's scalar loads); each line names the kernel's
     plan (``entropy_plan``). Tolerance 1e-4 + 1e-4 |ref|: fp32 sums in
@@ -563,7 +581,8 @@ def check_entropy(torch, compare):
                            (4, 102400, bf16, "deepseek-v2-lite-16b"),
                            (4, 64000, f32, "yi-9b fp32"),
                            (3, 1001, bf16, "odd V"),
-                           (4, 50257, bf16, "odd V")):
+                           (4, 50257, bf16, "odd V"),
+                           (4, 2048, bf16, "musicgen-medium")):
         x = logits(m, v, dt)
         compare("entropy_exit", f"[{m}, {v}] {what}",
                 lambda x=x: ee.entropy(x), lambda x=x: entropy_ref(x),
@@ -575,7 +594,7 @@ def check_entropy(torch, compare):
 
     widths = []
     for v, dt in ((50304, bf16), (64000, bf16), (65536, bf16),
-                  (102400, bf16), (64000, f32)):
+                  (102400, bf16), (64000, f32), (2048, bf16)):
         x = logits(16, v, dt)
         full = ee.entropy(x)
         four = ee.entropy(x[:4].contiguous())
@@ -614,7 +633,8 @@ def check_rmsnorm(torch, compare):
     bf16 with an fp32 scale, the exit head's with a bf16 scale, deepseek's
     [4, 2048] (and its exit head's) and its ``kv_norm`` [4, 512], xlstm's
     block norms [4, 1024], its mLSTM head norm [16, 512] fp32 with a unit
-    scale and its sLSTM norm [4, 1024] fp32; each line names the kernel's
+    scale and its sLSTM norm [4, 1024] fp32, musicgen-medium's [4, 1536]
+    (layer norms and exit head); each line names the kernel's
     thread map. A call at decode sits under the cold-L2 timer's floor (~8.5
     us), so these times say little (``kernel_ab.py --kernel rmsnorm`` and
     the decode-step traces time it). Bitwise, at [*, 4096] bf16 (both
@@ -646,7 +666,9 @@ def check_rmsnorm(torch, compare):
             (4, 512, bf16, f32, "deepseek kv_norm"),
             (4, 1024, bf16, f32, "xlstm block norms"),
             (16, 512, f32, None, "xlstm mLSTM head norm"),
-            (4, 1024, f32, f32, "xlstm sLSTM norm")):
+            (4, 1024, f32, f32, "xlstm sLSTM norm"),
+            (4, 1536, bf16, f32, "musicgen layer norms"),
+            (4, 1536, bf16, bf16, "musicgen exit head")):
         x, sc = inputs(m, d, dt, sdt)
         # bf16 output: one bf16 ulp; fp32 output: rsqrt and summation order
         tol = 1e-2 if dt == bf16 else 1e-4
@@ -662,7 +684,7 @@ def check_rmsnorm(torch, compare):
     widths = []
     for d, dt, sdt in ((4096, bf16, f32), (4096, bf16, bf16),
                        (2048, bf16, f32), (1024, bf16, f32), (512, bf16, f32),
-                       (512, f32, f32), (1024, f32, f32)):
+                       (512, f32, f32), (1024, f32, f32), (1536, bf16, f32)):
         x, sc = inputs(128, d, dt, sdt)
         full = rn.rmsnorm(x, sc)
         four = rn.rmsnorm(x[:4].contiguous(), sc)
@@ -687,27 +709,29 @@ def check_rmsnorm(torch, compare):
           f"d = {widths}", flush=True)
 
 
-def check_flash_padding(torch, randn, hkv: int, dqk: int):
+def check_flash_padding(torch, randn, hkv: int, dqk: int, hq: int = 0,
+                        dv: int = 128):
     """A row of flash attention does not depend on the rows after it: the
     first t rows of a prompt right-padded to the next multiple of 16 (the
     engine's prefill buckets) equal the unpadded prompt's, bitwise, at t =
-    20 and 100 (q [1, 32 | 16, t, dqk], values of 128)."""
+    20 and 100 (q [1, hq, t, dqk], values of dv; hq defaults to 32 at dqk
+    128, else 16)."""
     from repro_torch.kernels.flash_attention import ops as fa
 
-    hq = 32 if dqk == 128 else 16
+    hq = hq or (32 if dqk == 128 else 16)
     for t in (20, 100):
         tp = -(-t // 16) * 16
         q, k, v = randn(1, hq, tp, dqk), randn(1, hkv, tp, dqk), \
-            randn(1, hkv, tp, 128)
+            randn(1, hkv, tp, dv)
         padded = fa.attention(q, k, v, causal=True)
         exact = fa.attention(q[:, :, :t].contiguous(),
                              k[:, :, :t].contiguous(),
                              v[:, :, :t].contiguous(), causal=True)
         assert torch.equal(padded[:, :, :t], exact), \
-            f"flash ({dqk}, 128): rows of a prompt of {t} moved when " \
+            f"flash ({dqk}, {dv}): rows of a prompt of {t} moved when " \
             f"padded to {tp}"
     torch.cuda.synchronize()
-    print(f"bitwise: flash attention ({dqk}, 128) rows 0..t-1 of a prompt "
+    print(f"bitwise: flash attention ({dqk}, {dv}) rows 0..t-1 of a prompt "
           f"padded to the next multiple of 16 == the unpadded prompt's "
           f"(t = 20, 100)", flush=True)
 
@@ -939,13 +963,17 @@ def ptxas_usage(stem: str):
             for pretty, what in zip(names, out.values())]
 
 
-def check_paged_and_verify(torch, compare, randn, gen):
+def check_paged_and_verify(torch, compare, randn, gen, hq=32, hkv=4, d=128,
+                           dtype=None, suffix=""):
     """Phase 2 for the paged and verify kernels, at the serving path's
-    shapes: q [4, 32, 128] / [4, 32, 4, 128], pools [25, 4, 16, 128] bf16
-    behind a shuffled page table (extent 10 pages = the contiguous
-    engine's 160 positions), NaN in the page no sequence owns, ragged
-    cache_pos. Beside the tolerance checks, the identities the serving
-    path's token equalities rest on are asserted bitwise."""
+    shapes: by default yi-9b's, q [4, 32, 128] / [4, 32, 4, 128], pools
+    [25, 4, 16, 128] bf16 behind a shuffled page table (extent 10 pages =
+    the contiguous engine's 160 positions), NaN in the page no sequence
+    owns, ragged cache_pos; other heads (``hq`` over ``hkv`` of ``d``) and
+    dtypes are named by ``suffix`` (musicgen's: 24 over 24 of 64, bf16 and
+    fp32). Beside the tolerance checks, the identities the serving path's
+    token equalities rest on are asserted bitwise. The bf16 rows are the
+    kernels' representative rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attn_decode import ops as ad
@@ -956,7 +984,11 @@ def check_paged_and_verify(torch, compare, randn, gen):
     from repro_torch.kernels.verify_decode.ref import (
         verify_decode_paged_ref, verify_decode_ref)
 
-    b, hq, hkv, d, ps, n_pool, np_, k1 = 4, 32, 4, 128, 16, 25, 10, 4
+    dtype = dtype or torch.bfloat16
+    bf = dtype == torch.bfloat16
+    dname, esz = ("bfloat16", 2) if bf else ("float32", 4)
+    tol = 1e-2 if bf else 1e-4
+    b, ps, n_pool, np_, k1 = 4, 16, 25, 10, 4
     cps = (19, 75, 100, 140)
     cp = torch.tensor(cps, dtype=torch.int32, device="cuda")
     need = [(c + k1 - 1) // ps + 1 for c in cps]          # 23 of 24 pages
@@ -968,49 +1000,54 @@ def check_paged_and_verify(torch, compare, randn, gen):
         table[i, :n] = torch.tensor(perm[at:at + n])
         at += n
     table = table.cuda()
-    kp, vp = randn(n_pool, hkv, ps, d), randn(n_pool, hkv, ps, d)
+    kp, vp = randn(n_pool, hkv, ps, d, dtype=dtype), \
+        randn(n_pool, hkv, ps, d, dtype=dtype)
     for pid in perm[at:]:          # pages no sequence owns: never read
         kp[pid] = vp[pid] = float("nan")
-    q = randn(b, hq, d)
+    q = randn(b, hq, d, dtype=dtype)
     # the same KV as a contiguous cache (-1 entries gather the finite
     # scratch page 0; no kernel reads them)
     kc, vc = gather_pages(kp, table), gather_pages(vp, table)
     n_valid = sum(c + 1 for c in cps)
     tbl = 4 * sum(need)
+    pools = f"pools[{n_pool},{hkv},{ps},{d}]"
+    dt = "" if bf else " fp32"
 
     # one token: the plain version rounds the softmax weights to bf16, the
     # kernel keeps them fp32 (as attn_decode)
-    compare("attn_decode_paged", "q[4,32,128] pools[25,4,16,128] ragged",
+    compare(f"attn_decode_paged{suffix}", f"q[4,{hq},{d}] {pools} ragged{dt}",
             lambda: pa.attn_decode_paged(q, kp, vp, table, cp),
             lambda: paged_attention_ref(q, kp, vp, table, cp), None,
-            2 * q.numel() + 2 * 2 * hkv * d * n_valid + 4 * b * hq * d
-            + 4 * b + tbl, 4 * hq * d * n_valid, "bfloat16", 1e-2, 1e-2,
-            representative=True, plan=ad.decode_plan(b, hq, hkv))
+            esz * q.numel() + 2 * esz * hkv * d * n_valid + 4 * b * hq * d
+            + 4 * b + tbl, 4 * hq * d * n_valid, dname, tol, tol,
+            representative=bf, plan=ad.decode_plan(b, hq, hkv, d=d))
     # verify at K1 = 2 and 4 query tokens (spec k = 1, 3; K1 = 4 is the
     # representative row)
-    qvs = {kk: randn(b, hq, kk, d) for kk in (2, k1)}
+    qvs = {kk: randn(b, hq, kk, d, dtype=dtype) for kk in (2, k1)}
     for kk, qv in qvs.items():
         n_read = sum(c + kk for c in cps)      # positions < cp + K1
         pairs = sum(c + 1 + i for c in cps for i in range(kk))
         staircase = (torch.arange(np_ * ps, device="cuda")[None, None, :]
                      <= (cp[:, None] + torch.arange(kk, device="cuda")
                          )[:, :, None])[:, None]            # [B, 1, K1, S]
-        compare("verify_decode", f"q[4,32,{kk},128] kv[4,4,160,128] ragged",
+        compare(f"verify_decode{suffix}",
+                f"q[4,{hq},{kk},{d}] kv[4,{hkv},160,{d}] ragged{dt}",
                 lambda qv=qv: vd.verify_decode(qv, kc, vc, cp),
                 lambda qv=qv: verify_decode_ref(qv, kc, vc, cp),
                 lambda qv=qv, m=staircase: F.scaled_dot_product_attention(
                     qv, kc, vc, attn_mask=m, enable_gqa=True),
-                2 * qv.numel() + 2 * 2 * hkv * d * n_read + 4 * qv.numel()
-                + 4 * b, 4 * hq * d * pairs, "bfloat16", 1e-2, 1e-2,
-                representative=kk == k1, plan=ad.decode_plan(b, hq, hkv, kk))
-        compare("verify_decode_paged",
-                f"q[4,32,{kk},128] pools[25,4,16,128] ragged",
+                esz * qv.numel() + 2 * esz * hkv * d * n_read
+                + 4 * qv.numel() + 4 * b, 4 * hq * d * pairs, dname, tol, tol,
+                representative=bf and kk == k1,
+                plan=ad.decode_plan(b, hq, hkv, kk, d))
+        compare(f"verify_decode_paged{suffix}",
+                f"q[4,{hq},{kk},{d}] {pools} ragged{dt}",
                 lambda qv=qv: vd.verify_decode_paged(qv, kp, vp, table, cp),
                 lambda qv=qv: verify_decode_paged_ref(qv, kp, vp, table, cp),
-                None, 2 * qv.numel() + 2 * 2 * hkv * d * n_read
+                None, esz * qv.numel() + 2 * esz * hkv * d * n_read
                 + 4 * qv.numel() + 4 * b + tbl, 4 * hq * d * pairs,
-                "bfloat16", 1e-2, 1e-2, representative=kk == k1,
-                plan=ad.decode_plan(b, hq, hkv, kk))
+                dname, tol, tol, representative=bf and kk == k1,
+                plan=ad.decode_plan(b, hq, hkv, kk, d))
     print("library: none for attn_decode_paged and verify_decode_paged "
           "(no single PyTorch call reads KV through a page table)",
           flush=True)
@@ -1040,11 +1077,12 @@ def check_paged_and_verify(torch, compare, randn, gen):
     assert torch.equal(row0, pa.attn_decode_paged(
         qv[:, :, 0].contiguous(), kp, vp, table, cp)), "masked NaN leaked"
     torch.cuda.synchronize()
-    print("bitwise: attn_decode_paged == attn_decode; rows of a B = 4 "
-          "launch of each == their B = 1 launches (group of 8); "
-          "verify_decode row i == attn_decode at cache_pos + i; "
-          "verify_decode_paged row i == attn_decode_paged at cache_pos + i "
-          "(i < 4); NaN past a row's window leaves it unchanged", flush=True)
+    print(f"bitwise (D {d}, group of {hq // hkv}, {dname}): "
+          f"attn_decode_paged == attn_decode; rows of a B = 4 launch of "
+          f"each == their B = 1 launches; verify_decode row i == "
+          f"attn_decode at cache_pos + i; verify_decode_paged row i == "
+          f"attn_decode_paged at cache_pos + i (i < 4); NaN past a row's "
+          f"window leaves it unchanged", flush=True)
 
 
 def check_gqa_rows(torch, q, kc, vc, kp, vp, table, cp):
@@ -1633,6 +1671,90 @@ def check_xlstm(torch, compare, randn, gen):
     print("bitwise: mlstm_decode (h, C', n', m') and head-major gemm_heads "
           "rows of a B = 4 launch == their B = 1 launches; mlstm_decode "
           "with C' written over C == its separate output", flush=True)
+
+
+def check_musicgen(torch, compare):
+    """Phase 2 for musicgen-medium's kernels at its serving shapes (B = 4
+    slots, d_model 1536, 24 query heads over 24 KV heads of 64: group 1,
+    the head-dim-64 instances): the decode GEMMs, flash attention (64, 64)
+    causal at its serve buckets (B 1, T 32 / 64 / 128) and at check_prefill's
+    B 8 x 100, decode attention over a ragged cache of 160, and the paged
+    and verify kernels (``check_paged_and_verify``), bf16 and fp32; bitwise,
+    the padded-prompt rows of flash and the decode identities at D = 64.
+    The library yardsticks are SDPA (causal, or with the decode mask).
+    Inputs from a generator of their own, so that the later phases draw
+    what they drew before."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    b, h, d = 4, 24, 64
+    # the decode GEMMs at M = 4 (per step: q, k, v, o and the MLP of 48
+    # layers, the unembedding twice with the exit head): one bf16 ulp
+    for k, n, act in ((1536, 1536, "none"), (1536, 6144, "silu"),
+                      (6144, 1536, "none"), (1536, 2048, "none")):
+        x, w = randn(b, k), randn(k, n, scale=k ** -0.5)
+        lib = (lambda x=x, w=w: torch.matmul(x, w)) if act == "none" \
+            else None
+        compare("gemm", f"M=4 K={k} N={n} {act} musicgen",
+                lambda x=x, w=w, a=act: gm.gemm(x, w, activation=a),
+                lambda x=x, w=w, a=act: gemm_ref(x, w, activation=a), lib,
+                2 * (b * k + k * n + b * n), 2 * b * k * n, "bfloat16",
+                1e-2, 1e-2)
+
+    # flash attention (64, 64), group 1: one bf16 ulp, as the (128, 128)
+    # instance; T = 128 at B 1 is the representative row
+    for bb, t in ((1, 32), (1, 64), (8, 100), (1, 128)):
+        q, k_, v_ = randn(bb, h, t, d), randn(bb, h, t, d), randn(bb, h, t, d)
+        pairs = t * (t + 1) // 2
+        compare("attention_bf16_d64",
+                f"q[{bb},{h},{t},{d}] kv[{bb},{h},{t},{d}] causal",
+                lambda q=q, k_=k_, v_=v_: fa.attention(q, k_, v_,
+                                                       causal=True),
+                lambda q=q, k_=k_, v_=v_: attention_ref(q, k_, v_,
+                                                        causal=True),
+                lambda q=q, k_=k_, v_=v_: F.scaled_dot_product_attention(
+                    q, k_, v_, is_causal=True),
+                2 * 4 * q.numel(), 4 * bb * h * d * pairs, "bfloat16",
+                1e-2, 1e-2, representative=(bb, t) == (1, 128))
+    check_flash_padding(torch, randn, h, d, hq=h, dv=d)
+
+    # decode attention over a ragged contiguous cache: bf16 (the plain
+    # version rounds the softmax weights to bf16, the kernel keeps them
+    # fp32) and fp32 (summation order only)
+    s = 160
+    cp = torch.tensor([19, 75, 130, 159], dtype=torch.int32, device="cuda")
+    n_valid = int((cp + 1).sum())
+    mask = (torch.arange(s, device="cuda")[None, :] <= cp[:, None]
+            )[:, None, None, :]
+    for dt, dname, esz, tol in ((bf16, "bfloat16", 2, 1e-2),
+                                (f32, "float32", 4, 1e-4)):
+        q, kc, vc = randn(b, h, d, dtype=dt), randn(b, h, s, d, dtype=dt), \
+            randn(b, h, s, d, dtype=dt)
+        compare("attn_decode_d64",
+                f"q[4,{h},{d}] kv[4,{h},{s},{d}] ragged"
+                f"{'' if dt == bf16 else ' fp32'}",
+                lambda q=q, kc=kc, vc=vc: ad.attn_decode(q, kc, vc, cp),
+                lambda q=q, kc=kc, vc=vc: attn_decode_ref(q, kc, vc, cp),
+                lambda q=q, kc=kc, vc=vc: F.scaled_dot_product_attention(
+                    q[:, :, None], kc, vc, attn_mask=mask),
+                esz * q.numel() + 2 * esz * h * d * n_valid + 4 * b * h * d
+                + 4 * b, 4 * h * d * n_valid, dname, tol, tol,
+                representative=dt == bf16, plan=ad.decode_plan(b, h, h, d=d))
+        check_paged_and_verify(torch, compare, randn, gen, hq=h, hkv=h, d=d,
+                               dtype=dt, suffix="_d64")
 
 
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
@@ -2315,6 +2437,98 @@ def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
           f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
+def run_musicgen(torch, run_serve, t_start):
+    """Phases 12b-12c: musicgen-medium at full width and full depth (48
+    layers, d_model 1536, 24 query heads over 24 KV heads of 64, no rotary,
+    exit at layer 12; 1.818 B params, random weights from seed 0), served
+    from codebook ids through its ``embed`` table (the frontend is a stub).
+    As yi-9b's phases 3-6: the prefill of 8 prompts through the kernels,
+    the plain policy and the plain policy on an fp32 weight copy; the
+    6-request serve contiguous (request 0 == ``generate`` bitwise; exact
+    launches) and paged (tokens == contiguous, bitwise); greedy speculative
+    decoding on the config without its exit (a tied draft on the paged
+    engine, a 2-layer draft on the contiguous one; tokens == plain greedy,
+    bitwise). Every attention launch is of a head-dim-64 instance. One
+    decode chunk per engine timed and traced."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
+
+    mg = get_arch("musicgen-medium")
+    t0 = time.perf_counter()
+    params = lm.init_lm(mg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm._leaves(params))
+    nl = mg.num_layers
+    print(f"{mg.name}: {nl} layers d_model={mg.d_model} {mg.num_heads} "
+          f"heads over {mg.num_kv_heads} KV heads of {mg.head_dim} "
+          f"{n_params / 1e9:.3f}B params ({mg.dtype}) initialised in "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    check_prefill(torch, lm, mg, params)
+
+    prompts = make_prompts(torch, mg.vocab_size)
+    run = run_serve("musicgen-contiguous", mg, params, prompts)
+    steps, lc = run["steps"], run["launches"]
+    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode",
+                       "entropy_exit"}, lc
+    assert lc["attn_decode"] == nl * steps, lc
+    assert lc["attention"] == nl * run["prefills"], lc
+    assert lc["entropy_exit"] == steps, lc
+    ref_toks, _ = generate(mg, params, prompts[0][None], 24)
+    assert ref_toks[0].tolist() == run["tokens"][0], (
+        "musicgen engine tokens differ from generate", ref_toks[0].tolist(),
+        run["tokens"][0])
+    print(f"serve musicgen-contiguous: request 0 == generate, bitwise; {nl} "
+          f"attn_decode (D 64) and 1 entropy_exit a step, {nl} attention "
+          f"(64, 64) a prefill", flush=True)
+    profile_decode(torch, mg.name, SlotEngine(mg, capacity=4, max_len=160,
+                                              chunk=8), params, prompts)
+
+    paged = run_serve("musicgen-paged", mg, params, prompts, paged=True,
+                      page_size=16, num_pages=25)
+    lc, steps = paged["launches"], paged["steps"]
+    assert paged["tokens"] == run["tokens"], "paged musicgen tokens differ"
+    assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
+    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode_paged",
+                       "entropy_exit"}, lc
+    assert lc["attn_decode_paged"] == nl * steps, lc
+    profile_decode(torch, f"{mg.name} paged", SlotEngine(
+        mg, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
+        params, prompts)
+    print(f"serve musicgen-paged: tokens == contiguous engine, bitwise, per "
+          f"request; {nl} attn_decode_paged (D 64) a step, no attn_decode; "
+          f"peak {int(paged['report'].stats['peak_pages'])} of 24 pages",
+          flush=True)
+
+    mg_ne = dataclasses.replace(mg, early_exit=None)
+    greedy = run_serve("musicgen-plain-noexit", mg_ne, params, prompts)
+    tied = run_serve("musicgen-spec-tied-paged", mg_ne, params, prompts,
+                     paged=True, page_size=16, num_pages=25,
+                     spec=SpecConfig(draft_arch=mg_ne, k=3,
+                                     share_params=True))
+    assert tied["tokens"] == greedy["tokens"], "tied spec tokens differ"
+    assert tied["report"].stats["spec_acceptance"] == 1.0, \
+        tied["report"].stats
+    assert tied["launches"]["verify_decode_paged"] == nl * tied["steps"], \
+        tied["launches"]
+    draft = dataclasses.replace(mg_ne, name="musicgen-draft-2l",
+                                num_layers=2)
+    indep = run_serve("musicgen-spec-draft2l-contiguous", mg_ne, params,
+                      prompts, spec=SpecConfig(draft_arch=draft, k=3,
+                                               draft_seed=1))
+    assert indep["tokens"] == greedy["tokens"], "independent spec differs"
+    assert indep["launches"]["verify_decode"] == nl * indep["steps"], \
+        indep["launches"]
+    print(f"serve musicgen spec: tied (paged) and independent 2-layer draft "
+          f"(contiguous) tokens == plain greedy, bitwise; {nl} "
+          f"verify_decode(_paged) (D 64) a round; acceptance tied "
+          f"{tied['report'].stats['spec_acceptance']:.3f}, independent "
+          f"{indep['report'].stats['spec_acceptance']:.3f}; musicgen phases "
+          f"done at {time.perf_counter() - t_start:.1f}s", flush=True)
+
+
 def check_seizure_steps(torch, tr, kind, w, batches):
     """The port's CPU training of ``kind`` over ``batches`` (on the card),
     and before each step the card's loss and gradients from the CPU's
@@ -2610,6 +2824,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_xlstm(torch, run_serve, t_start)
 
+    # -- 12b-12c. musicgen-medium, full depth, head dim 64: xlstm's
+    #    weights (local to run_xlstm) are freed first ----------------------
+    torch.cuda.empty_cache()
+    run_musicgen(torch, run_serve, t_start)
+
     # -- 13. the scalar fp32 flash instance is on no serving path ----------
     fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
     assert not fp32, f"fp32 flash attention launched on {fp32}"
@@ -2678,6 +2897,24 @@ def main() -> int:
         # dequantized weights): every gemm launch of the weight-only run
         "gemm_wq": ("kernels/gemm/gemm.py:48", "gemm", "wq-contiguous",
                     "gemm_wq"),
+        # the head-dim-64 instances: every attention launch of the
+        # musicgen runs
+        "attn_decode_d64": ("kernels/attn_decode/attn_decode.py:73",
+                            "attn_decode", "musicgen-contiguous",
+                            "attn_decode"),
+        "attn_decode_paged_d64": (
+            "kernels/paged_attention/paged_attention.py:73",
+            "paged_attention", "musicgen-paged", "attn_decode_paged"),
+        "verify_decode_d64": ("kernels/verify_decode/verify_decode.py:77",
+                              "verify_decode",
+                              "musicgen-spec-draft2l-contiguous",
+                              "verify_decode"),
+        "verify_decode_paged_d64": (
+            "kernels/verify_decode/verify_decode.py:162", "verify_decode",
+            "musicgen-spec-tied-paged", "verify_decode_paged"),
+        "attention_bf16_d64": ("kernels/flash_attention/flash_attention.py:70",
+                               "flash_attention", "musicgen-contiguous",
+                               "attention"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",

@@ -21,8 +21,9 @@ DIR is the root of another checkout. For the decode-attention, flash,
 ``csrc/ssm_decode.cu``), ``ssm_scan`` and ``entropy_exit`` modes its
 ``csrc/<kernel>.cu`` is built with this
 checkout's nvcc flags into ``build/ab/`` and called through its C entry
-point (the same signature); this checkout's kernel runs through its
-wrapper. The GEMM modes call each checkout's own wrapper instead, so they
+point (the same signature; the decode-attention modes through the D = 128
+entry points every checkout keeps); this checkout's kernel runs through
+its wrapper. The GEMM modes call each checkout's own wrapper instead, so they
 hold whatever C signature either side has.
 
 ``attn_decode``: at each shape (bf16, the serving path's GQA widths:
@@ -63,8 +64,9 @@ baseline, change, change, baseline are timed.
 
 ``gemm`` (``csrc/gemm.cu``: the bf16 GEMM, its int8-weight instance and
 the fp32 GEMM): at every decode GEMM shape of yi-9b, deepseek-v2-lite-16b,
-jamba-v0.1-52b and xlstm-350m that ``chip_smoke.py`` times (M = 4 slots),
-yi-9b's at M = 16 (spec verify) and M = 128 (prefill), and the fp32
+jamba-v0.1-52b, xlstm-350m and musicgen-medium that ``chip_smoke.py``
+times (M = 4 slots), yi-9b's at M = 16 (spec verify) and M = 128
+(prefill), and the fp32
 routers, ``w_if`` and 4096 -> 512, and the seizure models' two-class
 heads (M = 256, K = 32 / 128 / 64, N = 2). ``gemm_heads``: at the
 three layouts' serving shapes (MLA's absorbed products, xLSTM's
@@ -484,8 +486,8 @@ def ab_attention(torch, base, timer):
 
 
 # (M, K, N, activation, weights): every decode GEMM shape chip_smoke.py
-# times (yi-9b, deepseek, jamba, xlstm at M = 4 slots), yi-9b's at M = 16
-# and 128, yi-9b's on int8 weights, and the fp32 GEMMs
+# times (yi-9b, deepseek, jamba, xlstm, musicgen at M = 4 slots), yi-9b's
+# at M = 16 and 128, yi-9b's on int8 weights, and the fp32 GEMMs
 GEMM_BF16 = ((4096, 4096, "none"), (4096, 512, "none"),
              (4096, 11008, "silu"), (11008, 4096, "none"),
              (4096, 64000, "none"))
@@ -499,7 +501,8 @@ GEMM_CASES = (
         (8192, 4096, "none"), (4096, 14336, "silu"), (14336, 4096, "none"),
         (4096, 1024, "none"), (4096, 65536, "none"), (1024, 4096, "none"),
         (2048, 1024, "none"), (1024, 2730, "none"), (1365, 1024, "none"),
-        (1024, 50304, "none"))]
+        (1024, 50304, "none"), (1536, 1536, "none"), (1536, 6144, "silu"),
+        (6144, 1536, "none"), (1536, 2048, "none"))]
     + [(m, k, n, a, "bf16") for m in (16, 128) for k, n, a in GEMM_BF16]
     + [(m, k, n, a, "int8") for m in (4, 16, 128) for k, n, a in GEMM_BF16]
     + [(4, k, n, "none", "fp32") for k, n in (

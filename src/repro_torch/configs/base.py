@@ -4,8 +4,9 @@ A copy of the JAX package's ``repro.configs.base`` dataclasses, cut to what
 the port serves today: decoder-only LMs with entropy early exits, dense
 (GQA + SwiGLU), DeepSeek-style (MLA + top-k MoE after dense prefix
 layers), hybrid (Jamba: Mamba and attention mixers in a period-8
-pattern, MLP and MoE channel mixers) or recurrent (xLSTM: mLSTM and sLSTM
-mixers with no channel mixer).
+pattern, MLP and MoE channel mixers), recurrent (xLSTM: mLSTM and sLSTM
+mixers with no channel mixer) or audio (MusicGen: a dense decoder whose
+frontend is a stub that hands it frame embeddings).
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
@@ -85,7 +86,7 @@ class XLSTMConfig:
 
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
 XLSTM_MIXERS = ("mlstm", "slstm")
 
 
@@ -130,6 +131,9 @@ class ArchConfig:
     early_exit: Optional[EarlyExitConfig] = None
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
+    # modality stub (audio): the frontend provides embeddings [B, T, d],
+    # which the model takes in place of token ids
+    frontend_stub: bool = False
 
     def __post_init__(self):
         hd = self.head_dim or self.d_model // self.num_heads
@@ -247,6 +251,7 @@ def _register_builtin() -> None:
     # each config module registers itself when imported
     from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401
     from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
+    from repro_torch.configs import musicgen_medium  # noqa: F401
     from repro_torch.configs import xlstm_350m  # noqa: F401
     from repro_torch.configs import yi_9b  # noqa: F401
 

@@ -1,9 +1,9 @@
 // Decode attention: one query token per sequence over a contiguous cache.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/attn_decode/attn_decode.py
-// (attn_decode_pallas -> _decode_kernel), GQA mode. q [B, Hq, 128],
-// k/v [B, Hkv, S, 128] in the model dtype, cache_pos [B] int32: positions
-// 0..cache_pos[b] are valid. Output fp32 [B, Hq, 128].
+// (attn_decode_pallas -> _decode_kernel), GQA mode. q [B, Hq, D],
+// k/v [B, Hkv, S, D] in the model dtype, D = 128 or 64, cache_pos [B]
+// int32: positions 0..cache_pos[b] are valid. Output fp32 [B, Hq, D].
 //
 // Numerics follow the plain version (the JAX attn_decode ref, GQA mode):
 // the query is pre-scaled and rounded to the cache dtype, scores and the
@@ -22,10 +22,21 @@
 // sequence's result never depends on the other sequences of the batch.
 #include "decode_tile.cuh"
 
+KERNEL_API int attn_decode_hd_launch(const void* q, const void* k,
+                                     const void* v, const void* cache_pos,
+                                     void* out, int B, int Hq, int Hkv, int S,
+                                     int D, float scale, int dtype,
+                                     void* stream) {
+  return decode::launch(q, k, v, cache_pos, out, B, Hq, 1, S, D, scale, dtype,
+                        decode::Contiguous{Hkv, S}, stream);
+}
+
+// D = 128 through the signature of earlier checkouts (kernel_ab.py calls
+// another checkout's kernel through it)
 KERNEL_API int attn_decode_launch(const void* q, const void* k, const void* v,
                                   const void* cache_pos, void* out, int B,
                                   int Hq, int Hkv, int S, float scale,
                                   int dtype, void* stream) {
-  return decode::launch(q, k, v, cache_pos, out, B, Hq, 1, S, scale, dtype,
-                        decode::Contiguous{Hkv, S}, stream);
+  return attn_decode_hd_launch(q, k, v, cache_pos, out, B, Hq, Hkv, S, 128,
+                               scale, dtype, stream);
 }

@@ -2,7 +2,8 @@
 // it. attn_decode.cu and paged_attention.cu launch gqa_decode_kernel with
 // K1 = 1 query token a sequence; verify_decode.cu (contiguous and paged)
 // launches it with K1 = k + 1. A row-address policy (Contiguous / Paged)
-// names the K/V row of each position.
+// names the K/V row of each position. The head dim D is 128 or 64, a
+// template parameter: each has its own instance and thread map (below).
 //
 // So a query row sees the same arithmetic in the same order whichever of
 // the four kernels serves it. The serving path's bitwise token identities
@@ -16,16 +17,16 @@
 // q and out. Row r attends positions < n_r = min(cache_pos[b] + r % K1,
 // S - 1) + 1 of an extent of S positions. A row's arithmetic: the query
 // pre-scaled and rounded to the cache dtype (scaled_query); tiles of 64
-// positions from position 0, each scored 4 dims a lane and summed by the
-// 5-shuffle butterfly (lane_partial, warp_sum_n), then one fp32 online
-// softmax update by one warp (softmax_update), then the tile's V rows
-// added into each output dim in position order (accumulate_masked). A
-// tile wholly beyond a row's n_r leaves that row's (m, l, acc) unchanged
-// bit for bit (alpha = exp(0) = 1, p = 0), and a V row is never
-// multiplied in for a row that masks its position (0 * NaN is NaN), so
-// row r's result equals a one-row run at its own n_r, whatever rows share
-// its block. A position whose K/V row has no storage (an unallocated
-// page) is masked for every row and not read.
+// positions from position 0, each position scored by a lane group (LPP
+// lanes of DPL dims each: lane_partial) and summed by a butterfly over the
+// group (warp_sum_n), then one fp32 online softmax update by one warp
+// (softmax_update), then the tile's V rows added into each output dim in
+// position order (accumulate_masked). A tile wholly beyond a row's n_r
+// leaves that row's (m, l, acc) unchanged bit for bit (alpha = exp(0) = 1,
+// p = 0), and a V row is never multiplied in for a row that masks its
+// position (0 * NaN is NaN), so row r's result equals a one-row run at its
+// own n_r, whatever rows share its block. A position whose K/V row has no
+// storage (an unallocated page) is masked for every row and not read.
 //
 // Bound on the H100: bytes in principle (each valid K and V row read once
 // for the g * K1 rows of its group), but at serving shapes the work is a
@@ -35,7 +36,9 @@
 //    one block each: grid (Hkv, B, ceil(R / RB)), RB the largest of 8, 4,
 //    2, 1 that still gives >= kTargetBlocks blocks. Decode at yi-9b's
 //    shape (B 4, Hkv 4, g 8) and at jamba's (Hkv 8, g 4) runs RB 1, 128
-//    blocks; verify at yi-9b's K1 = 4 runs RB 4, 128 blocks;
+//    blocks; verify at yi-9b's K1 = 4 runs RB 4, 128 blocks; musicgen's
+//    (Hkv 24, g 1, D 64) decode runs RB 1, 96 blocks, its verify at K1 = 4
+//    RB 2, 192 blocks;
 //  - each 64-position K/V tile is staged in shared memory (as stored) by
 //    cp.async, double-buffered, so the next tile's loads fly while a tile
 //    is scored and summed; the paged kernels read the page table a tile
@@ -44,6 +47,18 @@
 //  - a warp's 8 positions x RB rows of scores go through the butterfly
 //    together, their shuffles interleaved; the V sum loads 8 positions
 //    ahead of their fmafs.
+// The two head dims' thread maps:
+//  - D = 128: a position's score is the whole warp's (4 dims a lane, a
+//    5-shuffle butterfly), 8 rounds a tile; in the V sum thread t adds dim
+//    t % 128 of rows t / 128 + 2 j over all the tile's positions, so at
+//    RB = 1 half the block idles there;
+//  - D = 64: a position's score is 8 lanes' (8 dims a lane, one 16-byte
+//    shared load, a 3-shuffle butterfly), 4 positions a warp at once, 2
+//    rounds a tile; in the V sum thread t adds dim t % 64 of every row over
+//    the tile's positions 16 (t / 64) .. 16 (t / 64) + 15, so the whole
+//    block works at any RB, and the 4 spans' partial sums are added in
+//    span order at the end (the same order for every RB, so a row's result
+//    still does not depend on the rows beside it).
 // A block walks tiles up to the largest window of its own rows. Every
 // position goes through the masked select: where a row sees the position
 // it gives fmaf's bits, the same as an unmasked fmaf.
@@ -53,18 +68,18 @@
 
 namespace decode {
 
-constexpr int D = 128, TILE = 64, kThreads = 256, kWarps = kThreads / 32;
+constexpr int TILE = 64, kThreads = 256, kWarps = kThreads / 32;
 constexpr int kPosPerWarp = TILE / kWarps;  // positions a warp scores a tile
 constexpr int kVec = 8;  // V rows loaded ahead of their fmafs (divides TILE)
 constexpr int kTargetBlocks = 128;          // ~ the H100's 132 SMs
 constexpr float kNeg = -1e30f;
 
-// Element offset of the K (and V) row of position p, or -1 when the
-// position has no storage.
+// Element offset of the K (and V) row of position p at head dim D, or -1
+// when the position has no storage.
 struct Contiguous {  // k/v [B, Hkv, S, D]
   int Hkv, S;
-  __device__ __forceinline__ long long operator()(int b, int hk,
-                                                  int p) const {
+  template <int D>
+  __device__ __forceinline__ long long offset(int b, int hk, int p) const {
     return (((long long)b * Hkv + hk) * S + p) * D;
   }
 };
@@ -72,8 +87,8 @@ struct Contiguous {  // k/v [B, Hkv, S, D]
 struct Paged {  // pools [P, Hkv, ps, D], page_table [B, NP], -1 = none
   const int* table;
   int Hkv, lg_ps, NP;  // ps = 2^lg_ps (the page size divides the tile)
-  __device__ __forceinline__ long long operator()(int b, int hk,
-                                                  int p) const {
+  template <int D>
+  __device__ __forceinline__ long long offset(int b, int hk, int p) const {
     const int page = table[(long long)b * NP + (p >> lg_ps)];
     return page < 0 ? -1
                     : ((((long long)page * Hkv + hk) << lg_ps) +
@@ -87,21 +102,47 @@ __device__ __forceinline__ float scaled_query(T x, float scale) {
   return to_f32(from_f32<T>(to_f32(x) * scale));
 }
 
-// A lane's partial of a score: its 4 dims (4 lane .. 4 lane + 3) of the
-// query row qh and the K row kv.
+// A lane's partial of a score: its dims of the query row qh and the K row
+// kv, 4 (D = 128) or 8 (D = 64; two sums of 4, added).
 __device__ __forceinline__ float lane_partial(const float* qh,
                                               const float (&kv)[4]) {
   return qh[0] * kv[0] + qh[1] * kv[1] + qh[2] * kv[2] + qh[3] * kv[3];
 }
+__device__ __forceinline__ float lane_partial(const float* qh,
+                                              const float (&kv)[8]) {
+  return (qh[0] * kv[0] + qh[1] * kv[1] + qh[2] * kv[2] + qh[3] * kv[3]) +
+         (qh[4] * kv[4] + qh[5] * kv[5] + qh[6] * kv[6] + qh[7] * kv[7]);
+}
 
-// N scores at once: warp_sum's butterfly on each element, the N shuffles
-// of a stage issued together. Each element gets warp_sum's bits.
-template <int N>
+// N scores at once: a butterfly over each group of L lanes on each
+// element, the N shuffles of a stage issued together. At L = 32 each
+// element gets warp_sum's bits.
+template <int N, int L>
 __device__ __forceinline__ void warp_sum_n(float (&v)[N]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = L / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+}
+
+// The 8 elements at p (16 or 32 bytes, 16-byte aligned) as floats, by
+// 16-byte shared loads.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&out)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
 }
 
 // The online-softmax update of one row over one tile of 64 positions, by
@@ -133,7 +174,7 @@ __device__ __forceinline__ float accumulate_masked(float acc, float p,
   return ok ? a : acc;
 }
 
-template <typename T, int RB>
+template <typename T, int D, int RB>
 constexpr size_t smem_bytes() {
   return 2 * 2 * (size_t)TILE * D * sizeof(T) +      // K, V: 2 buffers
          2 * TILE * sizeof(long long) +              // row offsets
@@ -142,18 +183,29 @@ constexpr size_t smem_bytes() {
 
 // Block (hk, b, z) serves rows z * RB .. of the g * K1 rows of sequence b
 // and KV head hk.
-template <typename T, int RB, typename Rows>
+template <typename T, int D, int RB, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const int* __restrict__ cache_pos,
                       float* __restrict__ out, int Hq, int K1, int S,
                       float scale, Rows rows) {
+  static_assert(D == 128 || D == 64, "the kernel serves head dims 128, 64");
   constexpr int CH = D * sizeof(T) / 16;   // 16-byte chunks of a K/V row
   constexpr int EPC = 16 / sizeof(T);      // elements of a chunk
   constexpr int PPT = TILE * CH / kThreads;  // rows a thread copies a tile
   constexpr int RSTEP = kThreads / CH;       // between a thread's rows
-  constexpr int NACC = (RB + 1) / 2;       // rows a thread accumulates
+  // scores: LPP lanes of DPL dims a position, SUB positions a warp at once,
+  // NU rounds a tile
+  constexpr int DPL = D == 128 ? 4 : 8, LPP = D / DPL, SUB = 32 / LPP;
+  constexpr int NU = kPosPerWarp / SUB;
+  // V sum: D = 128, dim t % 128 of NACC rows; D = 64, dim t % 64 of every
+  // row over the span of SPAN positions t / 64
+  constexpr int NSPAN = kThreads / D, SPAN = TILE / NSPAN;
+  constexpr int NACC = D == 128 ? (RB + 1) / 2 : RB;
+  static_assert(D == 128 || NSPAN * RB * D * sizeof(float) <=
+                                2 * TILE * D * sizeof(T),
+                "the spans' partial sums fit in the K buffers");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);                      // [2][TILE][D]
   T* Vs = Ks + 2 * TILE * D;                                   // [2][TILE][D]
@@ -185,7 +237,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int p = it * TILE + p0 + i * RSTEP;
-      off[i] = it < n_tiles && p < n_max ? rows(b, hk, p) : -1;
+      off[i] = it < n_tiles && p < n_max
+                   ? rows.template offset<D>(b, hk, p) : -1;
     }
   };
   // issue the copies of tile it (offsets `off`) into buffer it % 2, and
@@ -207,13 +260,16 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   float m_run = kNeg, l_run = 0.f;  // row `warp`'s, if warp < nr
-  const int d = tid & (D - 1), hb = tid >> 7;
+  // V sum: D = 128, thread t adds dim d of rows hb + 2 j; D = 64, dim d of
+  // rows j over the positions span * SPAN ..
+  const int d = tid & (D - 1), hb = D == 128 ? tid >> 7 : 0;
+  const int span = tid / D;
   float acc[NACC];
   int lim[NACC];
 #pragma unroll
   for (int j = 0; j < NACC; ++j) {
     acc[j] = 0.f;
-    lim[j] = min(cp + (r0 + hb + 2 * j) % K1, S - 1) + 1;
+    lim[j] = min(cp + (r0 + hb + (D == 128 ? 2 : 1) * j) % K1, S - 1) + 1;
   }
 
   long long nxt[PPT];  // the offsets of the next tile to issue
@@ -230,27 +286,33 @@ __global__ void __launch_bounds__(kThreads)
     const T* Vt = Vs + slot * TILE * D;
     const long long* ot = off_s + slot * TILE;
 
-    // scores: warp w takes positions w, w + 8, ... of the tile against
-    // every row of the block (a position without storage or past the
-    // tile's end scores zeros, masked below)
-    float part[kPosPerWarp * RB];
+    // scores: lane group `sub` of warp w takes positions w + kWarps (SUB u
+    // + sub) of the tile against every row of the block (a position
+    // without storage or past the tile's end scores zeros, masked below)
+    const int sub = lane / LPP, dl = (lane % LPP) * DPL;
+    float part[NU * RB];
 #pragma unroll
-    for (int u = 0; u < kPosPerWarp; ++u) {
-      const T* kr = Kt + (warp + kWarps * u) * D + lane * 4;
-      float kv[4];
+    for (int u = 0; u < NU; ++u) {
+      const T* kr = Kt + (warp + kWarps * (SUB * u + sub)) * D + dl;
+      float kv[DPL];
+      if constexpr (D == 128) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) kv[e] = to_f32(kr[e]);
+        for (int e = 0; e < 4; ++e) kv[e] = to_f32(kr[e]);
+      } else {
+        load8(kr, kv);
+      }
 #pragma unroll
       for (int j = 0; j < RB; ++j)
-        part[u * RB + j] = lane_partial(Qs + j * D + lane * 4, kv);
+        part[u * RB + j] = lane_partial(Qs + j * D + dl, kv);
     }
-    warp_sum_n(part);
-    if (lane == 0) {
+    warp_sum_n<NU * RB, LPP>(part);
+    if (lane % LPP == 0) {
 #pragma unroll
-      for (int u = 0; u < kPosPerWarp; ++u)
+      for (int u = 0; u < NU; ++u)
 #pragma unroll
         for (int j = 0; j < RB; ++j)
-          if (j < nr) Ps[j * TILE + warp + kWarps * u] = part[u * RB + j];
+          if (j < nr)
+            Ps[j * TILE + warp + kWarps * (SUB * u + sub)] = part[u * RB + j];
     }
     __syncthreads();
     // online softmax update: warp j updates row j
@@ -267,52 +329,96 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == 0) alpha_s[warp] = alpha;
     }
     __syncthreads();
-    // V: thread t adds dim t % 128 of rows t / 128 + 2 j, in position
-    // order, kVec positions at a time with their loads issued first (a
-    // slot's rows past the tile's end are zeros without storage, masked)
+    if constexpr (D == 128) {
+      // V: thread t adds dim t % 128 of rows t / 128 + 2 j, in position
+      // order, kVec positions at a time with their loads issued first (a
+      // slot's rows past the tile's end are zeros without storage, masked)
 #pragma unroll
-    for (int j = 0; j < NACC; ++j)
-      if (hb + 2 * j < nr) acc[j] *= alpha_s[hb + 2 * j];
-    for (int pv = 0; pv < nt; pv += kVec) {
-      float vv[kVec];
-      bool has[kVec];
+      for (int j = 0; j < NACC; ++j)
+        if (hb + 2 * j < nr) acc[j] *= alpha_s[hb + 2 * j];
+      for (int pv = 0; pv < nt; pv += kVec) {
+        float vv[kVec];
+        bool has[kVec];
 #pragma unroll
-      for (int u = 0; u < kVec; ++u) {
-        vv[u] = to_f32(Vt[(pv + u) * D + d]);
-        has[u] = ot[pv + u] >= 0;
+        for (int u = 0; u < kVec; ++u) {
+          vv[u] = to_f32(Vt[(pv + u) * D + d]);
+          has[u] = ot[pv + u] >= 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kVec; ++u)
+#pragma unroll
+          for (int j = 0; j < NACC; ++j)
+            if (hb + 2 * j < nr)
+              acc[j] = accumulate_masked(
+                  acc[j], Ps[(hb + 2 * j) * TILE + pv + u], vv[u],
+                  has[u] && t0 + pv + u < lim[j]);
       }
+    } else {
+      // V: thread t adds dim t % 64 of every row, over the positions of
+      // its span in order, kVec at a time with their loads issued first
 #pragma unroll
-      for (int u = 0; u < kVec; ++u)
+      for (int j = 0; j < RB; ++j)
+        if (j < nr) acc[j] *= alpha_s[j];
+      const int pend = min(span * SPAN + SPAN, nt);
+      for (int pv = span * SPAN; pv < pend; pv += kVec) {
+        float vv[kVec];
+        bool has[kVec];
 #pragma unroll
-        for (int j = 0; j < NACC; ++j)
-          if (hb + 2 * j < nr)
-            acc[j] = accumulate_masked(
-                acc[j], Ps[(hb + 2 * j) * TILE + pv + u], vv[u],
-                has[u] && t0 + pv + u < lim[j]);
+        for (int u = 0; u < kVec; ++u) {
+          vv[u] = to_f32(Vt[(pv + u) * D + d]);
+          has[u] = ot[pv + u] >= 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kVec; ++u)
+#pragma unroll
+          for (int j = 0; j < RB; ++j)
+            if (j < nr)
+              acc[j] = accumulate_masked(acc[j], Ps[j * TILE + pv + u],
+                                         vv[u],
+                                         has[u] && t0 + pv + u < lim[j]);
+      }
     }
     __syncthreads();  // slot and Ps are rewritten by the next tiles
   }
   if (warp < nr && lane == 0) l_s[warp] = l_run;
-  __syncthreads();
   float* ob = out + row0 * D;
+  if constexpr (D == 128) {
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < NACC; ++j) {
-    const int r = hb + 2 * j;
-    if (r < nr) ob[r * D + d] = acc[j] / fmaxf(l_s[r], 1e-30f);
+    for (int j = 0; j < NACC; ++j) {
+      const int r = hb + 2 * j;
+      if (r < nr) ob[r * D + d] = acc[j] / fmaxf(l_s[r], 1e-30f);
+    }
+  } else {
+    // the spans' partial sums, over the K buffers (every copy has landed
+    // and every thread has left the loop), added in span order
+    float* red = reinterpret_cast<float*>(smem_raw);  // [NSPAN][RB][D]
+    cp_async_wait<0>();
+#pragma unroll
+    for (int j = 0; j < RB; ++j)
+      if (j < nr) red[(span * RB + j) * D + d] = acc[j];
+    __syncthreads();
+    for (int e = tid; e < nr * D; e += kThreads) {
+      const int r = e / D;
+      float sum = red[e];
+#pragma unroll
+      for (int sp = 1; sp < NSPAN; ++sp) sum += red[sp * RB * D + e];
+      ob[e] = sum / fmaxf(l_s[r], 1e-30f);
+    }
   }
 }
 
-template <typename T, int RB, typename Rows>
+template <typename T, int D, int RB, typename Rows>
 cudaError_t launch_rb(const void* q, const void* k, const void* v,
                       const int* cp, float* o, int B, int Hq, int K1, int S,
                       float scale, Rows rows, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<T, RB>();
+  constexpr size_t smem = smem_bytes<T, D, RB>();
   const cudaError_t e = cudaFuncSetAttribute(
-      gqa_decode_kernel<T, RB, Rows>,
+      gqa_decode_kernel<T, D, RB, Rows>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int R = Hq / rows.Hkv * K1;
-  gqa_decode_kernel<T, RB, Rows>
+  gqa_decode_kernel<T, D, RB, Rows>
       <<<dim3(rows.Hkv, B, (R + RB - 1) / RB), kThreads, smem, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), cp, o, Hq, K1, S, scale, rows);
@@ -328,36 +434,52 @@ inline int rows_per_block(int B, int Hkv, int R) {
   return rb;
 }
 
-template <typename T, typename Rows>
+template <typename T, int D, typename Rows>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
                      const int* cp, float* o, int B, int Hq, int K1, int S,
                      float scale, Rows rows, cudaStream_t s) {
   switch (rows_per_block(B, rows.Hkv, Hq / rows.Hkv * K1)) {
     case 8:
-      return launch_rb<T, 8>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+      return launch_rb<T, D, 8>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
+                                s);
     case 4:
-      return launch_rb<T, 4>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+      return launch_rb<T, D, 4>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
+                                s);
     case 2:
-      return launch_rb<T, 2>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+      return launch_rb<T, D, 2>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
+                                s);
     default:
-      return launch_rb<T, 1>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+      return launch_rb<T, D, 1>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
+                                s);
   }
 }
 
-// Launch on `stream` for dtype code `dtype` (common.cuh); returns
-// cudaGetLastError(). q holds B * Hq * K1 rows of D, out the same in fp32.
+template <typename T, typename Rows>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const int* cp, float* o, int B, int Hq, int K1, int S,
+                     int D, float scale, Rows rows, cudaStream_t s) {
+  if (D == 128)
+    return launch_t<T, 128>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+  if (D == 64)
+    return launch_t<T, 64>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s);
+  return cudaErrorInvalidValue;
+}
+
+// Launch on `stream` for dtype code `dtype` (common.cuh) and head dim D
+// (128 or 64); returns cudaGetLastError(). q holds B * Hq * K1 rows of D,
+// out the same in fp32.
 template <typename Rows>
 int launch(const void* q, const void* k, const void* v, const void* cache_pos,
-           void* out, int B, int Hq, int K1, int S, float scale, int dtype,
-           Rows rows, void* stream) {
+           void* out, int B, int Hq, int K1, int S, int D, float scale,
+           int dtype, Rows rows, void* stream) {
   const int* cp = static_cast<const int*>(cache_pos);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       dtype == kBF16
-          ? launch_t<__nv_bfloat16>(q, k, v, cp, o, B, Hq, K1, S, scale, rows,
-                                    s)
-          : launch_t<float>(q, k, v, cp, o, B, Hq, K1, S, scale, rows, s));
+          ? launch_d<__nv_bfloat16>(q, k, v, cp, o, B, Hq, K1, S, D, scale,
+                                    rows, s)
+          : launch_d<float>(q, k, v, cp, o, B, Hq, K1, S, D, scale, rows, s));
 }
 
 }  // namespace decode

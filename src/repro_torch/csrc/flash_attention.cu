@@ -5,8 +5,9 @@
 // (flash_attention_pallas -> _fa_kernel): the prefill attention.
 // q/k [B, H, T|S, Dqk], v [B, Hkv, S, Dv] in the model dtype, with (Dqk,
 // Dv) = (128, 128) (GQA) or (192, 128) (MLA prefill: 128 latent-decompressed
-// dims + 64 rotary dims per head, values of 128), and in fp32 also (16,
-// 16) (the seizure transformer's 4 heads of 16, non-causal, T = S = 16);
+// dims + 64 rotary dims per head, values of 128), in bf16 also (64, 64)
+// (musicgen's 24 heads of 64, group 1), and in fp32 also (16, 16) (the
+// seizure transformer's 4 heads of 16, non-causal, T = S = 16);
 // query head h reads KV head h / (Hq / Hkv). Causal mode masks bottom-right:
 // key j is visible to query i iff j <= i + (S - T). Output in q's dtype.
 //
@@ -24,11 +25,13 @@
 //    4 (else 2) divides the group size g = Hq / Hkv, the block's warps are
 //    4 (2) heads of one KV group on the same 16 (32) rows, so one staged
 //    K/V tile serves all of them and they share one causal extent;
-//    otherwise (MLA, g = 1) the warps are 4 row tiles of one head. Grid
-//    (T / rows a block, Hq / heads a block, B);
+//    otherwise (g = 1: MLA, musicgen) the warps are 4 row tiles of one
+//    head. Grid (T / rows a block, Hq / heads a block, B);
 //  - Q, K and V stay bf16 in shared memory (rows padded by 16 bytes, so
-//    ldmatrix's 8 row addresses fall in distinct banks): ~87 KB at
-//    (128, 128), ~112 KB at (192, 128). K/V tiles of 64 keys are
+//    ldmatrix's 8 row addresses fall in distinct banks: at (64, 64) rows
+//    of 144 bytes put them 36 words apart, 4 banks apart mod 32): ~87 KB
+//    at (128, 128), ~112 KB at (192, 128), 45 KB at (64, 64). K/V tiles
+//    of 64 keys are
 //    double-buffered with cp.async: the next tile's loads fly while this
 //    one is multiplied. Rows past T or S are zero-filled, never stale;
 //  - S = Q K^T stays in registers as the fp32 accumulator fragment, is
@@ -557,6 +560,9 @@ KERNEL_API int flash_attention_launch(const void* q, const void* k,
     if (dqk == 192 && dv == 128)
       return tc::launch<192, 128>(q, k, v, out, B, Hq, Hkv, T_, S, causal,
                                   scale, s);
+    if (dqk == 64 && dv == 64)
+      return tc::launch<64, 64>(q, k, v, out, B, Hq, Hkv, T_, S, causal,
+                                scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dqk == 16 && dv == 16)

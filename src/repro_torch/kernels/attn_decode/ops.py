@@ -14,18 +14,18 @@ from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.attn_decode.ref import attn_decode_ref
 
-HEAD_DIM = 128
+HEAD_DIMS = (128, 64)   # the GQA kernel's instances (csrc/decode_tile.cuh)
 MAX_GROUP = 16      # query heads per KV head the wrappers take
 MLA_LATENT, MLA_ROPE, MLA_MAX_HEADS = 512, 64, 16   # csrc/attn_decode_mla.cu
 
 
 def _lib() -> ctypes.CDLL:
     lib = library("attn_decode")
-    if lib.attn_decode_launch.argtypes is None:
+    if lib.attn_decode_hd_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.attn_decode_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
-        lib.attn_decode_launch.restype = i
+        lib.attn_decode_hd_launch.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.attn_decode_hd_launch.restype = i
         lib.decode_rows_per_block.argtypes = [i, i, i]
         lib.decode_rows_per_block.restype = i
     return lib
@@ -47,10 +47,11 @@ def check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, cache_pos: torch.Tensor, max_rows: int,
                  *more: torch.Tensor) -> int:
     """Validate what every GQA decode-attention kernel takes; returns the
-    dtype code. q is [B, Hq, D] or [B, Hq, K1, D]; k/v are a cache [B, Hkv,
-    S, D] or page pools [P, Hkv, ps, D], 16-byte aligned (the kernel stages
-    them by cp.async); a KV head has Hq / Hkv * K1 query rows, at most
-    ``max_rows``. ``more`` must lie on the card too."""
+    dtype code. q is [B, Hq, D] or [B, Hq, K1, D], D one of ``HEAD_DIMS``;
+    k/v are a cache [B, Hkv, S, D] or page pools [P, Hkv, ps, D], 16-byte
+    aligned (the kernel stages them by cp.async); a KV head has Hq / Hkv *
+    K1 query rows, at most ``max_rows``. ``more`` must lie on the card
+    too."""
     require_cuda(name, q, k, v, cache_pos, *more)
     require_aligned(name, k, v)
     code = dtype_code(name, q)
@@ -61,12 +62,12 @@ def check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
     b, hq, d = q.shape[0], q.shape[1], q.shape[-1]
     hkv = k.shape[1]
     rows = hq // hkv * (q.shape[2] if q.dim() == 4 else 1)
-    if (d != HEAD_DIM or k.dim() != 4 or k.shape[-1] != d
+    if (d not in HEAD_DIMS or k.dim() != 4 or k.shape[-1] != d
             or v.shape != k.shape or cache_pos.shape != (b,)):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k/v {tuple(k.shape)} "
                          f"/ {tuple(v.shape)}, cache_pos "
-                         f"{tuple(cache_pos.shape)} (head dim must be "
-                         f"{HEAD_DIM})")
+                         f"{tuple(cache_pos.shape)} (head dim must be one "
+                         f"of {HEAD_DIMS})")
     if hq % hkv or rows > max_rows:
         raise ValueError(f"{name}: {hq} query heads over {hkv} KV heads "
                          f"give {rows} rows a block; at most {max_rows}")
@@ -142,14 +143,17 @@ def _attn_decode_precise(q: torch.Tensor, c: torch.Tensor,
     return out
 
 
-def decode_plan(b: int, hq: int, hkv: int, k1: int = 1) -> str:
+def decode_plan(b: int, hq: int, hkv: int, k1: int = 1, d: int = 128) -> str:
     """The block plan the GQA decode kernel (csrc/decode_tile.cuh, all four
-    instances) takes at these shapes, as the card's library computes it."""
+    wrappers) takes at these shapes and head dim ``d``, as the card's
+    library computes it, with the thread map of the instance."""
     rows = hq // hkv * k1
     rb = _lib().decode_rows_per_block(b, hkv, rows)
     z = -(-rows // rb)
-    return (f"grid ({hkv}, {b}, {z}) = {hkv * b * z} blocks of {rb} "
-            f"row{'s' if rb > 1 else ''}")
+    split = ("a warp a position's score, V dims of 2 row sets" if d == 128
+             else "8 lanes a position's score, V over 4 position spans")
+    return (f"D {d}: grid ({hkv}, {b}, {z}) = {hkv * b * z} blocks of {rb} "
+            f"row{'s' if rb > 1 else ''}; {split}")
 
 
 def mla_plan(b: int, h: int, dtype: torch.dtype) -> str:
@@ -166,10 +170,10 @@ def attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q2: Optional[torch.Tensor] = None,
                 k2: Optional[torch.Tensor] = None,
                 precise: bool = False) -> torch.Tensor:
-    """GQA mode: q [B, Hq, 128]; k/v [B, Hkv, S, 128]; cache_pos [B] int32
-    -> fp32 [B, Hq, 128], on the card. ``precise=True`` (MLA) launches
-    the MLA kernel (same counter): v must be k itself (the latent is both), and
-    q2 / k2 the rotary query and key."""
+    """GQA mode: q [B, Hq, D]; k/v [B, Hkv, S, D]; cache_pos [B] int32 ->
+    fp32 [B, Hq, D], on the card, D one of ``HEAD_DIMS``. ``precise=True``
+    (MLA) launches the MLA kernel (same counter): v must be k itself (the
+    latent is both), and q2 / k2 the rotary query and key."""
     if precise:
         if v.data_ptr() != k.data_ptr() or v.shape != k.shape:
             raise ValueError("attn_decode(precise): the kernel reads the "
@@ -188,9 +192,9 @@ def attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or s == 0:
         return out
     lib = _lib()
-    rc = lib.attn_decode_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                cache_pos.data_ptr(), out.data_ptr(), b, hq,
-                                hkv, s, scale, code, stream_ptr(q))
+    rc = lib.attn_decode_hd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   cache_pos.data_ptr(), out.data_ptr(), b,
+                                   hq, hkv, s, d, scale, code, stream_ptr(q))
     attn_decode.launches += 1
     check(lib, rc, "attn_decode")
     return out

@@ -12,11 +12,12 @@ from repro_torch.kernels._build import (DTYPE_CODE, check, dtype_code,
                                         require_cuda, stream_ptr)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-# (q/k head dim, v head dim) the kernel is instantiated for: GQA, and MLA
-# prefill (128 decompressed + 64 rotary dims per head, values of 128); the
-# fp32 instance also for the seizure transformer's heads of 16
-HEAD_DIMS = ((128, 128), (192, 128))
-HEAD_DIMS_FP32 = HEAD_DIMS + ((16, 16),)
+# (q/k head dim, v head dim) the kernel is instantiated for: GQA, MLA
+# prefill (128 decompressed + 64 rotary dims per head, values of 128) and,
+# in bf16, musicgen's heads of 64; the fp32 instance also for the seizure
+# transformer's heads of 16
+HEAD_DIMS = ((128, 128), (192, 128), (64, 64))
+HEAD_DIMS_FP32 = ((128, 128), (192, 128), (16, 16))
 
 
 def _lib() -> ctypes.CDLL:

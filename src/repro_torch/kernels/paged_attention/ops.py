@@ -21,11 +21,11 @@ MLA_TILE = 32       # positions per tile of csrc/mla_tile.cuh
 
 def _lib() -> ctypes.CDLL:
     lib = library("paged_attention")
-    if lib.paged_attention_launch.argtypes is None:
+    if lib.paged_attention_hd_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        lib.paged_attention_launch.restype = i
+        lib.paged_attention_hd_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        lib.paged_attention_hd_launch.restype = i
     return lib
 
 
@@ -97,8 +97,9 @@ def attn_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                       q2: Optional[torch.Tensor] = None,
                       k2_pages: Optional[torch.Tensor] = None,
                       precise: bool = False) -> torch.Tensor:
-    """GQA mode: q [B, Hq, 128]; pools [P, Hkv, ps, 128]; page_table [B, NP]
-    int32; cache_pos [B] int32 -> fp32 [B, Hq, 128], on the card.
+    """GQA mode: q [B, Hq, D]; pools [P, Hkv, ps, D]; page_table [B, NP]
+    int32; cache_pos [B] int32 -> fp32 [B, Hq, D], on the card, D one of
+    ``attn_decode.ops.HEAD_DIMS``.
     ``precise=True`` (MLA) launches the precise paged kernel (same
     counter): v_pages must be k_pages itself (the latent pages are both),
     and q2 / k2_pages the rotary query and the rotary key's pages."""
@@ -127,10 +128,10 @@ def attn_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0 or np_ == 0:
         return out
     lib = _lib()
-    rc = lib.paged_attention_launch(
+    rc = lib.paged_attention_hd_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), cache_pos.data_ptr(), out.data_ptr(), b, hq,
-        hkv, ps, np_, scale, code, stream_ptr(q))
+        hkv, ps, np_, d, scale, code, stream_ptr(q))
     attn_decode_paged.launches += 1
     check(lib, rc, "attn_decode_paged")
     return out

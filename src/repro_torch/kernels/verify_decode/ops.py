@@ -19,22 +19,22 @@ MAX_ROWS = 64       # g * K1 query rows of one (sequence, KV head)
 
 def _lib() -> ctypes.CDLL:
     lib = library("verify_decode")
-    if lib.verify_decode_launch.argtypes is None:
+    if lib.verify_decode_hd_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.verify_decode_launch.argtypes = [
-            p, p, p, p, p, i, i, i, i, i, f, i, p]
-        lib.verify_decode_launch.restype = i
-        lib.verify_decode_paged_launch.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
-        lib.verify_decode_paged_launch.restype = i
+        lib.verify_decode_hd_launch.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+        lib.verify_decode_hd_launch.restype = i
+        lib.verify_decode_paged_hd_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.verify_decode_paged_hd_launch.restype = i
     return lib
 
 
 def verify_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   cache_pos: torch.Tensor,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, K1, 128]; k/v [B, Hkv, S, 128]; cache_pos [B] int32 ->
-    fp32 [B, Hq, K1, 128], on the card."""
+    """q [B, Hq, K1, D]; k/v [B, Hkv, S, D]; cache_pos [B] int32 -> fp32
+    [B, Hq, K1, D], on the card, D one of ``attn_decode.ops.HEAD_DIMS``."""
     code = check_contiguous("verify_decode", q, k, v, cache_pos, MAX_ROWS)
     b, hq, k1, d = q.shape
     _, hkv, s, _ = k.shape
@@ -43,9 +43,10 @@ def verify_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b == 0 or s == 0 or k1 == 0:
         return out
     lib = _lib()
-    rc = lib.verify_decode_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  cache_pos.data_ptr(), out.data_ptr(), b,
-                                  hq, hkv, k1, s, scale, code, stream_ptr(q))
+    rc = lib.verify_decode_hd_launch(q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), cache_pos.data_ptr(),
+                                     out.data_ptr(), b, hq, hkv, k1, s, d,
+                                     scale, code, stream_ptr(q))
     verify_decode.launches += 1
     check(lib, rc, "verify_decode")
     return out
@@ -55,8 +56,9 @@ def verify_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
                         cache_pos: torch.Tensor,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, Hq, K1, 128]; pools [P, Hkv, ps, 128]; page_table [B, NP]
-    int32; cache_pos [B] int32 -> fp32 [B, Hq, K1, 128], on the card."""
+    """q [B, Hq, K1, D]; pools [P, Hkv, ps, D]; page_table [B, NP] int32;
+    cache_pos [B] int32 -> fp32 [B, Hq, K1, D], on the card, D one of
+    ``attn_decode.ops.HEAD_DIMS``."""
     code = check_paged("verify_decode_paged", q, k_pages, v_pages,
                        page_table, cache_pos, MAX_ROWS)
     b, hq, k1, d = q.shape
@@ -67,10 +69,10 @@ def verify_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if b == 0 or np_ == 0 or k1 == 0:
         return out
     lib = _lib()
-    rc = lib.verify_decode_paged_launch(
+    rc = lib.verify_decode_paged_hd_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), cache_pos.data_ptr(), out.data_ptr(), b, hq,
-        hkv, k1, ps, np_, scale, code, stream_ptr(q))
+        hkv, k1, ps, np_, d, scale, code, stream_ptr(q))
     verify_decode_paged.launches += 1
     check(lib, rc, "verify_decode_paged")
     return out

@@ -9,6 +9,8 @@ request-stream simulator over the continuous-batching slot engine.
         --arch jamba-v0.1-52b --device cpu --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch xlstm-350m --device cpu [--paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch musicgen-medium --device cpu [--paged]
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency

@@ -502,11 +502,20 @@ def _run_layers(params, x: torch.Tensor, layers, cfg: ArchConfig,
     return x
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Token embeddings in the config's compute dtype (a no-op cast unless
-    an fp32 config runs on lower-precision weights: every op upcasts its
+def _embed(params, inputs: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """inputs: int token ids [B, T], or (a config with ``frontend_stub``)
+    the frontend's embeddings [B, T, d], floating. Returns the embeddings
+    in the config's compute dtype (for token ids a no-op cast unless an
+    fp32 config runs on lower-precision weights: every op upcasts its
     weights, so that computes the same model without rounding)."""
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.dtype))
+    dt = getattr(torch, cfg.dtype)
+    if inputs.is_floating_point():
+        if not cfg.frontend_stub or inputs.dim() != 3:
+            raise ValueError(f"{cfg.name}: embeddings [B, T, d] are taken "
+                             f"only by a stub frontend (frontend_stub), got "
+                             f"{inputs.dtype} {tuple(inputs.shape)}")
+        return inputs.to(dt)
+    return params["embed"][inputs.long()].to(dt)
 
 
 def _head(params, x: torch.Tensor, cfg: ArchConfig, policy: str):
@@ -523,8 +532,9 @@ def _exit_logits(params, x: torch.Tensor, i: int, cfg: ArchConfig,
 def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
                     policy: str, cache: LMCache,
                     lengths: Optional[torch.Tensor] = None):
-    """Full-sequence prefill of tokens [B, T] filling ``cache`` (in place);
-    returns (last_logits [B, V], cache).
+    """Full-sequence prefill of tokens [B, T] (or, for a stub frontend,
+    embeddings [B, T, d]) filling ``cache`` (in place); returns
+    (last_logits [B, V], cache).
 
     ``lengths`` [B]: TRUE lengths of right-padded inputs — logits are taken
     at each sequence's last real token and the cache records the true
@@ -533,7 +543,7 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
     recurrent layer would fold them into its state, so such archs are
     prefilled at their exact length)."""
     x = _embed(params, tokens, cfg)
-    b, t = tokens.shape
+    b, t = x.shape[0], x.shape[1]
     x = _run_layers(params, x, range(cfg.num_layers), cfg, policy, cache,
                     "prefill")
     if lengths is None:
@@ -551,10 +561,10 @@ def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,
                    policy: str, cache: Union[LMCache, PagedLMCache],
                    with_exits: bool = True,
                    live: Optional[torch.Tensor] = None):
-    """One decode step. tokens [B, 1]. ``cache`` is an LMCache (contiguous
-    KV or MLA latents) or a PagedLMCache (page pools attended through the
-    page table: the same numerics), each with slot-indexed recurrent
-    state.
+    """One decode step. tokens [B, 1] (or, for a stub frontend, embeddings
+    [B, 1, d]). ``cache`` is an LMCache (contiguous KV or MLA latents) or
+    a PagedLMCache (page pools attended through the page table: the same
+    numerics), each with slot-indexed recurrent state.
     Cached rows are written in place.
     ``live`` [B] bool (optional): the serve engine's occupied, not-done
     slots; dead slots are masked out of MoE routing, which on the dropless

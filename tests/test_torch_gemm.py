@@ -39,6 +39,8 @@ BF16_SHAPES = {
                        (4096, 1024), (4096, 65536)),
     "xlstm-350m": ((1024, 4096), (2048, 1024), (1024, 2730), (1365, 1024),
                    (1024, 50304)),
+    "musicgen-medium": ((1536, 1536), (1536, 6144), (6144, 1536),
+                        (1536, 2048)),
 }
 # The fp32 kernel's decode products: (N, K, H, layout, bf16 weights)
 F32_SHAPES = {

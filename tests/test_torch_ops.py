@@ -101,32 +101,40 @@ def test_rmsnorm_matches_jax(shape, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t,s", [(7, 7), (5, 12)])
-def test_attention_matches_jax(t, s, causal, dtype):
-    """GQA with g = 2; t < s exercises the bottom-right causal offset."""
+@pytest.mark.parametrize("t,s,hd,g", [
+    pytest.param(7, 7, 16, 2, id="7-7"), pytest.param(5, 12, 16, 2, id="5-12"),
+    pytest.param(12, 12, 64, 1, id="12-12-d64g1")])
+def test_attention_matches_jax(t, s, hd, g, causal, dtype):
+    """GQA with g = 2 at head dim 16, and g = 1 at musicgen's head dim 64;
+    t < s exercises the bottom-right causal offset."""
     rng = np.random.default_rng(t * 31 + s)
-    q, tq = _pair(rng.standard_normal((2, 4, t, 16), np.float32), dtype)
-    k, tk = _pair(rng.standard_normal((2, 2, s, 16), np.float32), dtype)
-    v, tv = _pair(rng.standard_normal((2, 2, s, 16), np.float32), dtype)
+    q, tq = _pair(rng.standard_normal((2, 4, t, hd), np.float32), dtype)
+    k, tk = _pair(rng.standard_normal((2, 4 // g, s, hd), np.float32), dtype)
+    v, tv = _pair(rng.standard_normal((2, 4 // g, s, hd), np.float32), dtype)
     out = attention_ref(tq, tk, tv, causal=causal)
-    assert out.shape == (2, 4, t, 16) and out.dtype == tq.dtype
+    assert out.shape == (2, 4, t, hd) and out.dtype == tq.dtype
     _close(out, [jax_fa_ref.attention_ref(q, k, v, causal),
                  jax_fa_ops.attention_pallas_op(q, k, v, causal,
                                                 interpret=True)], dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attn_decode_matches_jax(dtype):
-    """Ragged cache positions, GQA g = 2, fp32 output. The JAX ref and the
-    port round the softmax weights to bf16 alike; the Pallas kernel keeps
-    them fp32, which bf16's tolerance covers."""
+@pytest.mark.parametrize("dtype,hd,g", [
+    pytest.param("float32", 16, 2, id="float32"),
+    pytest.param("bfloat16", 16, 2, id="bfloat16"),
+    pytest.param("float32", 64, 1, id="float32-d64g1"),
+    pytest.param("bfloat16", 64, 1, id="bfloat16-d64g1")])
+def test_attn_decode_matches_jax(dtype, hd, g):
+    """Ragged cache positions, GQA g = 2 at head dim 16 and g = 1 at
+    musicgen's head dim 64, fp32 output. The JAX ref and the port round
+    the softmax weights to bf16 alike; the Pallas kernel keeps them fp32,
+    which bf16's tolerance covers."""
     rng = np.random.default_rng(11)
-    q, tq = _pair(rng.standard_normal((3, 4, 16), np.float32), dtype)
-    k, tk = _pair(rng.standard_normal((3, 2, 24, 16), np.float32), dtype)
-    v, tv = _pair(rng.standard_normal((3, 2, 24, 16), np.float32), dtype)
+    q, tq = _pair(rng.standard_normal((3, 4, hd), np.float32), dtype)
+    k, tk = _pair(rng.standard_normal((3, 4 // g, 24, hd), np.float32), dtype)
+    v, tv = _pair(rng.standard_normal((3, 4 // g, 24, hd), np.float32), dtype)
     cp = np.array([0, 10, 23], np.int32)
     out = attn_decode_ref(tq, tk, tv, torch.from_numpy(cp))
-    assert out.dtype == torch.float32 and out.shape == (3, 4, 16)
+    assert out.dtype == torch.float32 and out.shape == (3, 4, hd)
     jcp = jnp.asarray(cp)
     _close(out, [jax_ad_ref.attn_decode_ref(q, k, v, jcp),
                  jax_ad_ops.attn_decode_pallas_op(q, k, v, jcp,
@@ -211,7 +219,7 @@ def test_flash_and_verify_wrappers_refuse_what_the_kernels_do_not_take(
     """With the device check stubbed out (the kernels run only on the
     card), each wrapper raises before it launches, and counts no launch,
     on data off a 16-byte boundary, on head dims the flash kernel has no
-    instance for ((64, 64)), and on more than 64 verify rows (g * K1)."""
+    instance for ((96, 96)), and on more than 64 verify rows (g * K1)."""
     from repro_torch.kernels.attn_decode import ops as ad_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.verify_decode import ops as vd_ops
@@ -233,7 +241,7 @@ def test_flash_and_verify_wrappers_refuse_what_the_kernels_do_not_take(
                                 .attention(fa_q, off(1, 2, 8, 128),
                                            torch.zeros(1, 2, 8, 128, **bf))),
         "attention_dims": (fa_ops.attention, "head dims", lambda: fa_ops
-                           .attention(*(torch.zeros(1, 2, 8, 64, **bf),) * 3)),
+                           .attention(*(torch.zeros(1, 2, 8, 96, **bf),) * 3)),
         "verify_unaligned": (vd_ops.verify_decode, "16-byte", lambda: vd_ops
                              .verify_decode(q4, off(1, 1, 32, 128), kv, cp)),
         "verify_rows": (vd_ops.verify_decode, "at most 64", lambda: vd_ops

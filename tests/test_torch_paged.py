@@ -76,15 +76,18 @@ def _pair(a, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ps", [4, 16])
-def test_paged_attention_ref_matches_jax(ps, dtype):
+@pytest.mark.parametrize("ps,hd,g", [
+    pytest.param(4, 16, 2, id="4"), pytest.param(16, 16, 2, id="16"),
+    pytest.param(16, 64, 1, id="16-d64g1")])
+def test_paged_attention_ref_matches_jax(ps, hd, g, dtype):
+    """Group 2 at head dim 16, and group 1 at musicgen's head dim 64."""
     rng = np.random.default_rng(ps)
     cp = np.array([0, 9, 2 * ps + 1], np.int32)
-    q, kp, vp, table = paged_inputs(rng, 3, 4, 2, 16, ps, cp, 12)
+    q, kp, vp, table = paged_inputs(rng, 3, 4, 4 // g, hd, ps, cp, 12)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, kp, vp))
     out = paged_attention_ref(tq, tk, tv, torch.from_numpy(table),
                               torch.from_numpy(cp))
-    assert out.dtype == torch.float32 and out.shape == (3, 4, 16)
+    assert out.dtype == torch.float32 and out.shape == (3, 4, hd)
     jt, jcp = jnp.asarray(table), jnp.asarray(cp)
     for want in (jax_pa_ref.paged_attention_ref(jq, jk, jv, jt, jcp),
                  jax_pa_ops.paged_attention_pallas_op(jq, jk, jv, jt, jcp,
@@ -147,10 +150,12 @@ def test_kernel_backend_raises_on_cpu_tensors(name):
 
 
 @pytest.mark.parametrize("case", ["ok", "ok4", "page_size", "group",
-                                  "rows", "batch", "table"])
+                                  "rows", "batch", "table", "ok64",
+                                  "head_dim"])
 def test_decode_wrappers_validate_inputs(case, monkeypatch):
     """The shape rules the wrappers hold the kernels to, with the device
-    check stubbed out (the kernels themselves run only on the card)."""
+    check stubbed out (the kernels themselves run only on the card): head
+    dims 128 and 64 (musicgen's, group 1) pass, 96 is refused."""
     from repro_torch.kernels.attn_decode import ops as ad_ops
     from repro_torch.kernels.paged_attention.ops import check_paged
     monkeypatch.setattr(ad_ops, "require_cuda", lambda *a: None)
@@ -176,6 +181,16 @@ def test_decode_wrappers_validate_inputs(case, monkeypatch):
             "x", q3, kv[:1], kv[:1], cp, 16),
         "table": lambda: check_paged("x", q3, pools, pools, table[:1], cp,
                                      16),
+        "ok64": lambda: (
+            ad_ops.check_contiguous("x", torch.zeros(2, 24, 64, **bf),
+                                    torch.zeros(2, 24, 32, 64, **bf),
+                                    torch.zeros(2, 24, 32, 64, **bf), cp, 16),
+            check_paged("x", torch.zeros(2, 24, 4, 64, **bf),
+                        torch.zeros(5, 24, 16, 64, **bf),
+                        torch.zeros(5, 24, 16, 64, **bf), table, cp, 64)),
+        "head_dim": lambda: ad_ops.check_contiguous(
+            "x", torch.zeros(2, 8, 96, **bf), torch.zeros(2, 1, 32, 96, **bf),
+            torch.zeros(2, 1, 32, 96, **bf), cp, 16),
     }
     if case.startswith("ok"):
         assert calls[case]() == (1, 1)              # the bfloat16 code

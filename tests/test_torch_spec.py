@@ -55,22 +55,25 @@ def _close(got, wants, dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def _contiguous_inputs(seed, k1, s=64):
+def _contiguous_inputs(seed, k1, s=64, hd=16, g=2):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((3, 4, k1, 16), np.float32)
-    k = rng.standard_normal((3, 2, s, 16), np.float32)
-    v = rng.standard_normal((3, 2, s, 16), np.float32)
+    q = rng.standard_normal((3, 4, k1, hd), np.float32)
+    k = rng.standard_normal((3, 4 // g, s, hd), np.float32)
+    v = rng.standard_normal((3, 4 // g, s, hd), np.float32)
     cp = np.array([0, 21, s - k1], np.int32)     # the last row at S - 1
     return q, k, v, cp
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("k1", [1, 4])
-def test_verify_ref_matches_jax(k1, dtype):
-    q, k, v, cp = _contiguous_inputs(k1, k1)
+@pytest.mark.parametrize("k1,hd,g", [
+    pytest.param(1, 16, 2, id="1"), pytest.param(4, 16, 2, id="4"),
+    pytest.param(4, 64, 1, id="4-d64g1")])
+def test_verify_ref_matches_jax(k1, hd, g, dtype):
+    """Group 2 at head dim 16, and group 1 at musicgen's head dim 64."""
+    q, k, v, cp = _contiguous_inputs(k1, k1, hd=hd, g=g)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
     out = verify_decode_ref(tq, tk, tv, torch.from_numpy(cp))
-    assert out.dtype == torch.float32 and out.shape == (3, 4, k1, 16)
+    assert out.dtype == torch.float32 and out.shape == (3, 4, k1, hd)
     jcp = jnp.asarray(cp)
     _close(out, [jax_vd_ref.verify_decode_ref(jq, jk, jv, jcp),
                  jax_vd_ops.verify_decode_pallas_op(jq, jk, jv, jcp, bs=32,
@@ -78,15 +81,18 @@ def test_verify_ref_matches_jax(k1, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ps", [4, 16])
-def test_verify_paged_ref_matches_jax(ps, dtype):
+@pytest.mark.parametrize("ps,hd,g", [
+    pytest.param(4, 16, 2, id="4"), pytest.param(16, 16, 2, id="16"),
+    pytest.param(16, 64, 1, id="16-d64g1")])
+def test_verify_paged_ref_matches_jax(ps, hd, g, dtype):
+    """Group 2 at head dim 16, and group 1 at musicgen's head dim 64."""
     rng = np.random.default_rng(ps + 1)
     cp = np.array([0, 9, 2 * ps + 1], np.int32)
-    q, kp, vp, table = paged_inputs(rng, 3, 4, 2, 16, ps, cp, 14, k1=3)
+    q, kp, vp, table = paged_inputs(rng, 3, 4, 4 // g, hd, ps, cp, 14, k1=3)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, kp, vp))
     out = verify_decode_paged_ref(tq, tk, tv, torch.from_numpy(table),
                                   torch.from_numpy(cp))
-    assert out.shape == (3, 4, 3, 16)
+    assert out.shape == (3, 4, 3, hd)
     jt, jcp = jnp.asarray(table), jnp.asarray(cp)
     _close(out, [jax_vd_ref.verify_decode_paged_ref(jq, jk, jv, jt, jcp),
                  jax_vd_ops.verify_decode_paged_pallas_op(
