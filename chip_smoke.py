@@ -88,13 +88,35 @@ Phases (any failure raises; nothing is caught):
      from codebook ids (its frontend is a stub): 8 prompts prefilled
      through the kernels, the plain policy and the plain policy on an fp32
      weight copy;
- 12c. the 6-request serve of phase 4 on musicgen, contiguous (request 0 ==
-     ``generate`` bitwise; launches exactly gemm, rmsnorm, attention (48 a
-     prefill), attn_decode (48 a step) and entropy_exit (1 a step)) and
-     paged (tokens equal, attn_decode_paged 48 a step), then greedy
-     speculative decoding without its exit as in phase 6 (a tied draft,
-     paged, and a 2-layer draft, contiguous: tokens == plain greedy,
-     bitwise; verify_decode(_paged) 48 a round);
+ 12c. the 6-request serve of phase 4 on musicgen (``run_zoo``, as the
+     archs after it), contiguous (request 0 == ``generate`` bitwise; every
+     launch counter exactly ``zoo_launches``: attention 48 a prefill,
+     attn_decode 48 and entropy_exit 1 a step) and paged (tokens equal,
+     exact launches), then greedy speculative decoding without its exit as
+     in phase 6 (a tied draft, paged, and a 2-layer draft, contiguous:
+     tokens == plain greedy, bitwise; verify_decode(_paged) 48 a round);
+ 12d-12h. the rest of the zoo, one arch after another, each built after
+     the one before was freed (``run_zoo``; random weights from seed 0,
+     bf16, full width, at ``ZOO_LAYERS`` layers, served from token ids):
+     chatglm3-6b (28 layers, 32 query heads over 2 KV heads: group 16,
+     rotary over half the head dim, QKV biases; 6.24 B params),
+     qwen1.5-32b (64 layers, 40 over 40: group 1, QKV biases; 35.20 B),
+     qwen3-moe-30b-a3b (48 layers of 128 experts of 768 top-8, QK-norm,
+     32 heads of 128 over d_model 2048; 30.53 B), chameleon-34b (48
+     layers, QK-norm, its image tokenizer a stub; 34.29 B) and
+     mistral-large-123b cut to 24 of its 88 layers (group 12; 34.02 B):
+     8 prompts (qwen3-moe: 64) prefilled through the kernels, the plain
+     policy and the plain policy in fp32 (chatglm3 on an fp32 weight copy,
+     the four large ones computing in fp32 on their bf16 weights); the
+     6-request serve
+     contiguous (request 0 == ``generate`` bitwise; every launch counter
+     exactly ``zoo_launches``: with a QK-norm, 2 more rmsnorm a layer;
+     qwen3-moe's moe_decode on all 48 layers) and paged (tokens equal,
+     bitwise; exact launches); one decode chunk of each engine timed and
+     traced; greedy speculative decoding without the exit (tokens == plain
+     greedy, bitwise) on chatglm3 (a tied draft, paged, and a 2-layer
+     draft, contiguous: 64 query rows a KV head at k = 3, the kernels'
+     most) and on mistral (a tied draft, paged: 48 rows);
  13. a check that no serve run launched the fp32 flash instance (its
      own counter);
  14. the paper's seizure workload at its published configs (the CNN and
@@ -119,7 +141,12 @@ Phases (any failure raises; nothing is caught):
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
 fp32, with the bitwise identities of the paged and verify kernels at D =
-64, and its bf16 flash (64, 64) with the padded-prompt rows), and the int8 kernels at yi-9b's (``gemm_int8``, which
+64, and its bf16 flash (64, 64) with the padded-prompt rows), the rest of
+the zoo's (``check_zoo``: the decode GEMMs of the five archs and
+qwen3-moe's fp32 router; flash attention, decode attention and the paged
+and verify kernels with their bitwise identities at groups 16, 1 and 12;
+moe_decode at 128 experts top-8; rmsnorm over the head dim, the QK-norm),
+and the int8 kernels at yi-9b's (``gemm_int8``, which
 quantizes the activations itself, bitwise == plain for none / relu; the
 int8-weight ``gemm`` bitwise == the bf16 kernel on the dequantized
 weight), and asserts, bitwise, that row b of a
@@ -143,11 +170,13 @@ precise kernel on the same latent at page sizes 16 and 32, row b of a B =
 4 launch against its B = 1 launch, with NaN on -1 pages and past
 cache_pos kept out. rmsnorm is held at every shape the serving path gives
 it (the layer norms, exit heads, MLA ``kv_norm`` and xLSTM norms at 4
-live slots, and [128, 4096]), its line naming its thread map
+live slots, d_model up to 12288, the QK-norm's rows of 128, and [128,
+4096]), its line naming its thread map
 (``rmsnorm_plan``), and, bitwise, the rows of an M = 4 launch equal their
 M = 1 launches, rows of an M = 128 launch their M = 4 launch, and an input
 at a 2-element offset its aligned copy. entropy_exit is held at every
-served vocabulary (4 live slots: 50304, 64000, 65536, 102400 bf16), at
+served vocabulary (4 live slots, bf16: 2048, 32768, 50304, 64000,
+65024, 65536, 102400, 151936, 152064), at
 [4, 64000] fp32 and at two odd widths (scalar loads), its lines naming
 its cluster plan (``entropy_plan``), and, bitwise, row b of an M = 4
 launch equals its M = 1 launch, rows of an M = 16 launch their M = 4
@@ -164,7 +193,7 @@ from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
 line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10, 12,
-12c or 14). Each served model
+12c, 12d-12h or 14). Each served model
 also has three decode chunks timed by the host clock and one traced per
 engine (``decode step`` lines, with the device kernels a step, the GEMM,
 decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
@@ -208,6 +237,15 @@ XLSTM_PREFILL = (0.79, 0.55)
 WQ_PREFILL = (0.046, 0.043, None)
 W8A8_PREFILL = (0.10, 0.096, 1)
 QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
+# the zoo archs served by ``run_zoo`` in phases 12b-12h (in this order):
+# the layers each is served at. Full depth where the bf16 weights fit
+# beside the serve's caches and the prefill check's transients;
+# mistral-large-123b (1.384 B parameters a layer, 246 GB whole) is cut to
+# 24 of its 88 layers (63.4 GiB), as jamba is cut, its exit at layer 22
+# kept
+ZOO_LAYERS = {"musicgen-medium": 48, "chatglm3-6b": 28, "qwen1.5-32b": 64,
+              "qwen3-moe-30b-a3b": 48, "chameleon-34b": 48,
+              "mistral-large-123b": 24}
 # the fewest rows torch._int_mm takes on the card (the library yardstick)
 INT_MM_MIN_ROWS = 17
 # the seizure workload: training steps on the card; the first 20 held
@@ -423,6 +461,7 @@ def check_kernels(torch, timer):
     check_jamba(torch, compare, randn, gen)
     check_xlstm(torch, compare, randn, gen)
     check_musicgen(torch, compare)
+    check_zoo(torch, compare)
 
     # entropy: fp32 sums in another order; the result is O(1). Library:
     # the entropy of torch.distributions.Categorical over log V
@@ -554,8 +593,10 @@ def check_seizure_kernels(torch, compare):
 def check_entropy(torch, compare):
     """Phase 2 for entropy_exit at the other served vocabularies (4 live
     slots, bf16: xlstm-350m's 50304, jamba-v0.1-52b's 65536,
-    deepseek-v2-lite-16b's 102400, musicgen-medium's 2048), at yi-9b's
-    [4, 64000] in fp32, and at
+    deepseek-v2-lite-16b's 102400, musicgen-medium's 2048, chatglm3-6b's
+    65024, qwen1.5-32b's 152064, qwen3-moe-30b-a3b's 151936,
+    mistral-large-123b's 32768; chameleon-34b's 65536 is jamba's), at
+    yi-9b's [4, 64000] in fp32, and at
     two odd widths, [3, 1001] and [4, 50257], whose rows start off 16-byte
     boundaries (the kernel's scalar loads); each line names the kernel's
     plan (``entropy_plan``). Tolerance 1e-4 + 1e-4 |ref|: fp32 sums in
@@ -582,7 +623,11 @@ def check_entropy(torch, compare):
                            (4, 64000, f32, "yi-9b fp32"),
                            (3, 1001, bf16, "odd V"),
                            (4, 50257, bf16, "odd V"),
-                           (4, 2048, bf16, "musicgen-medium")):
+                           (4, 2048, bf16, "musicgen-medium"),
+                           (4, 65024, bf16, "chatglm3-6b"),
+                           (4, 152064, bf16, "qwen1.5-32b"),
+                           (4, 151936, bf16, "qwen3-moe-30b-a3b"),
+                           (4, 32768, bf16, "mistral-large-123b")):
         x = logits(m, v, dt)
         compare("entropy_exit", f"[{m}, {v}] {what}",
                 lambda x=x: ee.entropy(x), lambda x=x: entropy_ref(x),
@@ -594,7 +639,9 @@ def check_entropy(torch, compare):
 
     widths = []
     for v, dt in ((50304, bf16), (64000, bf16), (65536, bf16),
-                  (102400, bf16), (64000, f32), (2048, bf16)):
+                  (102400, bf16), (64000, f32), (2048, bf16),
+                  (65024, bf16), (152064, bf16), (151936, bf16),
+                  (32768, bf16)):
         x = logits(16, v, dt)
         full = ee.entropy(x)
         four = ee.entropy(x[:4].contiguous())
@@ -634,7 +681,11 @@ def check_rmsnorm(torch, compare):
     [4, 2048] (and its exit head's) and its ``kv_norm`` [4, 512], xlstm's
     block norms [4, 1024], its mLSTM head norm [16, 512] fp32 with a unit
     scale and its sLSTM norm [4, 1024] fp32, musicgen-medium's [4, 1536]
-    (layer norms and exit head); each line names the kernel's
+    (layer norms and exit head), and the other zoo archs' new widths:
+    qwen1.5-32b's [4, 5120], chameleon-34b's [4, 8192] and
+    mistral-large-123b's [4, 12288] (layer norms; mistral's exit head too;
+    chatglm3's 4096 and qwen3-moe's 2048 are above); each line names the
+    kernel's
     thread map. A call at decode sits under the cold-L2 timer's floor (~8.5
     us), so these times say little (``kernel_ab.py --kernel rmsnorm`` and
     the decode-step traces time it). Bitwise, at [*, 4096] bf16 (both
@@ -668,7 +719,11 @@ def check_rmsnorm(torch, compare):
             (16, 512, f32, None, "xlstm mLSTM head norm"),
             (4, 1024, f32, f32, "xlstm sLSTM norm"),
             (4, 1536, bf16, f32, "musicgen layer norms"),
-            (4, 1536, bf16, bf16, "musicgen exit head")):
+            (4, 1536, bf16, bf16, "musicgen exit head"),
+            (4, 5120, bf16, f32, "qwen1.5 layer norms"),
+            (4, 8192, bf16, f32, "chameleon layer norms"),
+            (4, 12288, bf16, f32, "mistral layer norms"),
+            (4, 12288, bf16, bf16, "mistral exit head")):
         x, sc = inputs(m, d, dt, sdt)
         # bf16 output: one bf16 ulp; fp32 output: rsqrt and summation order
         tol = 1e-2 if dt == bf16 else 1e-4
@@ -684,7 +739,9 @@ def check_rmsnorm(torch, compare):
     widths = []
     for d, dt, sdt in ((4096, bf16, f32), (4096, bf16, bf16),
                        (2048, bf16, f32), (1024, bf16, f32), (512, bf16, f32),
-                       (512, f32, f32), (1024, f32, f32), (1536, bf16, f32)):
+                       (512, f32, f32), (1024, f32, f32), (1536, bf16, f32),
+                       (5120, bf16, f32), (8192, bf16, f32),
+                       (12288, bf16, f32), (12288, bf16, bf16)):
         x, sc = inputs(128, d, dt, sdt)
         full = rn.rmsnorm(x, sc)
         four = rn.rmsnorm(x[:4].contiguous(), sc)
@@ -1757,6 +1814,184 @@ def check_musicgen(torch, compare):
                                dtype=dt, suffix="_d64")
 
 
+def check_zoo(torch, compare):
+    """Phase 2 for the rest of the zoo at its serving shapes (B = 4 slots,
+    head dim 128): the decode GEMMs of each arch at M = 4 (chatglm3-6b's
+    and qwen1.5-32b's q / k / v with their biases) and qwen3-moe's fp32
+    router 2048 -> 128; flash attention at groups 16 (chatglm3: 32 query
+    heads over 2), 1 (qwen1.5: 40 over 40) and 12 (mistral: 96 over 8) at
+    the serve bucket T = 128 and check_prefill's B 8 x 100; decode attention
+    over a ragged cache of 160 and the paged and verify kernels
+    (``check_paged_and_verify``, with its bitwise identities) at those three
+    groups, bf16; moe_decode at qwen3-moe's 128 experts of 2048 x 768,
+    top-8, with row b of the B = 4 launch == its B = 1 launch, bitwise; and
+    rmsnorm over the head dim (the QK-norm of qwen3-moe and chameleon:
+    q [4, 32, 128] and k [4, 4, 128] at decode, q [4, 4, 32, 128] at
+    verify), with rows of a launch == their M = 1 launches, bitwise. The
+    new d_model widths of rmsnorm and vocabularies of entropy_exit are in
+    ``check_rmsnorm`` / ``check_entropy``. Inputs from a generator of their
+    own, so that the later phases draw what they drew before."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attn_decode import ops as ad
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gemm import ops as gm
+    from repro_torch.kernels.gemm.ref import gemm_ref
+    from repro_torch.kernels.moe_decode import ops as md
+    from repro_torch.kernels.moe_decode.ref import moe_decode_ref
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    b, d = 4, 128
+    # the decode GEMMs at M = 4: one bf16 ulp. (K, N, activation, bias,
+    # where); an MLP's gate projection carries the silu
+    for k, n, act, bias, what in (
+            (4096, 4096, "none", True, "chatglm3 wq"),
+            (4096, 256, "none", True, "chatglm3 wk / wv"),
+            (4096, 4096, "none", False, "chatglm3 wo"),
+            (4096, 13696, "silu", False, "chatglm3 MLP gate"),
+            (13696, 4096, "none", False, "chatglm3 MLP down"),
+            (4096, 65024, "none", False, "chatglm3 unembed"),
+            (5120, 5120, "none", True, "qwen1.5 wq / wk / wv"),
+            (5120, 27392, "silu", False, "qwen1.5 MLP gate"),
+            (27392, 5120, "none", False, "qwen1.5 MLP down"),
+            (5120, 152064, "none", False, "qwen1.5 unembed"),
+            (2048, 4096, "none", False, "qwen3-moe wq"),
+            (4096, 2048, "none", False, "qwen3-moe wo"),
+            (2048, 512, "none", False, "qwen3-moe wk / wv"),
+            (2048, 151936, "none", False, "qwen3-moe unembed"),
+            (8192, 8192, "none", False, "chameleon wq / wo"),
+            (8192, 1024, "none", False, "chameleon wk / wv"),
+            (8192, 22016, "silu", False, "chameleon MLP gate"),
+            (22016, 8192, "none", False, "chameleon MLP down"),
+            (8192, 65536, "none", False, "chameleon unembed"),
+            (12288, 12288, "none", False, "mistral wq / wo"),
+            (12288, 1024, "none", False, "mistral wk / wv"),
+            (12288, 28672, "silu", False, "mistral MLP gate"),
+            (28672, 12288, "none", False, "mistral MLP down"),
+            (12288, 32768, "none", False, "mistral unembed")):
+        x, w = randn(b, k), randn(k, n, scale=k ** -0.5)
+        bv = randn(n, scale=0.5) if bias else None
+        lib = None
+        if act == "none":
+            lib = ((lambda x=x, w=w, bv=bv: torch.addmm(bv, x, w)) if bias
+                   else (lambda x=x, w=w: torch.matmul(x, w)))
+        compare("gemm", f"M=4 K={k} N={n} {act}{' bias' if bias else ''} "
+                f"{what}",
+                lambda x=x, w=w, bv=bv, a=act: gm.gemm(x, w, bv, a),
+                lambda x=x, w=w, bv=bv, a=act: gemm_ref(x, w, bv, a), lib,
+                2 * (b * k + k * n + b * n + (n if bias else 0)),
+                2 * b * k * n, "bfloat16", 1e-2, 1e-2,
+                plan=str(gm.gemm_plan(n, k)))
+        del x, w, bv
+    # qwen3-moe's router: fp32, summation order only
+    x, w = randn(b, 2048, dtype=f32), randn(2048, 128, dtype=f32,
+                                            scale=2048 ** -0.5)
+    compare("gemm", "M=4 K=2048 N=128 none fp32 qwen3-moe router",
+            lambda: gm.gemm(x, w), lambda: gemm_ref(x, w),
+            lambda: torch.matmul(x, w), 4 * (b * 2048 + 2048 * 128 + b * 128),
+            2 * b * 2048 * 128, "float32", 1e-4, 1e-4,
+            plan=str(gm.f32_plan(128, 2048)))
+
+    s = 160
+    cp = torch.tensor([19, 75, 130, 159], dtype=torch.int32, device="cuda")
+    n_valid = int((cp + 1).sum())
+    mask = (torch.arange(s, device="cuda")[None, :] <= cp[:, None]
+            )[:, None, None, :]
+    for hq, hkv, what in ((32, 2, "chatglm3-6b"), (40, 40, "qwen1.5-32b"),
+                          (96, 8, "mistral-large-123b")):
+        sfx = f"_g{hq // hkv}"
+        # flash attention (128, 128) at the group: one bf16 ulp
+        for bb, t in ((8, 100), (1, 128)):
+            q, k_, v_ = randn(bb, hq, t, d), randn(bb, hkv, t, d), \
+                randn(bb, hkv, t, d)
+            pairs = t * (t + 1) // 2
+            compare("attention", f"q[{bb},{hq},{t},{d}] kv[{bb},{hkv},{t},"
+                    f"{d}] causal {what}",
+                    lambda q=q, k_=k_, v_=v_: fa.attention(q, k_, v_,
+                                                           causal=True),
+                    lambda q=q, k_=k_, v_=v_: attention_ref(q, k_, v_,
+                                                            causal=True),
+                    lambda q=q, k_=k_, v_=v_: F.scaled_dot_product_attention(
+                        q, k_, v_, is_causal=True, enable_gqa=True),
+                    2 * (2 * q.numel() + 2 * k_.numel()),
+                    4 * bb * hq * d * pairs, "bfloat16", 1e-2, 1e-2)
+        # decode attention over a ragged contiguous cache (the plain version
+        # rounds the softmax weights to bf16, the kernel keeps them fp32)
+        q, kc, vc = randn(b, hq, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
+        compare(f"attn_decode{sfx}",
+                f"q[4,{hq},{d}] kv[4,{hkv},{s},{d}] ragged {what}",
+                lambda q=q, kc=kc, vc=vc: ad.attn_decode(q, kc, vc, cp),
+                lambda q=q, kc=kc, vc=vc: attn_decode_ref(q, kc, vc, cp),
+                lambda q=q, kc=kc, vc=vc: F.scaled_dot_product_attention(
+                    q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+                2 * q.numel() + 2 * 2 * hkv * d * n_valid + 4 * b * hq * d
+                + 4 * b, 4 * hq * d * n_valid, "bfloat16", 1e-2, 1e-2,
+                representative=True, plan=ad.decode_plan(b, hq, hkv))
+        check_paged_and_verify(torch, compare, randn, gen, hq=hq, hkv=hkv,
+                               d=d, suffix=sfx)
+
+    # dropless MoE decode at qwen3-moe's 128 experts of 2048 x 768, top-8,
+    # 4 live slots (32 assignments): fp32 on both sides
+    e_, k8, dm, hh = 128, 8, 2048, 768
+    x = randn(b, dm)
+    wg = randn(e_, dm, hh, scale=dm ** -0.5)
+    wu = randn(e_, dm, hh, scale=dm ** -0.5)
+    wd = randn(e_, hh, dm, scale=hh ** -0.5)
+    probs = torch.softmax(randn(b, e_, dtype=f32), -1)
+    gate, idx = torch.topk(probs, k8, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True)
+    idx = idx.to(torch.int32)
+    touched = int(torch.unique(idx).numel())
+    compare("moe_decode_qwen3", f"x[4,2048] top-8 of 128 experts "
+            f"[2048,768] ({touched} experts read)",
+            lambda: md.moe_decode(x, idx, gate, wg, wu, wd),
+            lambda: moe_decode_ref(x, idx, gate, wg, wu, wd), None,
+            2 * 3 * touched * dm * hh + 2 * x.numel() + 8 * b * k8
+            + 4 * b * dm, 6 * b * k8 * dm * hh, "bfloat16", 1e-4, 1e-4,
+            representative=True, plan=md.moe_plan(dm, hh))
+    full = md.moe_decode(x, idx, gate, wg, wu, wd)
+    for i in range(b):
+        one = slice(i, i + 1)
+        assert torch.equal(full[one], md.moe_decode(
+            x[one], idx[one], gate[one], wg, wu, wd)), ("moe_decode E 128", i)
+    del wg, wu, wd
+
+    # rmsnorm over the head dim (QK-norm), an fp32 scale that is not 1 (a
+    # trained norm's): one bf16 ulp
+    sc = 1 + 0.1 * randn(d, dtype=f32)
+    for shape, what in (((4, 32, 128), "q at decode"),
+                        ((4, 4, 128), "k at decode"),
+                        ((4, 4, 32, 128), "q at verify, K1 = 4")):
+        x = randn(*shape, scale=3.0)
+        compare("rmsnorm_qk_d128" if shape == (4, 32, 128) else "rmsnorm",
+                f"{list(shape)} QK-norm {what}",
+                lambda x=x: rn.rmsnorm(x, sc), lambda x=x: rmsnorm_ref(x, sc),
+                lambda x=x: F.rms_norm(x, (d,), sc.to(bf16), 1e-5),
+                2 * 2 * x.numel() + 4 * d, 4 * x.numel(), "bfloat16", 1e-2,
+                1e-2, representative=shape == (4, 32, 128),
+                plan=rn.rmsnorm_plan(d, bf16))
+        full = rn.rmsnorm(x, sc).reshape(-1, d)
+        rows = x.reshape(-1, d)
+        for i in (0, 1, 7, 8, rows.shape[0] - 1):   # two blocks of 8 rows
+            assert torch.equal(full[i:i + 1], rn.rmsnorm(
+                rows[i:i + 1].contiguous(), sc)), ("rmsnorm d 128", shape, i)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("bitwise: moe_decode (128 experts of 2048 x 768, top-8) rows of a "
+          "B = 4 launch == their B = 1 launches; rmsnorm over the head dim "
+          "(d 128) rows of a launch == their M = 1 launches", flush=True)
+
+
 def check_prefill(torch, lm, cfg, params, n_prompts: int = 8,
                   length: int = 100, fp32_copy: bool = True,
                   max_rel: float | None = 5e-2,
@@ -2437,96 +2672,133 @@ def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
           f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
 
 
-def run_musicgen(torch, run_serve, t_start):
-    """Phases 12b-12c: musicgen-medium at full width and full depth (48
-    layers, d_model 1536, 24 query heads over 24 KV heads of 64, no rotary,
-    exit at layer 12; 1.818 B params, random weights from seed 0), served
-    from codebook ids through its ``embed`` table (the frontend is a stub).
-    As yi-9b's phases 3-6: the prefill of 8 prompts through the kernels,
-    the plain policy and the plain policy on an fp32 weight copy; the
-    6-request serve contiguous (request 0 == ``generate`` bitwise; exact
-    launches) and paged (tokens == contiguous, bitwise); greedy speculative
-    decoding on the config without its exit (a tied draft on the paged
-    engine, a 2-layer draft on the contiguous one; tokens == plain greedy,
-    bitwise). Every attention launch is of a head-dim-64 instance. One
-    decode chunk per engine timed and traced."""
+def zoo_launches(cfg, steps: int, prefills: int, paged: bool):
+    """Every launch counter of a serve run on a GQA arch without recurrent
+    layers (dense MLP or MoE on every layer), from its decode steps and
+    prefills. A decode step: q, k, v, o on each layer, then the MLP's
+    three GEMMs or the fp32 router and ``moe_decode``; two layer norms a
+    layer (four with a QK-norm: q and k over the head dim); the exit
+    heads' norm and unembedding and the final ones; one decode attention a
+    layer and one ``entropy_exit`` an exit. A prefill: the same layers
+    through flash attention (the MoE's experts and router in plain
+    PyTorch, as the capacity path computes them) and the final head only."""
+    nl, n_exit = cfg.num_layers, len(cfg.early_exit.exit_layers)
+    moe = cfg.moe is not None
+    norms = (4 if cfg.qk_norm else 2) * nl
+    out = {"gemm": steps * ((5 if moe else 7) * nl + 1 + n_exit)
+           + prefills * ((4 if moe else 7) * nl + 1),
+           "rmsnorm": steps * (norms + 1 + n_exit) + prefills * (norms + 1),
+           "attention": prefills * nl,
+           "attn_decode_paged" if paged else "attn_decode": steps * nl,
+           "entropy_exit": steps * n_exit}
+    if moe:
+        out["moe_decode"] = steps * nl
+    return out
+
+
+def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
+            spec: tuple = ()):
+    """Phases 12b-12h, one zoo arch served at full width and
+    ``ZOO_LAYERS[name]`` layers (random weights from seed 0, bf16; the
+    phases before freed theirs), from token ids (musicgen's and
+    chameleon's frontends are stubs: ids through the ``embed`` table).
+    As yi-9b's
+    phases 3-6: the prefill through the kernels, the plain policy and the
+    plain policy in fp32 (``check_prefill`` with the arguments
+    ``prefill``: an fp32 weight copy unless ``fp32_copy=False``, which
+    computes in fp32 on the bf16 weights); the 6-request serve
+    contiguous (request 0 == ``generate`` bitwise; every
+    launch counter exactly ``zoo_launches``) and paged (tokens ==
+    contiguous, bitwise; exact launches, attn_decode_paged only), one
+    decode chunk of each engine timed and traced; then greedy speculative
+    decoding without the exit heads (tokens == plain greedy, bitwise;
+    verify_decode(_paged) on every layer a round) for each of ``spec``:
+    "tied-paged" (the target as its own draft, on the paged engine) and
+    "draft2l-contiguous" (a 2-layer draft of its own weights)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
 
-    mg = get_arch("musicgen-medium")
+    full = get_arch(name)
+    cfg = dataclasses.replace(full, num_layers=ZOO_LAYERS[name])
     t0 = time.perf_counter()
-    params = lm.init_lm(mg, seed=0, device="cuda")
+    params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in lm._leaves(params))
-    nl = mg.num_layers
-    print(f"{mg.name}: {nl} layers d_model={mg.d_model} {mg.num_heads} "
-          f"heads over {mg.num_kv_heads} KV heads of {mg.head_dim} "
-          f"{n_params / 1e9:.3f}B params ({mg.dtype}) initialised in "
+    leaves = lm._leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    nl, g = cfg.num_layers, cfg.num_heads // cfg.num_kv_heads
+    print(f"{name}: {nl} of {full.num_layers} layers d_model={cfg.d_model} "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads of "
+          f"{cfg.head_dim} (group {g}){', QKV bias' if cfg.qkv_bias else ''}"
+          f"{', QK-norm' if cfg.qk_norm else ''}"
+          f"{f', rotary over {cfg.rope_partial_pct:.0%}' if cfg.rope == 'partial' else ''}"
+          f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of {cfg.moe.d_expert}' if cfg.moe else ''}"
+          f", vocab {cfg.vocab_size}; {n_params / 1e9:.3f}B params "
+          f"({cfg.dtype}, {nbytes / 2**30:.1f} GiB) initialised in "
           f"{time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
           flush=True)
-    check_prefill(torch, lm, mg, params)
+    check_prefill(torch, lm, cfg, params, **prefill)
 
-    prompts = make_prompts(torch, mg.vocab_size)
-    run = run_serve("musicgen-contiguous", mg, params, prompts)
-    steps, lc = run["steps"], run["launches"]
-    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode",
-                       "entropy_exit"}, lc
-    assert lc["attn_decode"] == nl * steps, lc
-    assert lc["attention"] == nl * run["prefills"], lc
-    assert lc["entropy_exit"] == steps, lc
-    ref_toks, _ = generate(mg, params, prompts[0][None], 24)
+    prompts = make_prompts(torch, cfg.vocab_size)
+    run = run_serve(f"{name}-contiguous", cfg, params, prompts)
+    want = zoo_launches(cfg, run["steps"], run["prefills"], paged=False)
+    assert run["launches"] == want, (name, run["launches"], want)
+    ref_toks, _ = generate(cfg, params, prompts[0][None], 24)
     assert ref_toks[0].tolist() == run["tokens"][0], (
-        "musicgen engine tokens differ from generate", ref_toks[0].tolist(),
+        f"{name} engine tokens differ from generate", ref_toks[0].tolist(),
         run["tokens"][0])
-    print(f"serve musicgen-contiguous: request 0 == generate, bitwise; {nl} "
-          f"attn_decode (D 64) and 1 entropy_exit a step, {nl} attention "
-          f"(64, 64) a prefill", flush=True)
-    profile_decode(torch, mg.name, SlotEngine(mg, capacity=4, max_len=160,
-                                              chunk=8), params, prompts)
+    print(f"serve {name}-contiguous: request 0 == generate, bitwise; "
+          f"launches exactly {want}", flush=True)
+    profile_decode(torch, name, SlotEngine(cfg, capacity=4, max_len=160,
+                                           chunk=8), params, prompts)
 
-    paged = run_serve("musicgen-paged", mg, params, prompts, paged=True,
+    paged = run_serve(f"{name}-paged", cfg, params, prompts, paged=True,
                       page_size=16, num_pages=25)
-    lc, steps = paged["launches"], paged["steps"]
-    assert paged["tokens"] == run["tokens"], "paged musicgen tokens differ"
+    assert paged["tokens"] == run["tokens"], f"paged {name} tokens differ"
     assert paged["report"].stats["peak_pages"] <= 24, paged["report"].stats
-    assert set(lc) == {"gemm", "rmsnorm", "attention", "attn_decode_paged",
-                       "entropy_exit"}, lc
-    assert lc["attn_decode_paged"] == nl * steps, lc
-    profile_decode(torch, f"{mg.name} paged", SlotEngine(
-        mg, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
+    want = zoo_launches(cfg, paged["steps"], paged["prefills"], paged=True)
+    assert paged["launches"] == want, (name, paged["launches"], want)
+    profile_decode(torch, f"{name} paged", SlotEngine(
+        cfg, capacity=4, max_len=160, chunk=8, paged=True, page_size=16),
         params, prompts)
-    print(f"serve musicgen-paged: tokens == contiguous engine, bitwise, per "
-          f"request; {nl} attn_decode_paged (D 64) a step, no attn_decode; "
-          f"peak {int(paged['report'].stats['peak_pages'])} of 24 pages",
+    print(f"serve {name}-paged: tokens == contiguous engine, bitwise, per "
+          f"request; {nl} attn_decode_paged a step, no attn_decode; peak "
+          f"{int(paged['report'].stats['peak_pages'])} of 24 pages",
           flush=True)
 
-    mg_ne = dataclasses.replace(mg, early_exit=None)
-    greedy = run_serve("musicgen-plain-noexit", mg_ne, params, prompts)
-    tied = run_serve("musicgen-spec-tied-paged", mg_ne, params, prompts,
-                     paged=True, page_size=16, num_pages=25,
-                     spec=SpecConfig(draft_arch=mg_ne, k=3,
-                                     share_params=True))
-    assert tied["tokens"] == greedy["tokens"], "tied spec tokens differ"
-    assert tied["report"].stats["spec_acceptance"] == 1.0, \
-        tied["report"].stats
-    assert tied["launches"]["verify_decode_paged"] == nl * tied["steps"], \
-        tied["launches"]
-    draft = dataclasses.replace(mg_ne, name="musicgen-draft-2l",
-                                num_layers=2)
-    indep = run_serve("musicgen-spec-draft2l-contiguous", mg_ne, params,
-                      prompts, spec=SpecConfig(draft_arch=draft, k=3,
-                                               draft_seed=1))
-    assert indep["tokens"] == greedy["tokens"], "independent spec differs"
-    assert indep["launches"]["verify_decode"] == nl * indep["steps"], \
-        indep["launches"]
-    print(f"serve musicgen spec: tied (paged) and independent 2-layer draft "
-          f"(contiguous) tokens == plain greedy, bitwise; {nl} "
-          f"verify_decode(_paged) (D 64) a round; acceptance tied "
-          f"{tied['report'].stats['spec_acceptance']:.3f}, independent "
-          f"{indep['report'].stats['spec_acceptance']:.3f}; musicgen phases "
-          f"done at {time.perf_counter() - t_start:.1f}s", flush=True)
+    if spec:
+        cfg_ne = dataclasses.replace(cfg, early_exit=None)
+        greedy = run_serve(f"{name}-plain-noexit", cfg_ne, params, prompts)
+        for kind in spec:
+            if kind == "tied-paged":
+                kw = dict(paged=True, page_size=16, num_pages=25,
+                          spec=SpecConfig(draft_arch=cfg_ne, k=3,
+                                          share_params=True))
+            else:
+                draft = dataclasses.replace(cfg_ne, name=f"{name}-draft-2l",
+                                            num_layers=2)
+                kw = dict(spec=SpecConfig(draft_arch=draft, k=3,
+                                          draft_seed=1))
+            sr = run_serve(f"{name}-spec-{kind}", cfg_ne, params, prompts,
+                           **kw)
+            assert sr["tokens"] == greedy["tokens"], (name, kind,
+                                                      "spec tokens differ")
+            op = "verify_decode_paged" if "paged" in kind else \
+                "verify_decode"
+            assert sr["launches"][op] == nl * sr["steps"], sr["launches"]
+            if kind == "tied-paged":
+                assert sr["report"].stats["spec_acceptance"] == 1.0, \
+                    sr["report"].stats
+            print(f"serve {name} spec {kind}: tokens == plain greedy, "
+                  f"bitwise; {nl} {op} a round at {g * 4} query rows a KV "
+                  f"head (k = 3); acceptance "
+                  f"{sr['report'].stats['spec_acceptance']:.3f}", flush=True)
+    del params, ref_toks
+    torch.cuda.empty_cache()
+    print(f"{name} phases done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
 
 def check_seizure_steps(torch, tr, kind, w, batches):
@@ -2824,10 +3096,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_xlstm(torch, run_serve, t_start)
 
-    # -- 12b-12c. musicgen-medium, full depth, head dim 64: xlstm's
-    #    weights (local to run_xlstm) are freed first ----------------------
-    torch.cuda.empty_cache()
-    run_musicgen(torch, run_serve, t_start)
+    # -- 12b-12h. musicgen-medium (full depth, head dim 64; xlstm's weights,
+    #    local to run_xlstm, are freed first), then the rest of the zoo,
+    #    each arch's weights freed before the next is built: (arch,
+    #    check_prefill's arguments, spec runs). The
+    #    four large ones compute fp32 on their bf16 weights (an fp32 copy
+    #    would not fit beside them). qwen3-moe's 48 MoE layers route
+    #    near-ties apart, as deepseek's do: its plain path's RMS distance
+    #    from fp32 (0.034) sets the clear gap at 0.168, which 1 prompt of 8
+    #    reached on the H100, so it takes 64 prompts, and bounds at ~2x the
+    #    8-prompt readings (kernels vs plain max 0.043, mean 0.031) with
+    #    room for the larger max of 64; the others read max 0.018-0.025
+    #    and 5-6 clear prompts of 8 under the default bounds (PERF.md) ---
+    for name, prefill, spec in (
+            ("musicgen-medium", {}, ("tied-paged", "draft2l-contiguous")),
+            ("chatglm3-6b", {}, ("tied-paged", "draft2l-contiguous")),
+            ("qwen1.5-32b", dict(fp32_copy=False), ()),
+            ("qwen3-moe-30b-a3b", dict(fp32_copy=False, n_prompts=64,
+                                       max_rel=0.15, max_mean_rel=0.0625),
+             ()),
+            ("chameleon-34b", dict(fp32_copy=False), ()),
+            ("mistral-large-123b", dict(fp32_copy=False), ("tied-paged",))):
+        torch.cuda.empty_cache()
+        run_zoo(torch, run_serve, t_start, name, prefill, spec)
 
     # -- 13. the scalar fp32 flash instance is on no serving path ----------
     fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
@@ -2900,21 +3191,62 @@ def main() -> int:
         # the head-dim-64 instances: every attention launch of the
         # musicgen runs
         "attn_decode_d64": ("kernels/attn_decode/attn_decode.py:73",
-                            "attn_decode", "musicgen-contiguous",
+                            "attn_decode", "musicgen-medium-contiguous",
                             "attn_decode"),
         "attn_decode_paged_d64": (
             "kernels/paged_attention/paged_attention.py:73",
-            "paged_attention", "musicgen-paged", "attn_decode_paged"),
+            "paged_attention", "musicgen-medium-paged", "attn_decode_paged"),
         "verify_decode_d64": ("kernels/verify_decode/verify_decode.py:77",
                               "verify_decode",
-                              "musicgen-spec-draft2l-contiguous",
+                              "musicgen-medium-spec-draft2l-contiguous",
                               "verify_decode"),
         "verify_decode_paged_d64": (
             "kernels/verify_decode/verify_decode.py:162", "verify_decode",
-            "musicgen-spec-tied-paged", "verify_decode_paged"),
+            "musicgen-medium-spec-tied-paged", "verify_decode_paged"),
         "attention_bf16_d64": ("kernels/flash_attention/flash_attention.py:70",
-                               "flash_attention", "musicgen-contiguous",
+                               "flash_attention", "musicgen-medium-contiguous",
                                "attention"),
+        # the rest of the zoo at head dim 128 (phase 2's rows at each
+        # group): every decode-attention launch of the arch's runs, groups
+        # 16 (chatglm3-6b), 1 (qwen1.5-32b) and 12 (mistral-large-123b)
+        "attn_decode_g16": ("kernels/attn_decode/attn_decode.py:73",
+                            "attn_decode", "chatglm3-6b-contiguous",
+                            "attn_decode"),
+        "attn_decode_paged_g16": (
+            "kernels/paged_attention/paged_attention.py:73",
+            "paged_attention", "chatglm3-6b-paged", "attn_decode_paged"),
+        "verify_decode_g16": ("kernels/verify_decode/verify_decode.py:77",
+                              "verify_decode",
+                              "chatglm3-6b-spec-draft2l-contiguous",
+                              "verify_decode"),
+        "verify_decode_paged_g16": (
+            "kernels/verify_decode/verify_decode.py:162", "verify_decode",
+            "chatglm3-6b-spec-tied-paged", "verify_decode_paged"),
+        "attn_decode_g1": ("kernels/attn_decode/attn_decode.py:73",
+                           "attn_decode", "qwen1.5-32b-contiguous",
+                           "attn_decode"),
+        "attn_decode_paged_g1": (
+            "kernels/paged_attention/paged_attention.py:73",
+            "paged_attention", "qwen1.5-32b-paged", "attn_decode_paged"),
+        "attn_decode_g12": ("kernels/attn_decode/attn_decode.py:73",
+                            "attn_decode", "mistral-large-123b-contiguous",
+                            "attn_decode"),
+        "attn_decode_paged_g12": (
+            "kernels/paged_attention/paged_attention.py:73",
+            "paged_attention", "mistral-large-123b-paged",
+            "attn_decode_paged"),
+        "verify_decode_paged_g12": (
+            "kernels/verify_decode/verify_decode.py:162", "verify_decode",
+            "mistral-large-123b-spec-tied-paged", "verify_decode_paged"),
+        # moe_decode at 128 experts of 2048 x 768, top-8: every moe_decode
+        # launch of the qwen3-moe run
+        "moe_decode_qwen3": ("kernels/moe_decode/moe_decode.py:46",
+                             "moe_decode", "qwen3-moe-30b-a3b-contiguous",
+                             "moe_decode"),
+        # rmsnorm over the head dim (QK-norm): the qwen3-moe run's rmsnorm
+        # launches, 2 of every 4 a layer of them on q and k
+        "rmsnorm_qk_d128": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm",
+                            "qwen3-moe-30b-a3b-contiguous", "rmsnorm"),
     }
     kernels = [dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{src}.cu",

@@ -68,7 +68,9 @@ jamba-v0.1-52b, xlstm-350m and musicgen-medium that ``chip_smoke.py``
 times (M = 4 slots), yi-9b's at M = 16 (spec verify) and M = 128
 (prefill), and the fp32
 routers, ``w_if`` and 4096 -> 512, and the seizure models' two-class
-heads (M = 256, K = 32 / 128 / 64, N = 2). ``gemm_heads``: at the
+heads (M = 256, K = 32 / 128 / 64, N = 2); then the decode shapes of
+chatglm3-6b, qwen1.5-32b, qwen3-moe-30b-a3b (and its fp32 router 2048 ->
+128), chameleon-34b and mistral-large-123b. ``gemm_heads``: at the
 three layouts' serving shapes (MLA's absorbed products, xLSTM's
 head-major q/k/v and sLSTM ``wr``). Each checkout's wrapper runs in
 processes of its own, baseline, change, change, baseline, baseline,
@@ -513,7 +515,20 @@ GEMM_CASES = (
     + [(5, 1000, 300, "relu", "w8a8+bias")]
     # the seizure models' fp32 heads at an evaluation batch of 256 (the
     # narrow kernel from PR 25 on; the tiled fp32 kernel before)
-    + [(256, k, 2, "none", "fp32") for k in (32, 128, 64)])
+    + [(256, k, 2, "none", "fp32") for k in (32, 128, 64)]
+    # the rest of the zoo's decode shapes (chatglm3-6b, qwen1.5-32b,
+    # qwen3-moe-30b-a3b, chameleon-34b, mistral-large-123b) and qwen3-moe's
+    # fp32 router, appended so that the cases above keep their seeds
+    + [(4, k, n, a, "bf16") for k, n, a in (
+        (4096, 256, "none"), (4096, 13696, "silu"), (13696, 4096, "none"),
+        (4096, 65024, "none"), (5120, 5120, "none"), (5120, 27392, "silu"),
+        (27392, 5120, "none"), (5120, 152064, "none"), (2048, 4096, "none"),
+        (4096, 2048, "none"), (2048, 151936, "none"), (8192, 8192, "none"),
+        (8192, 1024, "none"), (8192, 22016, "silu"), (22016, 8192, "none"),
+        (12288, 12288, "none"), (12288, 1024, "none"),
+        (12288, 28672, "silu"), (28672, 12288, "none"),
+        (12288, 32768, "none"))]
+    + [(4, 2048, 128, "none", "fp32")])
 
 
 # (M, H, K, w shape, w dtype, layout) of gemm_heads: MLA's w_uk (read

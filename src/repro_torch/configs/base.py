@@ -5,8 +5,9 @@ the port serves today: decoder-only LMs with entropy early exits, dense
 (GQA + SwiGLU), DeepSeek-style (MLA + top-k MoE after dense prefix
 layers), hybrid (Jamba: Mamba and attention mixers in a period-8
 pattern, MLP and MoE channel mixers), recurrent (xLSTM: mLSTM and sLSTM
-mixers with no channel mixer) or audio (MusicGen: a dense decoder whose
-frontend is a stub that hands it frame embeddings).
+mixers with no channel mixer), audio (MusicGen: a dense decoder whose
+frontend is a stub that hands it frame embeddings) or vlm (Chameleon: a
+dense decoder over mixed-modal tokens, its image tokenizer a stub).
 The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
@@ -86,7 +87,7 @@ class XLSTMConfig:
 
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
-FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 XLSTM_MIXERS = ("mlstm", "slstm")
 
 
@@ -124,6 +125,7 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     rope_partial_pct: float = 0.5      # used when rope == "partial"
     qkv_bias: bool = False
+    qk_norm: bool = False              # RMSNorm of q and k over the head dim
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
@@ -131,8 +133,8 @@ class ArchConfig:
     early_exit: Optional[EarlyExitConfig] = None
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
-    # modality stub (audio): the frontend provides embeddings [B, T, d],
-    # which the model takes in place of token ids
+    # modality stub (audio, vlm): the frontend provides embeddings [B, T,
+    # d], which the model takes in place of token ids
     frontend_stub: bool = False
 
     def __post_init__(self):
@@ -249,9 +251,14 @@ def register_arch(fn):
 
 def _register_builtin() -> None:
     # each config module registers itself when imported
+    from repro_torch.configs import chameleon_34b  # noqa: F401
+    from repro_torch.configs import chatglm3_6b  # noqa: F401
     from repro_torch.configs import deepseek_v2_lite_16b  # noqa: F401
     from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
+    from repro_torch.configs import mistral_large_123b  # noqa: F401
     from repro_torch.configs import musicgen_medium  # noqa: F401
+    from repro_torch.configs import qwen1_5_32b  # noqa: F401
+    from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: F401
     from repro_torch.configs import xlstm_350m  # noqa: F401
     from repro_torch.configs import yi_9b  # noqa: F401
 

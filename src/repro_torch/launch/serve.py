@@ -11,12 +11,23 @@ request-stream simulator over the continuous-batching slot engine.
         --arch xlstm-350m --device cpu [--paged]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch musicgen-medium --device cpu [--paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --device cpu [--paged]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch chatglm3-6b --device cpu --paged --draft chatglm3-6b \
+        --spec-k 3
 
 Serves the arch's ``.reduced()`` config with random weights from
 ``init_lm``, as the JAX launcher does, and reports throughput, latency
 percentiles and the early-exit rate. ``--rate 0`` makes every request ready
 at t=0 (closed loop). Runs on the card by default; ``--device cpu`` runs
 the plain PyTorch path.
+
+``--arch`` takes every arch the port registers (``list_archs()``): the
+dense GQA archs (yi-9b; chatglm3-6b with partial rotary and QKV biases;
+qwen1.5-32b; mistral-large-123b), the QK-normed qwen3-moe-30b-a3b (MoE on
+every layer) and chameleon-34b, MLA + MoE, the hybrid, xLSTM and the
+stub-frontend musicgen-medium.
 
 ``--paged`` serves through the paged KV engine: pages of ``--page-size``
 positions from a pool of ``--num-pages``, admission by free pages. It

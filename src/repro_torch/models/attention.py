@@ -1,7 +1,8 @@
 """Attention mixers (port of ``repro.models.attention``): GQA, and
 DeepSeek-V2 Multi-head Latent Attention (MLA).
 
-GQA has four execution modes over one parameter set:
+GQA (with optional QKV biases and a QK-norm: q and k normalised over the
+head dim before rotary) has four execution modes over one parameter set:
   * prefill: full-sequence causal attention through the XAIF
     ``attention`` op (the flash kernel on the card), K/V written into the
     request's cache;
@@ -50,7 +51,8 @@ class MLACache(NamedTuple):
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype,
                    device) -> Dict:
-    """GQA projections [K, N] (biases zero when ``qkv_bias``)."""
+    """GQA projections [K, N] (biases zero when ``qkv_bias``; unit
+    ``q_norm`` / ``k_norm`` scales over the head dim when ``qk_norm``)."""
     d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
     p = {"wq": normal_init(gen, (d, hq * dh), d, dtype, device),
@@ -61,6 +63,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype,
         for name, width in (("bq", hq * dh), ("bk", hkv * dh),
                             ("bv", hkv * dh)):
             p[name] = torch.zeros(width, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, device)
+        p["k_norm"] = init_rmsnorm(dh, device)
     return p
 
 
@@ -100,8 +105,15 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
     q = xaif.call("gemm", policy, x, params["wq"], bias=params.get("bq"))
     k = xaif.call("gemm", policy, x, params["wk"], bias=params.get("bk"))
     v = xaif.call("gemm", policy, x, params["wv"], bias=params.get("bv"))
-    q = q.reshape(b, t, hq, dh).transpose(1, 2)           # [B, Hq, T, D]
-    k = k.reshape(b, t, hkv, dh).transpose(1, 2)
+    q, k = q.reshape(b, t, hq, dh), k.reshape(b, t, hkv, dh)
+    if cfg.qk_norm:
+        # over the head dim, before rotary (as JAX); normalised as [B, T,
+        # H, D], where a head's D values are a contiguous row, as the
+        # rmsnorm kernel takes them
+        q = rmsnorm(params["q_norm"], q, policy, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, policy, cfg.norm_eps)
+    q = q.transpose(1, 2)                                 # [B, Hq, T, D]
+    k = k.transpose(1, 2)
     v = v.reshape(b, t, hkv, dh).transpose(1, 2)
     rd = rope_dims(cfg)
     if rd != 0:

@@ -100,6 +100,25 @@ def test_rmsnorm_matches_jax(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 5])
+def test_rmsnorm_over_the_head_dim_matches_jax(t, dtype):
+    """The QK-norm shape: JAX normalises q [B, H, T, 128] over the head
+    dim; the port normalises [B, T, H, 128] (a head's row contiguous, as
+    the kernel takes it) before the transpose. Both against JAX's ref and
+    interpret-mode kernel on [B, H, T, 128], with a non-unit fp32 scale."""
+    rng = np.random.default_rng(40 + t)
+    a = rng.standard_normal((2, 4, t, 128), np.float32) * 3.0
+    x, tx = _pair(a, dtype)
+    js, ts = _pair(1 + rng.uniform(-0.5, 0.5, 128).astype(np.float32),
+                   "float32")
+    port = rmsnorm_ref(tx.transpose(1, 2).contiguous(), ts, 1e-5)
+    assert port.dtype == tx.dtype
+    _close(port.transpose(1, 2), [
+        jax_rn_ref.rmsnorm_ref(x, js, 1e-5),
+        jax_rn_ops.rmsnorm_pallas_op(x, js, 1e-5, interpret=True)], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t,s,hd,g", [
     pytest.param(7, 7, 16, 2, id="7-7"), pytest.param(5, 12, 16, 2, id="5-12"),
