@@ -16,6 +16,20 @@ Phases (any failure raises; nothing is caught):
   4. serve 6 requests through ``SlotEngine`` + ``serve()`` with every
      launch counter reset just before and read just after; request 0's
      tokens must equal ``generate`` on its prompt, bitwise;
+  4b. gated early-exit decode (``SlotEngine(gated=True)``) on the same
+     requests: at exit threshold -1.0 (no row exits: every step with a
+     live slot runs the full depth) and 2.0 (every row exits: every step
+     skips layers 12-47, their K/V filled by CALM propagation from the
+     exit hidden state) the tokens equal the ungated engine's at the same
+     threshold, bitwise; launches exact (``gated_step_launches``: a
+     skipped step gemm 157, rmsnorm 61, attn_decode 12, entropy_exit 1);
+     at 2.0 request 0 == ``generate(gated=True)`` bitwise, exit rate 1.0,
+     gated fraction 0.75, and one skipped step's propagated rows equal
+     ``_kv_propagate_layer`` through the kernels, bitwise, and the plain
+     policy's within one bf16 ulp; at a threshold among the exit
+     entropies of a first chunk some steps skip (each step's branch
+     recorded) and a second run replays bitwise; a chunk of every-step
+     skipped and every-step full gated decode traced;
   5. the same 6 requests through the paged engine (page size 16, a pool
      of 24 usable pages, fewer than the slots could ask for): tokens equal
      phase 4's per request, bitwise, with no contiguous decode launch;
@@ -23,6 +37,17 @@ Phases (any failure raises; nothing is caught):
      the plain engine on that config: a tied draft on the paged engine
      (acceptance 1.0) and an independent 2-layer draft on the contiguous
      engine, both token for token equal to plain greedy;
+  6e. sampled decode on yi-9b (temperature 0.7, top-k 50, top-p 0.9, the
+     6 requests seeded): a second run's tokens equal, bitwise, with
+     greedy's launches; request 1 served alone (slot 0) equals it
+     co-batched (slot 1), bitwise; at temperature 1e-4 the tokens equal
+     phase 4's greedy tokens up to an exact top tie of the bf16 logits
+     (``greedy_ties``); the sampler alone on 4 rows of yi's [4, 64000]
+     logits, 4096 draws a row, within the multinomial null's 99.99th
+     percentile of total variation from ``make_probs``;
+  6f. sampled speculative decoding on phase 6's config: a tied draft on
+     the paged engine accepts every proposal; the 2-layer draft replays
+     bitwise and a seeded request's tokens do not depend on its slot;
   6b. yi-9b on int8 weights, its bf16 weights still on the card: the
      port's ``quantize_weights_int8`` on the card (exactly the
      projections of ``_QUANT_NAMES`` in yi's tree); 8 prompts prefilled
@@ -52,7 +77,8 @@ Phases (any failure raises; nothing is caught):
      requests through the paged engine (latent pages of 16, a pool of 24
      usable pages): tokens equal the contiguous run's per request,
      bitwise, precise attn_decode_paged on all 27 layers every step and
-     no attn_decode;
+     no attn_decode; 8c: the gated engine at threshold 2.0 (MLA latents
+     propagated: ``serve_gated``, as phase 4b's);
   9. jamba-v0.1-52b at full width, cut to two super-blocks (16 of its 32
      layers: 14 Mamba, 2 attention, 8 MoE of 16 experts x 14336 top-2;
      bf16, random weights; deepseek's weights freed first): 64 prompts
@@ -116,7 +142,10 @@ Phases (any failure raises; nothing is caught):
      traced; greedy speculative decoding without the exit (tokens == plain
      greedy, bitwise) on chatglm3 (a tied draft, paged, and a 2-layer
      draft, contiguous: 64 query rows a KV head at k = 3, the kernels'
-     most) and on mistral (a tied draft, paged: 48 rows);
+     most) and on mistral (a tied draft, paged: 48 rows); chatglm3
+     (12e: QKV biases, rotary over half the head dim) and chameleon
+     (12g: the K-norm) also served gated at threshold 2.0
+     (``serve_gated``);
  13. a check that no serve run launched the fp32 flash instance (its
      own counter);
  14. the paper's seizure workload at its published configs (the CNN and
@@ -135,8 +164,10 @@ Phases (any failure raises; nothing is caught):
      exit rate > 0.5 asserted, and the exit rate never falling over
      thresholds 0.1-0.5; the Fig. 3 table from the measured exit rates;
      and a kernel launch on a tensor that requires grad raises;
- 15. one JSON line listing the kernels, the card's name and power limit,
-     and the final ``{"ok": true, ...}`` line.
+ 15. one JSON line listing the kernels (those on ``forward_decode_gated``'s
+     path with their launches in its threshold-2.0 runs beside), the
+     card's name and power limit, and the final ``{"ok": true, ...}``
+     line.
 
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
@@ -2292,16 +2323,17 @@ def make_prompts(torch, vocab: int, seed: int = 11):
 
 
 def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
-              **engine_kw):
-    """Serve the 6 requests (24 new tokens each) with every launch counter
-    reset just before and read just after; the result goes to
-    ``runs[name]``."""
+              seeds=None, **engine_kw):
+    """Serve the 6 requests (24 new tokens each; request i seeded with
+    ``seeds[i]`` when given) with every launch counter reset just before
+    and read just after; the result goes to ``runs[name]``."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import xaif
     from repro_torch.serve.engine import SlotEngine
     from repro_torch.serve.scheduler import Request, serve
 
-    requests = [Request(rid=i, prompt=pr, max_new_tokens=24)
+    requests = [Request(rid=i, prompt=pr, max_new_tokens=24,
+                        seed=None if seeds is None else seeds[i])
                 for i, pr in enumerate(prompts)]
     engine = SlotEngine(RunConfig(arch=run_cfg, policy=policy), capacity=4,
                         max_len=160, chunk=8, prompt_bucket=16, **engine_kw)
@@ -2325,6 +2357,443 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
                       launches=launches, steps=steps, report=report,
                       prefills=engine.prefill_calls)
     return runs[name]
+
+
+def with_threshold(cfg, threshold: float):
+    """``cfg`` with its exit's entropy threshold set: 2.0 makes every row
+    exit (the normalized entropy is at most 1), -1.0 none."""
+    return dataclasses.replace(cfg, early_exit=dataclasses.replace(
+        cfg.early_exit, entropy_threshold=threshold))
+
+
+def gated_step_launches(cfg, skip: bool):
+    """Kernel launches of one step of ``forward_decode_gated``: the layers
+    up to the exit, the exit head (rmsnorm, gemm) and its decision
+    (entropy_exit); then, on a skipped step, each later layer's
+    propagation (ln1 and the K and V projections, with the K-norm; MLA:
+    ln1, the latent and rotary-key projections and the latent's norm), or
+    else the later layers and the final head (the ungated step's launches).
+    A GQA layer: q, k, v, o, ln1, ln2 (and q_norm, k_norm with a QK-norm),
+    one decode attention; an MLA layer: wq, w_dkv, w_kr, wo, ln1, kv_norm,
+    ln2, two gemm_heads, one precise decode attention; then the MLP's
+    three GEMMs, or an MoE's fp32 router, its shared experts' three GEMMs
+    and one moe_decode."""
+    from collections import Counter
+
+    el, nl = cfg.early_exit.exit_layers[0], cfg.num_layers
+    out = Counter()
+    for i in range(el if skip else nl):
+        if cfg.mla is not None:
+            out.update(gemm=4, rmsnorm=3, gemm_heads=2, attn_decode=1)
+        else:
+            out.update(gemm=4, rmsnorm=4 if cfg.qk_norm else 2,
+                       attn_decode=1)
+        if cfg.layer_spec(i).ffn == "moe":
+            out.update(gemm=1 + 3 * bool(cfg.moe.num_shared_experts),
+                       moe_decode=1)
+        else:
+            out.update(gemm=3)
+    out.update(gemm=1, rmsnorm=1, entropy_exit=1)
+    if skip:
+        n = nl - el
+        out.update(gemm=2 * n,
+                   rmsnorm=(2 if cfg.qk_norm or cfg.mla else 1) * n)
+    else:
+        out.update(gemm=1, rmsnorm=1)
+    return out
+
+
+def cache_rows(torch, cache, layer: int, pos):
+    """The cache rows of ``layer`` at each slot's position ``pos`` [B]:
+    K and V [B, Hkv, D], or the latent [B, r] and rotary key [B, rd]."""
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    return [t.movedim(-2, 1)[bidx, pos.long()] for t in cache.layer(layer)]
+
+
+def check_gated_rows(torch, cfg, params, prompts):
+    """One skipped step on full-width weights: ``cfg``'s gated engine (an
+    exit threshold of 2.0) filled with 4 live slots, then, on three copies
+    of its cache, (a) the gated step through the kernels, (b) the layers
+    up to the exit through the kernels and ``_kv_propagate_layer`` of each
+    later layer from that exit hidden state through the kernels, (c) the
+    same propagation through the plain policy from the same hidden state.
+    (a) == (b) bitwise at every propagated row; (b) against (c) within one
+    bf16 ulp (1e-2 + 1e-2 |plain|: the kernels' fp32 sums in other orders
+    move a bf16 rounding by one unit). Returns the largest abs difference."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine
+
+    engine = SlotEngine(cfg, capacity=4, max_len=160, chunk=8, gated=True)
+    cache, st = fill_slots(engine, params, prompts)
+    live, tok = ~st.done, st.tokens[:, None]
+    assert bool(live.all()), st.done
+
+    def copy():
+        return cache._replace(**{f: getattr(cache, f).clone() for f in
+                                 ("pos", "k", "v", "c_kv", "k_rope")
+                                 if getattr(cache, f) is not None})
+
+    gated, kern, plain = copy(), copy(), copy()
+    _, mask, _ = lm.forward_decode_gated(params, tok, cfg, "auto", gated,
+                                         live=live)
+    assert bool(mask.all()), mask
+    el, nl = cfg.early_exit.exit_layers[0], cfg.num_layers
+    x = lm._embed(params, tok, cfg)
+    x = lm._run_layers(params, x, range(el), cfg, "auto", kern, "decode",
+                       kern.pos, None, live)
+    for policy, dst in (("auto", kern), ("ref", plain)):
+        for i in range(el, nl):
+            lm._kv_propagate_layer(lm._layer(params, cfg, i), x, cfg, policy,
+                                   dst.layer(i), dst.pos)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i in range(el, nl):
+        for a, b, c in zip(*(cache_rows(torch, t, i, cache.pos)
+                             for t in (gated, kern, plain))):
+            assert torch.equal(a, b), (cfg.name, i, "gated step's rows")
+            err = (b.float() - c.float()).abs()
+            bad = err > 1e-2 + 1e-2 * c.float().abs()
+            assert not bad.any(), (cfg.name, i, float(err.max()))
+            worst = max(worst, float(err.max()))
+    print(f"gated rows {cfg.name}: one skipped step with 4 live slots; the "
+          f"propagated rows of layers {el}-{nl - 1} == _kv_propagate_layer "
+          f"through the kernels from the exit hidden state, bitwise; "
+          f"kernels vs plain max abs {worst:.3e} (bound 1e-2 + 1e-2 |ref|)",
+          flush=True)
+    return worst
+
+
+def serve_gated(torch, run_serve, name, cfg, params, prompts, ungated):
+    """The 6-request serve through ``SlotEngine(gated=True)`` at an exit
+    threshold of 2.0: every live row exits, so every decode step skips the
+    layers past the exit. Launches exactly ``ungated``'s (the arch's
+    ungated serve of the same requests: the same prefills and steps) less
+    each step's difference between a full and a skipped step
+    (``gated_step_launches``); exit rate 1.0 and gated fraction 1 - exit /
+    layers; request 0 == ``generate(gated=True)`` bitwise; one skipped
+    step's propagated rows held (``check_gated_rows``). Returns the run."""
+    from repro_torch.serve.engine import generate
+
+    cfg2 = with_threshold(cfg, 2.0)
+    run = run_serve(name, cfg2, params, prompts, gated=True)
+    steps = run["steps"]
+    assert (steps, run["prefills"]) == (ungated["steps"],
+                                        ungated["prefills"]), name
+    full = gated_step_launches(cfg, skip=False)
+    skip = gated_step_launches(cfg, skip=True)
+    want = {k: n - steps * (full[k] - skip[k])
+            for k, n in ungated["launches"].items()}
+    want = {k: n for k, n in want.items() if n}
+    assert run["launches"] == want, (name, run["launches"], want)
+    el = cfg.early_exit.exit_layers[0]
+    stats = run["report"].stats
+    assert stats["exit_rate"] == 1.0, stats
+    assert abs(stats["gated_fraction"] - (1 - el / cfg.num_layers)) < 1e-6, \
+        stats
+    ref_toks, _ = generate(cfg2, params, prompts[0][None], 24, gated=True)
+    assert ref_toks[0].tolist() == run["tokens"][0], (
+        f"{name} tokens differ from generate(gated=True)",
+        ref_toks[0].tolist(), run["tokens"][0])
+    print(f"serve {name}: request 0 == generate(gated=True), bitwise; every "
+          f"step skipped layers {el}-{cfg.num_layers - 1} (exit rate "
+          f"{stats['exit_rate']:.3f}, gated fraction "
+          f"{stats['gated_fraction']:.4f}); launches exactly {want}; a "
+          f"skipped step {dict(skip)}, a full one {dict(full)}", flush=True)
+    check_gated_rows(torch, cfg2, params, prompts)
+    return run
+
+
+def gated_steps(run_serve, name, cfg, params, prompts):
+    """``run_serve`` of the gated engine with each decode step's branch
+    recorded (``lm.forward_decode_gated`` wrapped for this run: a host
+    read of the live and exit masks a step). Returns (the run, skipped
+    steps, steps with no live slot: those skip too, as under JAX's
+    ``lax.cond``, and their outputs are discarded)."""
+    from repro_torch.models import lm
+
+    real, seen = lm.forward_decode_gated, []
+
+    def recorded(params, tokens, cfg, policy, cache, live=None):
+        out = real(params, tokens, cfg, policy, cache, live=live)
+        seen.append((bool((out[1] | ~live).all()), not bool(live.any())))
+        return out
+
+    lm.forward_decode_gated = recorded
+    try:
+        run = run_serve(name, cfg, params, prompts, gated=True)
+    finally:
+        lm.forward_decode_gated = real
+    assert len(seen) == run["steps"], (len(seen), run["steps"])
+    return run, sum(s for s, _ in seen), sum(d for _, d in seen)
+
+
+def exit_entropy_threshold(torch, cfg, params, prompts):
+    """A threshold among the exit entropies: 4 slots filled with
+    ``prompts[:4]`` as a serve's first chunk starts, 8 full-depth decode
+    steps, the largest exit entropy of each step; the threshold halfway
+    between the 4th and 5th smallest of the 8, so that a gated run's steps
+    skip about half the time (a step skips when every live row is below
+    it). Returns (threshold, the 8 step maxima)."""
+    from repro_torch.core.early_exit import should_exit
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine
+
+    engine = SlotEngine(cfg, capacity=4, max_len=160, chunk=8)
+    cache, st = engine.init_state()
+    for slot in range(4):
+        cache, st, _ = engine.prefill_into(params, cache, st, prompts[slot],
+                                           slot, 24)
+    tok, worst = st.tokens, []
+    with torch.inference_mode():
+        for _ in range(8):
+            lg, exits, cache = lm.forward_decode(params, tok[:, None], cfg,
+                                                 "auto", cache)
+            worst.append(float(should_exit(exits[0], 0.0, "auto")[1].max()))
+            tok = lg.argmax(-1).to(torch.int32)
+    srt = sorted(worst)
+    return (srt[3] + srt[4]) / 2, worst
+
+
+def run_gated_yi(torch, run_serve, cfg, params, prompts, plain):
+    """Phase 4b: gated early-exit decode on full-width yi-9b (``plain``:
+    phase 4's run). At thresholds -1.0 and 2.0 the gated engine's tokens
+    equal the ungated engine's at the same threshold, bitwise (at -1 every
+    step runs the full depth, with exactly the ungated launches; at 2.0
+    every step skips layers 12-47, ``serve_gated``); at a threshold among
+    the exit entropies of a first chunk some steps skip and some do not:
+    the skipped steps (from the decode-attention launches) and the gated
+    fraction printed, a second run's tokens equal, bitwise. A decode chunk
+    of the gated engine at 2.0 (every step skipped) and at -1.0 (every
+    step full) traced. Returns the threshold-2.0 gated run."""
+    from repro_torch.serve.engine import SlotEngine
+
+    cfg_m1, cfg_2 = with_threshold(cfg, -1.0), with_threshold(cfg, 2.0)
+    full_step = gated_step_launches(cfg, skip=False)
+    skip_step = gated_step_launches(cfg, skip=True)
+
+    def less(launches, n):       # n steps skipped rather than full
+        out = {k: c - n * (full_step[k] - skip_step[k])
+               for k, c in launches.items()}
+        return {k: c for k, c in out.items() if c}
+
+    ungated = run_serve("thr-1-contiguous", cfg_m1, params, prompts)
+    full, skipped, dead = gated_steps(run_serve, "gated-thr-1", cfg_m1,
+                                      params, prompts)
+    assert full["tokens"] == ungated["tokens"], "gated at -1 differs"
+    assert skipped == dead, (skipped, dead)
+    assert full["launches"] == less(ungated["launches"], dead), (
+        full["launches"], ungated["launches"], dead)
+    stats = full["report"].stats
+    assert stats["exit_rate"] == 0.0 and stats["gated_fraction"] == 0.0
+    print(f"serve gated-thr-1: tokens == the ungated engine's at threshold "
+          f"-1, bitwise; every step with a live slot ran the full depth, "
+          f"the {dead} of {full['steps']} steps with none skipped; launches "
+          f"exactly the ungated run's less those {dead} steps' difference",
+          flush=True)
+    ungated2 = run_serve("thr2-contiguous", cfg_2, params, prompts)
+    gated2 = serve_gated(torch, run_serve, "gated-thr2", cfg, params,
+                         prompts, plain)
+    assert gated2["tokens"] == ungated2["tokens"], "gated at 2.0 differs"
+    print("serve gated-thr2: tokens == the ungated engine's at threshold "
+          "2.0, bitwise (the exit logits depend only on layers 0-11)",
+          flush=True)
+
+    thr, maxima = exit_entropy_threshold(torch, cfg, params, prompts)
+    cfg_mix = with_threshold(cfg, thr)
+    mixed = [gated_steps(run_serve, f"gated-mixed-{i}", cfg_mix, params,
+                         prompts) for i in (1, 2)]
+    run, skipped, dead = mixed[0]
+    assert run["tokens"] == mixed[1][0]["tokens"], "mixed gated differs"
+    assert mixed[1][1:] == (skipped, dead), (mixed[1][1:], skipped, dead)
+    assert run["launches"] == less(ungated["launches"], skipped), (
+        run["launches"], skipped)
+    el, nl = cfg.early_exit.exit_layers[0], cfg.num_layers
+    print(f"serve gated-mixed: threshold {thr:.6f} (halfway in the exit "
+          f"entropies' step maxima {[round(m, 6) for m in maxima]}); "
+          f"{skipped - dead} of the {run['steps'] - dead} steps with a live "
+          f"slot skipped layers {el}-{nl - 1} ({dead} with none skipped "
+          f"too); launches exact; stats {run['report'].stats}; a second "
+          f"run's tokens and branches equal, bitwise", flush=True)
+
+    profile_decode(torch, "yi-9b gated, every step skipped", SlotEngine(
+        cfg_2, capacity=4, max_len=160, chunk=8, gated=True), params, prompts)
+    profile_decode(torch, "yi-9b gated, every step full", SlotEngine(
+        cfg_m1, capacity=4, max_len=160, chunk=8, gated=True), params,
+        prompts)
+    return gated2
+
+
+def serve_alone(torch, cfg, params, prompt, seed, **engine_kw):
+    """One seeded 24-token request served alone (it lands in slot 0): its
+    tokens."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.scheduler import Request, serve
+
+    req = Request(rid=0, prompt=prompt, max_new_tokens=24, seed=seed)
+    engine = SlotEngine(RunConfig(arch=cfg), capacity=4, max_len=160,
+                        chunk=8, prompt_bucket=16, **engine_kw)
+    serve(engine, params, [req])
+    return req.tokens
+
+
+def greedy_ties(torch, cfg, params, prompt, tokens):
+    """Teacher-forced batch-1 decode of ``prompt`` along greedy ``tokens``
+    (a cache of the engine's 160 positions; every kernel keeps a row's
+    bits whatever the batch, so the logits are the engine's row's): at
+    each token, whether the top logit is tied exactly. Asserts each token
+    is its step's argmax."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import _select
+
+    cache = lm.init_cache(cfg, 1, 160)
+    pr = torch.as_tensor(prompt, device="cuda")[None]
+    logits, cache = lm.forward_prefill(params, pr, cfg, "auto", cache)
+    ties = []
+    for j, t in enumerate(tokens):
+        row = logits[0]
+        assert int(row.argmax()) == t, (j, int(row.argmax()), t)
+        ties.append(int((row == row.max()).sum()) > 1)
+        if j + 1 < len(tokens):
+            tok = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+            lg, exits, cache = lm.forward_decode(params, tok, cfg, "auto",
+                                                 cache)
+            logits, _ = _select(lg, exits, cfg, "auto")
+    return ties
+
+
+def check_sampler_tv(torch, cfg, params, prompts, kw, draws: int = 4096):
+    """The sampler alone on 4 rows of the model's own logits (the last
+    prefill position of ``prompts[:4]``, bf16 [4, V]) at the sampling
+    settings ``kw``: ``draws`` draws a row (one generator a row, seeded)
+    against ``make_probs``. Each row's total variation distance between
+    the draws' frequencies and the probabilities must stay within the
+    99.99th percentile of the same distance under the multinomial null
+    (20000 multinomial samples of ``draws`` from the probabilities, numpy,
+    seed 0). Prints each row's distance, bound and support."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import (gumbel_noise, make_probs,
+                                          make_sampler)
+
+    rows = []
+    for pr in prompts[:4]:
+        cache = lm.init_cache(cfg, 1, len(pr))
+        lg, _ = lm.forward_prefill(params, torch.as_tensor(
+            pr, device="cuda")[None], cfg, "auto", cache)
+        rows.append(lg[0])
+    logits = torch.stack(rows)                              # [4, V]
+    v = logits.shape[-1]
+    probs = make_probs(**kw)(logits)
+    sampler = make_sampler(**kw)
+    gens = [torch.Generator(device="cuda").manual_seed(70 + r)
+            for r in range(4)]
+    counts = torch.zeros(4, v, device="cuda")
+    chunk = 256
+    for _ in range(draws // chunk):
+        noise = gumbel_noise(gens, (chunk, v), "cuda")      # [4, chunk, V]
+        toks = sampler(logits[:, None].expand(4, chunk, v), noise)
+        counts.scatter_add_(1, toks.long(),
+                            torch.ones_like(toks, dtype=counts.dtype))
+    freq = (counts / draws).double().cpu().numpy()
+    p = probs.double().cpu().numpy()
+    rng = np.random.default_rng(0)
+    lines = []
+    for r in range(4):
+        support = np.flatnonzero(p[r] > 0)
+        pr = p[r, support] / p[r, support].sum()
+        null = 0.5 * np.abs(rng.multinomial(draws, pr, size=20000) / draws
+                            - pr).sum(-1)
+        bound = float(np.quantile(null, 0.9999))
+        tv = 0.5 * float(np.abs(freq[r] - p[r]).sum())
+        assert freq[r][p[r] == 0].sum() == 0, r        # never off-support
+        assert tv <= bound, (r, tv, bound)
+        lines.append(f"row {r}: TV {tv:.4f} <= {bound:.4f} "
+                     f"(support {support.size})")
+    print(f"sampler alone, {kw}, {draws} draws a row of [4, {v}] logits "
+          f"against make_probs (bound: the multinomial null's 99.99th "
+          f"percentile): " + "; ".join(lines), flush=True)
+
+
+SAMPLING = dict(temperature=0.7, top_k=50, top_p=0.9)
+
+
+def run_sampling(torch, run_serve, cfg, params, prompts, greedy):
+    """Phase 6e: sampled decode on full-width yi-9b (``greedy``: phase 4's
+    run), temperature 0.7, top-k 50, top-p 0.9, the 6 requests seeded:
+    a second run's tokens equal, bitwise, and the same launches as greedy
+    (the sampler is plain PyTorch); request 1 served alone (slot 0 of an
+    empty engine) equals its tokens co-batched in slot 1, bitwise; at
+    temperature 1e-4 the tokens equal phase 4's greedy tokens up to each
+    request's first step whose greedy logits tie exactly at the top (bf16
+    logits tie there; the sampler splits a tie at random, argmax takes the
+    first index), and such a step must be a tie; the sampler alone within
+    a total-variation bound of ``make_probs`` (``check_sampler_tv``)."""
+    seeds = [1000 + i for i in range(6)]
+    a = run_serve("sampled", cfg, params, prompts, seeds=seeds, **SAMPLING)
+    b = run_serve("sampled-again", cfg, params, prompts, seeds=seeds,
+                  **SAMPLING)
+    assert a["tokens"] == b["tokens"], "sampled run does not replay"
+    assert a["tokens"] != greedy["tokens"], "sampled == greedy"
+    assert a["launches"] == greedy["launches"], (a["launches"],
+                                                 greedy["launches"])
+    alone = serve_alone(torch, cfg, params, prompts[1], seeds[1], **SAMPLING)
+    assert alone == a["tokens"][1], ("seeded request depends on placement",
+                                     alone, a["tokens"][1])
+    print("serve sampled: a second run's tokens equal, bitwise; request 1 "
+          "alone (slot 0) == co-batched (slot 1), bitwise; launches == "
+          "greedy's", flush=True)
+    cold = run_serve("sampled-t1e-4", cfg, params, prompts,
+                     temperature=1e-4)
+    parted = []
+    for i, (got, want) in enumerate(zip(cold["tokens"], greedy["tokens"])):
+        if got != want:          # only at a step whose top logit is tied
+            first = next(j for j, (x, y) in enumerate(zip(got, want))
+                         if x != y)
+            ties = greedy_ties(torch, cfg, params, prompts[i], want)
+            assert ties[first], (i, first, got, want)
+            parted.append((i, first))
+    print(f"serve sampled-t1e-4: {6 - len(parted)} of 6 requests == phase "
+          f"4's greedy tokens, bitwise; (request, step) parting at an exact "
+          f"top tie of the greedy logits: {parted}", flush=True)
+    check_sampler_tv(torch, cfg, params, prompts, SAMPLING)
+
+
+def run_sampled_spec(torch, run_serve, cfg_ne, params, prompts):
+    """Phase 6f: sampled speculative decoding on yi-9b without its exits
+    (phase 6's config), the 6 requests seeded, at phase 6e's settings: a
+    tied draft on the paged engine accepts every proposal (p == q bitwise:
+    verify row i equals decode); the 2-layer draft (contiguous) replays
+    bitwise, and request 1 alone equals it co-batched, bitwise;
+    verify_decode(_paged) on every layer a round. Returns the runs."""
+    from repro_torch.serve.engine import SpecConfig
+
+    seeds = [2000 + i for i in range(6)]
+    nl = cfg_ne.num_layers
+    tied = run_serve("sampled-spec-tied-paged", cfg_ne, params, prompts,
+                     seeds=seeds, paged=True, page_size=16, num_pages=25,
+                     spec=SpecConfig(draft_arch=cfg_ne, k=3,
+                                     share_params=True), **SAMPLING)
+    assert tied["report"].stats["spec_acceptance"] == 1.0, \
+        tied["report"].stats
+    assert tied["launches"]["verify_decode_paged"] == nl * tied["steps"]
+    draft = dataclasses.replace(cfg_ne, name="yi-9b-draft-2l", num_layers=2)
+    spec = SpecConfig(draft_arch=draft, k=3, draft_seed=1)
+    runs = [run_serve(f"sampled-spec-draft2l-{i}", cfg_ne, params, prompts,
+                      seeds=seeds, spec=spec, **SAMPLING) for i in (1, 2)]
+    assert runs[0]["tokens"] == runs[1]["tokens"], "sampled spec differs"
+    assert runs[0]["launches"]["verify_decode"] == nl * runs[0]["steps"]
+    alone = serve_alone(torch, cfg_ne, params, prompts[1], seeds[1],
+                        spec=spec, **SAMPLING)
+    assert alone == runs[0]["tokens"][1], ("sampled spec depends on "
+                                           "placement", alone,
+                                           runs[0]["tokens"][1])
+    print(f"serve sampled spec: tied (paged) acceptance "
+          f"{tied['report'].stats['spec_acceptance']:.3f}; 2-layer draft "
+          f"replays bitwise, request 1 alone == co-batched, bitwise; "
+          f"acceptance {runs[0]['report'].stats['spec_acceptance']:.3f}",
+          flush=True)
 
 
 def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
@@ -2492,6 +2961,9 @@ def serve_deepseek(torch, run_serve, ds, dparams, t_start):
                                               chunk=8), dparams, ds_prompts)
     print("serve deepseek-contiguous: request 0 == generate, bitwise",
           flush=True)
+    # -- 8c. gated at threshold 2.0: MLA latents propagated ---------------
+    serve_gated(torch, run_serve, f"{ds.name}-gated-thr2", ds, dparams,
+                ds_prompts, mla)
 
     # -- 8b. the paged MLA engine: latent pages, 24 usable for 4 slots that
     #    could ask for 40; tokens equal the contiguous engine's, bitwise --
@@ -2697,7 +3169,7 @@ def zoo_launches(cfg, steps: int, prefills: int, paged: bool):
 
 
 def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
-            spec: tuple = ()):
+            spec: tuple = (), gated: bool = False):
     """Phases 12b-12h, one zoo arch served at full width and
     ``ZOO_LAYERS[name]`` layers (random weights from seed 0, bf16; the
     phases before freed theirs), from token ids (musicgen's and
@@ -2714,7 +3186,8 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
     decoding without the exit heads (tokens == plain greedy, bitwise;
     verify_decode(_paged) on every layer a round) for each of ``spec``:
     "tied-paged" (the target as its own draft, on the paged engine) and
-    "draft2l-contiguous" (a 2-layer draft of its own weights)."""
+    "draft2l-contiguous" (a 2-layer draft of its own weights). ``gated``:
+    the gated engine at an exit threshold of 2.0 too (``serve_gated``)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
@@ -2753,6 +3226,9 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
           f"launches exactly {want}", flush=True)
     profile_decode(torch, name, SlotEngine(cfg, capacity=4, max_len=160,
                                            chunk=8), params, prompts)
+    if gated:
+        serve_gated(torch, run_serve, f"{name}-gated-thr2", cfg, params,
+                    prompts, run)
 
     paged = run_serve(f"{name}-paged", cfg, params, prompts, paged=True,
                       page_size=16, num_pages=25)
@@ -3001,9 +3477,16 @@ def main() -> int:
     assert ref_toks[0].tolist() == plain["tokens"][0], (
         "engine tokens differ from generate", ref_toks[0].tolist(),
         plain["tokens"][0])
-    print("serve contiguous: request 0 == generate, bitwise", flush=True)
+    want = zoo_launches(cfg, plain["steps"], plain["prefills"], paged=False)
+    assert plain["launches"] == want, (plain["launches"], want)
+    print(f"serve contiguous: request 0 == generate, bitwise; launches "
+          f"exactly {want}", flush=True)
     profile_decode(torch, "yi-9b", SlotEngine(cfg, capacity=4, max_len=160,
                                                chunk=8), params, prompts)
+
+    # -- 4b. gated early-exit decode: thresholds -1, 2 and one among the
+    #    exit entropies; a skipped and a full step traced ----------------
+    run_gated_yi(torch, run_serve, cfg, params, prompts, plain)
 
     # -- 5. the paged engine: 24 usable pages for 4 slots that could ask
     #    for 40; tokens equal the contiguous engine's, bitwise -------------
@@ -3040,6 +3523,11 @@ def main() -> int:
           f"(contiguous) tokens == plain greedy, bitwise; acceptance tied "
           f"{tied['report'].stats['spec_acceptance']:.3f}, independent "
           f"{indep['report'].stats['spec_acceptance']:.3f}", flush=True)
+
+    # -- 6e-6f. sampled decode (temperature, top-k, top-p, seeded requests)
+    #    and sampled speculative decoding ----------------------------------
+    run_sampling(torch, run_serve, cfg, params, prompts, plain)
+    run_sampled_spec(torch, run_serve, cfg_ne, params, prompts)
 
     # -- 6b-6d. yi-9b on int8 weights (the bf16 weights still on the card):
     #    weight-only contiguous and paged, W8A8 contiguous ----------------
@@ -3118,7 +3606,10 @@ def main() -> int:
             ("chameleon-34b", dict(fp32_copy=False), ()),
             ("mistral-large-123b", dict(fp32_copy=False), ("tied-paged",))):
         torch.cuda.empty_cache()
-        run_zoo(torch, run_serve, t_start, name, prefill, spec)
+        # gated decode (phases 12e, 12g): chatglm3's QKV biases and half
+        # rotary, chameleon's K-norm in the propagated rows
+        run_zoo(torch, run_serve, t_start, name, prefill, spec,
+                gated=name in ("chatglm3-6b", "chameleon-34b"))
 
     # -- 13. the scalar fp32 flash instance is on no serving path ----------
     fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
@@ -3253,6 +3744,23 @@ def main() -> int:
                     replaces=f"src/repro/{tpu}",
                     launches=runs[run]["launches"][counter], **records[name])
                for name, (tpu, src, run, counter) in replaces.items()]
+    # forward_decode_gated's path (phases 4b, 8c, 12e, 12g): the kernels of
+    # a threshold-2.0 gated serve, every decode step skipped, with their
+    # launches there (prefills included)
+    gated_paths = {
+        "gemm": "gated-thr2", "rmsnorm": "gated-thr2",
+        "attention": "gated-thr2", "attn_decode": "gated-thr2",
+        "entropy_exit": "gated-thr2",
+        "attention_mla": "deepseek-v2-lite-16b-gated-thr2",
+        "attn_decode_mla": "deepseek-v2-lite-16b-gated-thr2",
+        "moe_decode": "deepseek-v2-lite-16b-gated-thr2",
+        "gemm_heads": "deepseek-v2-lite-16b-gated-thr2",
+        "attn_decode_g16": "chatglm3-6b-gated-thr2"}
+    for k in kernels:
+        if k["name"] in gated_paths:
+            run, counter = gated_paths[k["name"]], replaces[k["name"]][3]
+            k["paths"] = ["serve", "forward_decode_gated"]
+            k["gated_launches"] = runs[run]["launches"][counter]
     # the seizure evaluation's instances (phase 14's kernels run): the
     # transformer's attention and norms; both models' heads and exits
     seizure_kernels = {

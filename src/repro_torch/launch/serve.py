@@ -43,6 +43,23 @@ from target and draft (verification scores every position with full-model
 logits); ``--threshold`` is therefore rejected with ``--draft``.
 ``--draft`` is rejected for MLA archs and archs with recurrent layers, as
 in the JAX package.
+
+``--gated`` decodes through the gated early-exit path: on steps where
+every live slot exits, the layers past the exit are skipped and their KV
+filled by CALM propagation. It needs an attention-only arch with one exit
+and the contiguous engine, and is refused with ``--paged`` or ``--draft``;
+the JAX launcher turns ``--gated`` off on an arch with recurrent layers,
+this one refuses it. ``--threshold 2`` makes every step exit (the
+normalized entropy is at most 1), ``--threshold -1`` none.
+``--temperature`` / ``--top-k`` / ``--top-p`` sample (also under
+``--draft``: residual rejection sampling) through per-slot generators
+seeded from ``--sample-seed``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --device cpu --gated --threshold 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --device cpu --temperature 0.7 --top-k 50 --top-p 0.9 \
+        --sample-seed 1
 """
 from __future__ import annotations
 
@@ -82,6 +99,18 @@ def main(argv=None):
                     help="draft arch for greedy speculative decoding")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft proposals per speculative round (default 4)")
+    ap.add_argument("--gated", action="store_true",
+                    help="skip the layers past the exit on steps where "
+                         "every live slot exits (CALM KV propagation)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation for sampled decode (0 = full)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus (top-p) truncation for sampled decode "
+                         "(1.0 = full distribution)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="seed of the per-slot sampling generators")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -91,6 +120,15 @@ def main(argv=None):
     if not args.paged and (args.num_pages is not None
                            or args.page_size != 16):
         ap.error("--page-size/--num-pages require --paged")
+    if args.paged and args.gated:
+        ap.error("--paged cannot be combined with --gated: the gated "
+                 "early-exit decode path is not page-aware (as in the JAX "
+                 "package); drop one of the two flags")
+    if args.gated:
+        try:
+            lm.check_gated(get_arch(args.arch))
+        except ValueError as e:
+            ap.error(f"--gated: {e}")
     if get_arch(args.arch).mla is not None and args.draft:
         ap.error(f"--arch {args.arch} is an MLA arch: speculative decoding "
                  f"needs a GQA target (verify is not defined for MLA, as "
@@ -108,6 +146,10 @@ def main(argv=None):
         if get_arch(args.arch).recurrent or get_arch(args.draft).recurrent:
             ap.error(f"--draft: speculative decoding needs all-attention "
                      f"target and draft archs: {lm.SPEC_RECURRENT}")
+        if args.gated:
+            ap.error("--draft cannot be combined with --gated: verification "
+                     "scores every position with the full model, so there "
+                     "is no exit to gate on")
         if args.threshold is not None:
             ap.error("--draft cannot be combined with --threshold: "
                      "speculative serving strips the target's early-exit "
@@ -139,7 +181,9 @@ def main(argv=None):
                         max_len=args.max_len, chunk=args.chunk,
                         device=args.device, paged=args.paged,
                         page_size=args.page_size, num_pages=args.num_pages,
-                        spec=spec)
+                        spec=spec, gated=args.gated,
+                        temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, sample_seed=args.sample_seed)
     report = serve(engine, params, requests, realtime=args.rate > 0)
 
     lat = report.latency_percentiles()
@@ -148,7 +192,8 @@ def main(argv=None):
     print(f"arch={cfg.name} capacity={args.capacity} "
           f"requests={args.requests} rate={args.rate or 'inf'}/s "
           f"device={engine.device} paged={engine.paged} "
-          f"spec_k={engine.spec_k}")
+          f"spec_k={engine.spec_k} gated={engine.gated} "
+          f"temperature={engine.temperature}")
     print(f"  throughput: {report.decode_tokens} tokens in "
           f"{report.wall_s:.2f}s = {report.tokens_per_s:.1f} tok/s "
           f"(decode chunks run: {engine.decode_calls})")

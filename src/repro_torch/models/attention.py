@@ -98,28 +98,41 @@ def reset_slot(cache, slot: int):
     return cache
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
-                 positions: torch.Tensor):
+def _project_kv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                positions: torch.Tensor):
+    """K and V [B, Hkv, T, D] of x [B, T, d]: biases, the K-norm and
+    rotary as the layer applies them."""
     b, t, _ = x.shape
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = xaif.call("gemm", policy, x, params["wq"], bias=params.get("bq"))
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
     k = xaif.call("gemm", policy, x, params["wk"], bias=params.get("bk"))
     v = xaif.call("gemm", policy, x, params["wv"], bias=params.get("bv"))
-    q, k = q.reshape(b, t, hq, dh), k.reshape(b, t, hkv, dh)
+    k = k.reshape(b, t, hkv, dh)
     if cfg.qk_norm:
         # over the head dim, before rotary (as JAX); normalised as [B, T,
         # H, D], where a head's D values are a contiguous row, as the
         # rmsnorm kernel takes them
-        q = rmsnorm(params["q_norm"], q, policy, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, policy, cfg.norm_eps)
-    q = q.transpose(1, 2)                                 # [B, Hq, T, D]
-    k = k.transpose(1, 2)
+    k = k.transpose(1, 2)                                 # [B, Hkv, T, D]
     v = v.reshape(b, t, hkv, dh).transpose(1, 2)
     rd = rope_dims(cfg)
     if rd != 0:
-        q = apply_rope(q, positions, cfg.rope_theta, rd)
         k = apply_rope(k, positions, cfg.rope_theta, rd)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return k.contiguous(), v.contiguous()
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                 positions: torch.Tensor):
+    b, t, _ = x.shape
+    q = xaif.call("gemm", policy, x, params["wq"], bias=params.get("bq"))
+    k, v = _project_kv(params, x, cfg, policy, positions)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, policy, cfg.norm_eps)
+    q = q.transpose(1, 2)                                 # [B, Hq, T, D]
+    rd = rope_dims(cfg)
+    if rd != 0:
+        q = apply_rope(q, positions, cfg.rope_theta, rd)
+    return q.contiguous(), k, v
 
 
 def apply_attention_prefill(params, x: torch.Tensor, cfg: ArchConfig,
@@ -494,3 +507,29 @@ def apply_mla_decode_paged(params, x: torch.Tensor, cfg: ArchConfig,
                        q2=q_rope, k2_pages=state.k_rope_pages[:, None],
                        precise=True)                     # [B, H, r]
     return _mla_decode_out(params, pooled, x, cfg, policy), state
+
+
+# ---------------------------------------------------------------------------
+# CALM state propagation (gated early-exit decode)
+# ---------------------------------------------------------------------------
+
+
+def propagate_kv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
+                 cache, cache_pos: torch.Tensor):
+    """Write one token's cache row of a layer the gated decode skips, in
+    place, without attending: x [B, 1, d] is the layer's normed input (the
+    exit hidden state through its ``ln1``). GQA: only the K and V
+    projections (biases, K-norm and rotary as in decode) into ``KVCache``
+    rows ``[b, :, cache_pos[b]]``; MLA: the latent and the rotary key into
+    ``MLACache`` rows ``[b, cache_pos[b]]``."""
+    bidx = torch.arange(x.shape[0], device=x.device)
+    pos = cache_pos.long()
+    if cfg.mla is not None:
+        c_new, kr_new = _mla_latent(params, x, cfg, policy, cache_pos[:, None])
+        cache.c_kv[bidx, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[bidx, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+        return cache
+    k, v = _project_kv(params, x, cfg, policy, cache_pos[:, None])
+    cache.k[bidx, :, pos] = k[:, :, 0]
+    cache.v[bidx, :, pos] = v[:, :, 0]
+    return cache

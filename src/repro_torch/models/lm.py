@@ -28,6 +28,10 @@ for K and V or ``[La, P, ps, r]`` / ``[La, P, ps, rd]`` for MLA, behind one
 state. An arch with no attention layer has no attention tensors and no
 pools at all. ``cache.layer(i)`` is layer i's view, read and written in
 place.
+
+``forward_decode_gated`` (attention-only archs with one exit, contiguous
+cache) skips the layers past the exit when every live row exits there,
+filling their cache rows by CALM propagation from the exit hidden state.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.core import xaif
 from repro_torch.core.device import resolve_device
-from repro_torch.core.early_exit import apply_exit_head, init_exit_head
+from repro_torch.core.early_exit import (apply_exit_head, init_exit_head,
+                                         should_exit)
 from repro_torch.kernels.gemm.ref import WeightQ
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
@@ -58,6 +63,17 @@ def _check_attention_only(cfg: ArchConfig, what: str, why: str) -> None:
     if cfg.recurrent:
         raise ValueError(f"{cfg.name}: {what} is not ported for archs with "
                          f"recurrent (Mamba or xLSTM) layers: {why}")
+
+
+def check_gated(cfg: ArchConfig) -> None:
+    """Raise ValueError unless gated decode is defined for ``cfg``: one
+    exit head and attention layers only, as the JAX package asserts."""
+    ee = cfg.early_exit
+    if ee is None or len(ee.exit_layers) != 1 or cfg.recurrent:
+        raise ValueError(f"{cfg.name}: gated decode needs an attention-only "
+                         f"arch with exactly one exit head (a Mamba or "
+                         f"xLSTM state cannot be propagated from the exit's "
+                         f"hidden state)")
 
 
 def _check_gqa(cfg: ArchConfig, what: str) -> None:
@@ -608,3 +624,60 @@ def forward_verify(params, tokens: torch.Tensor, cfg: ArchConfig,
     x = _run_layers(params, x, range(cfg.num_layers), cfg, policy, cache,
                     "verify", cache.pos, page_table)
     return _head(params, x, cfg, policy), cache
+
+
+def _kv_propagate_layer(p, x_exit: torch.Tensor, cfg: ArchConfig,
+                        policy: str, state, cache_pos: torch.Tensor) -> None:
+    """CALM state propagation for one skipped attention layer: ``ln1`` of
+    the exit hidden state, then only the K/V projections (MLA: the latent
+    and the rotary key), written in place at ``cache_pos``. No scores, no
+    output projection, no FFN: 2 of a dense GQA layer's 7 GEMMs."""
+    h = rmsnorm(p["ln1"], x_exit, policy, cfg.norm_eps)
+    attn.propagate_kv(p["mixer"], h, cfg, policy, state, cache_pos)
+
+
+def forward_decode_gated(params, tokens: torch.Tensor, cfg: ArchConfig,
+                         policy: str, cache: LMCache,
+                         live: Optional[torch.Tensor] = None):
+    """Early-exit decode that skips the layers past the (single) exit.
+
+    Runs the layers up to the exit head, takes the entropy decision
+    (``entropy_exit``) and, when every LIVE row exits, skips the remaining
+    layers: their K/V rows (MLA: latents) are filled by CALM propagation
+    from the exit hidden state (``_kv_propagate_layer``), so later steps
+    attend a full cache, and the exit logits are returned. Otherwise the
+    remaining layers and the final head run for every row, and exited rows
+    take their exit logits. ``live`` [B] bool (optional): dead slots never
+    veto the skip and are masked out of MoE routing, as in
+    ``forward_decode``.
+
+    The JAX package branches on the device (``lax.cond``). Here the branch
+    reads ``gate.all()`` on the host: one synchronization a gated step.
+    That read is this function's alone; ``forward_decode`` reads nothing
+    on the host, so the ungated step can be captured whole.
+
+    Contiguous cache only (the JAX package's gated path is not page-aware
+    either). Returns (logits [B, V], exit_mask [B], cache with pos + 1)."""
+    check_gated(cfg)
+    if not isinstance(cache, LMCache):
+        raise ValueError("gated decode is not page-aware: it takes a "
+                         "contiguous LMCache")
+    el, nl = cfg.early_exit.exit_layers[0], cfg.num_layers
+    x = _embed(params, tokens, cfg)
+    run = dict(cfg=cfg, policy=policy, cache=cache, mode="decode",
+               cache_pos=cache.pos, live=live)
+    x = _run_layers(params, x, range(el), **run)
+    exit_lg = _exit_logits(params, x, 0, cfg, policy)[:, 0]
+    exit_mask, _ = should_exit(exit_lg, cfg.early_exit.entropy_threshold,
+                               policy)
+    gate = exit_mask if live is None else exit_mask | ~live
+    if bool(gate.all()):            # skip: propagate, keep the exit logits
+        for i in range(el, nl):
+            _kv_propagate_layer(_layer(params, cfg, i), x, cfg, policy,
+                                cache.layer(i), cache.pos)
+        logits = exit_lg
+    else:
+        x = _run_layers(params, x, range(el, nl), **run)
+        logits = torch.where(exit_mask[:, None], exit_lg,
+                             _head(params, x, cfg, policy)[:, 0])
+    return logits, exit_mask, cache._replace(pos=cache.pos + 1)

@@ -1,5 +1,5 @@
-"""Serving engines (port of ``repro.serve.engine``, greedy mode): the
-slot-based continuous-batching engine and the one-request reference loop
+"""Serving engines (port of ``repro.serve.engine``): the slot-based
+continuous-batching engine and the one-request reference loop
 ``generate``.
 
   * The cache's batch dimension is a fixed set of SLOTS (``capacity``). A
@@ -21,21 +21,31 @@ slot-based continuous-batching engine and the one-request reference loop
     between chunks (``serve/paging.py``). Recurrent state stays
     slot-indexed; an arch with no attention layer (xLSTM) keeps no pool,
     and the host still accounts its pages.
-  * Greedy speculative decoding (``spec=SpecConfig(...)``): per round a
-    draft model proposes ``k`` tokens per slot, ONE target
-    ``forward_verify`` scores all of them, and each slot accepts a
-    variable-length prefix.
+  * Speculative decoding (``spec=SpecConfig(...)``): per round a draft
+    model proposes ``k`` tokens per slot, ONE target ``forward_verify``
+    scores all of them, and each slot accepts a variable-length prefix
+    (greedy: proposals equal to the target's argmax; sampled: residual
+    rejection sampling, ``spec_accept``).
+  * Gated early-exit decode (``gated=True``): ``lm.forward_decode_gated``
+    skips the layers past the exit on steps where every live slot exits.
+  * Sampling (``temperature > 0``, optional ``top_k`` / ``top_p``):
+    ``make_sampler`` / ``make_probs``, drawn with Gumbel noise from one
+    ``torch.Generator`` per slot (``DecodeState.rng``), seeded from
+    ``(sample_seed, slot)`` or, at admission, from the request's own
+    ``seed``; never from the global generator. Greedy touches none.
 
 Every step runs the same kernels on the same per-row data whatever the
 other slots hold (per-slot cache positions; the GEMM reduces each row in
 one fixed order), so the engine's greedy tokens equal ``generate``'s, the
 paged engine's equal the contiguous engine's (when ``page_size`` divides
-``max_len``), and speculative tokens equal plain greedy tokens.
+``max_len``), and speculative tokens equal plain greedy tokens. A seeded
+sampled request draws from its own generator only, so it replays its
+tokens whatever slot it lands in and whoever shares the batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,10 +71,14 @@ def _select(logits, exit_lgs, cfg: ArchConfig, policy: str):
 @torch.inference_mode()
 def generate(run: Union[RunConfig, ArchConfig], params, prompt,
              max_new_tokens: int, max_len: Optional[int] = None,
-             device="cuda") -> Tuple[torch.Tensor, Dict[str, float]]:
+             device="cuda", gated: bool = False
+             ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Greedy generation, one prompt batch at a time (the REFERENCE loop).
-    prompt [B, T] ints. Returns (tokens [B, max_new_tokens], stats);
-    statistics stay on the device until one fetch at the end."""
+    prompt [B, T] ints. ``gated``: decode through
+    ``lm.forward_decode_gated`` (``exit_rate`` is then the mean of its exit
+    mask and ``gated_fraction`` stays 0, as in the JAX loop). Returns
+    (tokens [B, max_new_tokens], stats); statistics stay on the device
+    until one fetch at the end."""
     run = _as_run(run)
     cfg, policy = run.arch, run.policy
     device = resolve_device(device)
@@ -75,19 +89,25 @@ def generate(run: Union[RunConfig, ArchConfig], params, prompt,
     logits, cache = lm.forward_prefill(params, prompt, cfg, policy, cache)
     tok = logits.argmax(-1).to(torch.int32)
     out = [tok]
-    exit_rate, gated = [], []
+    exit_rate, gated_frac = [], []
     for _ in range(max_new_tokens - 1):
-        logits, exit_lgs, cache = lm.forward_decode(params, tok[:, None], cfg,
-                                                    policy, cache)
-        logits, exit_idx = _select(logits, exit_lgs, cfg, policy)
-        if exit_idx is not None:
-            exit_rate.append((exit_idx < len(exit_lgs)).float().mean())
-            gated.append(gated_layer_fraction(
-                exit_idx, cfg.early_exit.exit_layers, cfg.num_layers))
+        if gated:
+            logits, exit_mask, cache = lm.forward_decode_gated(
+                params, tok[:, None], cfg, policy, cache)
+            exit_rate.append(exit_mask.float().mean())
+        else:
+            logits, exit_lgs, cache = lm.forward_decode(
+                params, tok[:, None], cfg, policy, cache)
+            logits, exit_idx = _select(logits, exit_lgs, cfg, policy)
+            if exit_idx is not None:
+                exit_rate.append((exit_idx < len(exit_lgs)).float().mean())
+                gated_frac.append(gated_layer_fraction(
+                    exit_idx, cfg.early_exit.exit_layers, cfg.num_layers))
         tok = logits.argmax(-1).to(torch.int32)
         out.append(tok)
     stats = {k: (float(torch.stack(v).mean()) if v else 0.0)
-             for k, v in (("exit_rate", exit_rate), ("gated_fraction", gated))}
+             for k, v in (("exit_rate", exit_rate),
+                          ("gated_fraction", gated_frac))}
     return torch.stack(out, dim=1), stats
 
 
@@ -117,9 +137,14 @@ class DecodeState(NamedTuple):
     realized: torch.Tensor     # f32 — tokens emitted by decode chunks
     spec_prop: torch.Tensor    # f32 — draft tokens proposed (spec decode)
     spec_acc: torch.Tensor     # f32 — draft tokens accepted (spec decode)
+    # one generator per slot on the engine's device (sampling only; None
+    # on a greedy engine); admission replaces a slot's for a seeded request
+    rng: Optional[List[torch.Generator]] = None
 
 
-def init_decode_state(capacity: int, device) -> DecodeState:
+def init_decode_state(capacity: int, device,
+                      rng: Optional[List[torch.Generator]] = None
+                      ) -> DecodeState:
     def z():
         return torch.zeros((), dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -130,25 +155,123 @@ def init_decode_state(capacity: int, device) -> DecodeState:
         budget=torch.zeros(capacity, **i32),
         exit_cnt=z(), gated_layers=z(), live_cnt=z(),
         quarantined=torch.zeros(capacity, dtype=torch.bool, device=device),
-        realized=z(), spec_prop=z(), spec_acc=z())
+        realized=z(), spec_prop=z(), spec_acc=z(), rng=rng)
 
 
 @dataclasses.dataclass(frozen=True)
 class SpecConfig:
-    """Greedy speculative decoding for :class:`SlotEngine`.
+    """Speculative decoding for :class:`SlotEngine`.
 
     ``draft_arch`` (registry name or :class:`ArchConfig`) proposes ``k``
     tokens per live slot per round; the target scores all of them in ONE
-    ``forward_verify`` and accepts a per-slot prefix. Acceptance compares
-    proposals with the target's own argmax rows, so the output equals
-    plain greedy decoding whatever the draft: draft quality moves
-    throughput only. ``share_params=True`` runs the draft with the
-    target's weights (``draft_arch`` must equal the target arch): every
-    proposal is accepted."""
+    ``forward_verify`` and accepts a per-slot prefix. Greedy acceptance
+    compares proposals with the target's own argmax rows, so the output
+    equals plain greedy decoding whatever the draft: draft quality moves
+    throughput only; sampled acceptance (``spec_accept``) keeps every
+    emitted token distributed as the target's sampler. ``share_params=True``
+    runs the draft with the target's weights (``draft_arch`` must equal the
+    target arch): every proposal is accepted."""
     draft_arch: object                   # registry name or ArchConfig
     k: int = 4                           # proposals per round
     draft_seed: int = 0                  # draft init_lm seed
     share_params: bool = False           # tied self-draft
+
+
+# ---------------------------------------------------------------------------
+# Sampling: temperature, top-k, top-p; Gumbel noise from per-slot generators
+# ---------------------------------------------------------------------------
+
+
+def _truncated(logits: torch.Tensor, temperature: float, top_k: int,
+               top_p: float) -> torch.Tensor:
+    """fp32 logits [..., V] of the sampled distribution, in JAX's order:
+    scaled by 1 / temperature (a true division), then top-k (keep
+    ``lg >= the k-th largest``: ties at the k-th are kept), then the top-p
+    nucleus (keep a token whose preceding mass in descending order is <
+    ``top_p``: the top-1 always survives); the rest -inf. Computed on the
+    rows flattened to 2-D, so a row's bits come from the same ops whatever
+    its batch."""
+    shape = logits.shape
+    lg = logits.reshape(-1, shape[-1]).float()
+    lg = lg / lg.new_full((), temperature)
+    if top_k > 0:
+        kth = torch.topk(lg, min(top_k, lg.shape[-1]), dim=-1).values[:, -1:]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    if 0.0 < top_p < 1.0:
+        srt, order = torch.sort(lg, dim=-1, descending=True, stable=True)
+        p = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(p, dim=-1) - p) < top_p
+        lg = torch.full_like(lg, float("-inf")).scatter(
+            -1, order, srt.masked_fill(~keep, float("-inf")))
+    return lg.reshape(shape)
+
+
+def make_probs(temperature: float, top_k: int = 0, top_p: float = 1.0
+               ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """probs(logits [..., V]) -> fp32 [..., V]: the distribution
+    :func:`make_sampler` draws from, as densities (sampled speculative
+    decoding needs p and q themselves). None for greedy (temperature 0)."""
+    if temperature <= 0.0:
+        return None
+    return lambda logits: torch.softmax(
+        _truncated(logits, temperature, top_k, top_p), dim=-1)
+
+
+def make_sampler(temperature: float, top_k: int = 0, top_p: float = 1.0
+                 ) -> Optional[Callable[[torch.Tensor, torch.Tensor],
+                                        torch.Tensor]]:
+    """sample(logits [..., V], noise [..., V]) -> int32 [...]: the argmax
+    of the truncated logits plus standard Gumbel ``noise``, as
+    ``jax.random.categorical`` draws. None for greedy (temperature 0): the
+    caller keeps the exact argmax path."""
+    if temperature <= 0.0:
+        return None
+    return lambda logits, noise: (_truncated(logits, temperature, top_k,
+                                             top_p) + noise).argmax(-1).to(
+                                                 torch.int32)
+
+
+def _generator(device, *entropy: int) -> torch.Generator:
+    """A generator on ``device`` seeded from non-negative ints (numpy's
+    SeedSequence mixes them into one 64-bit seed)."""
+    seed = int(np.random.SeedSequence(entropy).generate_state(1,
+                                                              np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def gumbel_noise(gens: List[torch.Generator], shape, device) -> torch.Tensor:
+    """[len(gens), *shape] fp32 standard Gumbel noise, row s drawn from
+    ``gens[s]`` alone (one draw a generator, as JAX's ``-log(-log(u))``
+    with u in [tiny, 1))."""
+    u = torch.stack([torch.rand(*shape, generator=g, device=device)
+                     for g in gens])
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def spec_accept(p: torch.Tensor, q: torch.Tensor, drafts: torch.Tensor,
+                uniforms: torch.Tensor, noise: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Residual rejection sampling of one speculative round, a pure
+    function. p [S, k + 1, V]: the target's probabilities at the verify
+    rows; q [S, k, V]: the draft's at its proposals; drafts [S, k]; u
+    ``uniforms`` [S, k] in [0, 1); Gumbel ``noise`` [S, k + 1, V].
+
+    Proposal d_j is accepted iff u_j * q_j(d_j) < p_j(d_j); row j's
+    correction is drawn from the residual (p_j - q_j)+, or from p_j itself
+    when the residual's mass is <= 1e-9; the bonus after k acceptances from
+    p_k. Returns (accept [S, k] bool, emit [S, k + 1] int32: the draft
+    where accepted, else the correction; the bonus last)."""
+    k = drafts.shape[1]
+    idx = drafts.long()[..., None]
+    pd = p[:, :k].gather(2, idx)[..., 0]
+    qd = q.gather(2, idx)[..., 0]
+    acc = uniforms * qd < pd
+    resid = (p[:, :k] - q).clamp_min(0.0)
+    resid = torch.where(resid.sum(-1, keepdim=True) > 1e-9, resid, p[:, :k])
+    corr = (torch.log(resid) + noise[:, :k]).argmax(-1).to(torch.int32)
+    bonus = (torch.log(p[:, k]) + noise[:, k]).argmax(-1).to(torch.int32)
+    emit = torch.cat([torch.where(acc, drafts, corr), bonus[:, None]], dim=1)
+    return acc, emit
 
 
 class SlotEngine:
@@ -175,24 +298,48 @@ class SlotEngine:
     pages: admission and page accounting run as in JAX. An exact-length
     prefill books ceil(prompt / page_size) pages.
 
-    ``spec``: greedy speculative decoding. The target may carry no exit
-    heads (verification scores every position with full-model logits) and
-    the draft must share its vocabulary; both must be GQA archs (the JAX
+    ``spec``: speculative decoding. The target may carry no exit heads
+    (verification scores every position with full-model logits) and the
+    draft must share its vocabulary; both must be GQA archs (the JAX
     package refuses verify for MLA) without recurrent layers (JAX refuses
-    those too). Sampling (``temperature > 0``) is not ported.
+    those too).
+
+    ``gated``: decode through ``lm.forward_decode_gated`` (attention-only
+    archs with one exit; contiguous engine, no ``spec``, as in JAX). It
+    reads one boolean on the host a step, which the ungated step never
+    does.
+
+    ``temperature`` / ``top_k`` / ``top_p`` / ``sample_seed``: sampled
+    decode (and sampled speculative decoding) through per-slot generators
+    seeded from ``(sample_seed, slot)``; ``prefill_into(..., seed=)``
+    gives a request a generator of its own. A slot's generator draws once
+    a step (a round under ``spec``) while the chunk runs, live or not: the
+    host does not read which slots finished mid-chunk. Temperature 0 is
+    greedy and creates no generator.
     """
 
     def __init__(self, run: Union[RunConfig, ArchConfig], capacity: int,
                  max_len: int, chunk: int = 8, prompt_bucket: int = 16,
                  device="cuda", paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
-                 spec: Optional[SpecConfig] = None,
-                 temperature: float = 0.0):
+                 spec: Optional[SpecConfig] = None, gated: bool = False,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, sample_seed: int = 0):
         self.run = _as_run(run)
         cfg = self.run.arch
-        if temperature > 0.0:
-            raise NotImplementedError("sampling (temperature > 0) is not "
-                                      "ported yet; the engine is greedy")
+        if gated:
+            lm.check_gated(cfg)
+            if paged:
+                raise ValueError("gated decode is not page-aware (as in the "
+                                 "JAX package): use the contiguous engine")
+            if spec is not None:
+                raise ValueError("speculative decoding is incompatible with "
+                                 "gated decode: verification runs the full "
+                                 "depth, there is no exit to gate on")
+        self.gated = gated
+        self.temperature, self.sample_seed = temperature, sample_seed
+        self._sampler = make_sampler(temperature, top_k, top_p)
+        self._probs = make_probs(temperature, top_k, top_p)
         self.spec = spec
         self.draft_cfg: Optional[ArchConfig] = None
         if spec is not None:
@@ -278,7 +425,10 @@ class SlotEngine:
         else:
             cache = lm.init_cache(cfg, self.capacity, self.max_len,
                                   device=self.device)
-        return cache, init_decode_state(self.capacity, self.device)
+        rng = (None if self._sampler is None else
+               [_generator(self.device, self.sample_seed, slot)
+                for slot in range(self.capacity)])
+        return cache, init_decode_state(self.capacity, self.device, rng)
 
     @property
     def tokens_per_chunk(self) -> int:
@@ -294,13 +444,16 @@ class SlotEngine:
 
     @torch.inference_mode()
     def prefill_into(self, params, cache, st: DecodeState, prompt, slot: int,
-                     max_new: int, page_ids=None):
+                     max_new: int, page_ids=None, seed: Optional[int] = None):
         """Admit one request: bucketed batch-1 prefill into ``slot``.
         prompt: 1-D ints. A paged engine also takes the host-allocated
         ``page_ids`` (one per bucket page, in position order): the
-        contiguous prefill's KV is scattered into them. ``cache`` and ``st``
-        are updated in place. Returns (cache, st, first_token) with the
-        token on the device."""
+        contiguous prefill's KV is scattered into them. ``seed`` (a
+        non-negative int; sampled engines only, greedy ignores it): the
+        slot's generator is replaced by one seeded from it, so the request
+        draws the same tokens whatever slot it lands in. ``cache`` and
+        ``st`` are updated in place. Returns (cache, st, first_token) with
+        the token on the device."""
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
         t = int(prompt.shape[0])
         if t + max_new > self.max_len:
@@ -328,7 +481,14 @@ class SlotEngine:
                                ids.to(self.device))
         else:
             lm.fill_slot(cache, slot_cache, slot, t)
-        tok0 = logits[0].argmax(-1).to(torch.int32)
+        if self._sampler is None:
+            tok0 = logits[0].argmax(-1).to(torch.int32)
+        else:
+            if seed is not None:
+                st.rng[slot] = _generator(self.device, seed)
+            noise = gumbel_noise([st.rng[slot]], logits.shape[-1:],
+                                 self.device)
+            tok0 = self._sampler(logits, noise)[0]
         st.tokens[slot] = tok0
         st.done[slot] = max_new <= 1
         st.generated[slot] = 1
@@ -408,16 +568,30 @@ class SlotEngine:
     def _step(self, params, cache, st: DecodeState):
         cfg, policy = self.run.arch, self.run.policy
         live = ~st.done
-        logits, exit_lgs, new_cache = lm.forward_decode(
-            params, st.tokens[:, None], cfg, policy, cache, live=live)
-        logits, exit_idx = _select(logits, exit_lgs, cfg, policy)
-        if exit_idx is not None:
-            exited = exit_idx < len(exit_lgs)
-            gated_frac = 1.0 - self._bounds[exit_idx.long()] / cfg.num_layers
+        if self.gated:
+            logits, exited, new_cache = lm.forward_decode_gated(
+                params, st.tokens[:, None], cfg, policy, cache, live=live)
+            # gated compute is credited only where the skip ran (every live
+            # slot exited); otherwise the full depth ran and nothing saved
+            skipped = (exited | ~live).all()
+            saved = 1.0 - cfg.early_exit.exit_layers[0] / cfg.num_layers
+            gated_frac = torch.where(exited & skipped, saved, 0.0)
         else:
-            exited = torch.zeros_like(st.done)
-            gated_frac = torch.zeros(st.done.shape, device=self.device)
-        next_tok = logits.argmax(-1).to(torch.int32)
+            logits, exit_lgs, new_cache = lm.forward_decode(
+                params, st.tokens[:, None], cfg, policy, cache, live=live)
+            logits, exit_idx = _select(logits, exit_lgs, cfg, policy)
+            if exit_idx is not None:
+                exited = exit_idx < len(exit_lgs)
+                gated_frac = (1.0 - self._bounds[exit_idx.long()]
+                              / cfg.num_layers)
+            else:
+                exited = torch.zeros_like(st.done)
+                gated_frac = torch.zeros(st.done.shape, device=self.device)
+        if self._sampler is None:
+            next_tok = logits.argmax(-1).to(torch.int32)
+        else:
+            next_tok = self._sampler(logits, gumbel_noise(
+                st.rng, logits.shape[-1:], self.device))
         # NaN/Inf logit guard: a live slot whose logits went non-finite is
         # frozen, marked done and flagged — only that slot: rows never read
         # each other's KV, so co-batched requests are untouched
@@ -443,19 +617,28 @@ class SlotEngine:
 
     def _spec_round(self, params, dparams, cache, dcache: lm.LMCache,
                     st: DecodeState):
-        """One greedy speculative round over all slots. Returns (cache,
-        dcache, st, emit [S, k + 1], n_real [S]): slot s emitted the first
-        n_real[s] entries of its emit row."""
+        """One speculative round over all slots, greedy or sampled. Returns
+        (cache, dcache, st, emit [S, k + 1], n_real [S]): slot s emitted the
+        first n_real[s] entries of its emit row."""
         cfg, dcfg, policy, k = (self.run.arch, self.draft_cfg,
                                 self.run.policy, self.spec_k)
         live = ~st.done
+        if self._sampler is not None:
+            # each slot's draws of the round from its own generator, in one
+            # order: Gumbel noise for the k proposals and the k + 1
+            # correction / bonus rows, then the k acceptance uniforms
+            noise = gumbel_noise(st.rng, (2 * k + 1, cfg.vocab_size),
+                                 self.device)
+            uniforms = torch.stack([torch.rand(k, generator=g,
+                                               device=self.device)
+                                    for g in st.rng])
         # the draft's positions are re-synced to the target's every round,
         # so a stale draft row can only lower acceptance, never the output.
         # k proposals from the last emitted token, then ONE more step that
         # only ingests d_k's KV: a fully accepted round moves the target
         # past d_k, and the next round's proposals must see its row
         dc = dcache._replace(pos=cache.pos)
-        cur, props = st.tokens, []
+        cur, props, qs = st.tokens, [], []
         for j in range(k + 1):
             dlg, _, dc = lm.forward_decode(dparams, cur[:, None], dcfg,
                                            policy, dc, with_exits=False)
@@ -463,15 +646,25 @@ class SlotEngine:
                 break
             dlg = dlg.float()
             dlg = torch.where(torch.isfinite(dlg), dlg, -1e30)
-            cur = dlg.argmax(-1).to(torch.int32)
+            if self._sampler is None:
+                cur = dlg.argmax(-1).to(torch.int32)
+            else:
+                qs.append(self._probs(dlg))
+                cur = (torch.log(qs[-1]) + noise[:, j]).argmax(-1).to(
+                    torch.int32)
             props.append(cur)
         dmat = torch.stack(props, dim=1)                     # [S, k]
         vtok = torch.cat([st.tokens[:, None], dmat], dim=1)  # [S, k + 1]
         vlg, cache = lm.forward_verify(params, vtok, cfg, policy, cache)
         vlg = vlg.float()
         finite = torch.isfinite(vlg).all(dim=-1)             # [S, k + 1]
-        emit = vlg.argmax(-1).to(torch.int32)
-        acc = finite[:, :k] & (dmat == emit[:, :k])
+        if self._sampler is None:
+            emit = vlg.argmax(-1).to(torch.int32)
+            acc = dmat == emit[:, :k]
+        else:
+            acc, emit = spec_accept(self._probs(vlg), torch.stack(qs, dim=1),
+                                    dmat, uniforms, noise[:, k:])
+        acc = finite[:, :k] & acc
         # a consecutive accepts, then one correction / bonus row (emitted
         # only if its logits are finite), clipped to the budget
         a = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1,

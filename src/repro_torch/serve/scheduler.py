@@ -34,6 +34,9 @@ class Request:
     prompt: np.ndarray                 # [t] int32
     max_new_tokens: int
     arrival: float = 0.0               # seconds from stream start
+    # optional per-request sample seed: a seeded request replays the same
+    # tokens whatever slot it lands in (sampled engines; greedy ignores it)
+    seed: Optional[int] = None
 
     # lifecycle (filled by the scheduler)
     t_admitted: Optional[float] = None
@@ -167,7 +170,7 @@ class SlotScheduler:
         # set and reach the device before the next chunk)
         self.cache, self.state, tok0 = self.engine.prefill_into(
             self.params, self.cache, self.state, req.prompt, slot,
-            req.max_new_tokens, page_ids=page_ids)
+            req.max_new_tokens, page_ids=page_ids, seed=req.seed)
         tok_i = int(tok0)                            # host sync: prefill done
         t_tok = max(self._now(now), req.arrival)
         req.t_admitted = now

@@ -260,9 +260,13 @@ def test_engine_rejects_bad_spec_configs(world):
     with pytest.raises(ValueError, match="early-exit"):
         SlotEngine(exits, spec=SpecConfig(draft_arch=exits, k=2,
                                           share_params=True), **kw)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        SlotEngine(pcfg, spec=SpecConfig(draft_arch=pcfg, k=2),
-                   temperature=0.7, **kw)
+    # sampling is no bad config: the sampled spec engine constructs and
+    # serves every request its budget
+    sampled = SlotEngine(pcfg, spec=SpecConfig(draft_arch=pcfg, k=2),
+                         temperature=0.7, **kw)
+    reqs = _requests(poisson_requests)
+    assert len(serve(sampled, pp, reqs).served) == len(reqs)
+    assert all(len(r.tokens) == r.max_new_tokens for r in reqs)
 
 
 def test_set_draft_params_validates(world):
