@@ -33,6 +33,24 @@ Phases (any failure raises; nothing is caught):
   5. the same 6 requests through the paged engine (page size 16, a pool
      of 24 usable pages, fewer than the slots could ask for): tokens equal
      phase 4's per request, bitwise, with no contiguous decode launch;
+  5b. prefix sharing (``SlotEngine(paged=True, prefix_sharing=True)``): 8
+     requests, 6 sharing a 64-token prefix and 2 a 70-token stem that
+     part inside a page (``sharing_prompts``), served without sharing and
+     then with it, twice on phase 5's pool (the second replays bitwise)
+     and once on a pool just above the working set (index pages
+     evicted). Every fork-point admission (``SharingProbe``,
+     ``check_admissions``): the shared pages' bytes untouched, the COW
+     rows == the donor's and the donor untouched, layer 0's suffix K/V ==
+     the unshared prefill's, bitwise; launches exactly gemm 337 and
+     rmsnorm 97, no flash (``shared_prefill_launches``); first-token
+     logits within rel L2 5e-2 of the unshared prefill's and no further
+     from fp32; at least 5 fork-point admissions, fewer prefill tokens;
+     tokens == the unshared run's up to a near tie (``near_tie_parts``).
+     A 128-token prompt as a 64-token ``prefill_chunk`` and a shared 64
+     (``run_chunked``: layer-0 K/V of every position == the full
+     prefill's, bitwise; 24 decoded tokens == ``generate`` up to a near
+     tie); one fork-point admission timed against the standard one
+     (``time_admission``);
   6. greedy speculative decoding on yi-9b without its exit heads, against
      the plain engine on that config: a tied draft on the paged engine
      (acceptance 1.0) and an independent 2-layer draft on the contiguous
@@ -145,7 +163,9 @@ Phases (any failure raises; nothing is caught):
      most) and on mistral (a tied draft, paged: 48 rows); chatglm3
      (12e: QKV biases, rotary over half the head dim) and chameleon
      (12g: the K-norm) also served gated at threshold 2.0
-     (``serve_gated``);
+     (``serve_gated``); chatglm3 also serves phase 5b's shared-prefix
+     stream (``run_sharing``: QKV biases and half rotary in the
+     fork-point prefill);
  13. a check that no serve run launched the fp32 flash instance (its
      own counter);
  14. the paper's seizure workload at its published configs (the CNN and
@@ -165,9 +185,10 @@ Phases (any failure raises; nothing is caught):
      thresholds 0.1-0.5; the Fig. 3 table from the measured exit rates;
      and a kernel launch on a tensor that requires grad raises;
  15. one JSON line listing the kernels (those on ``forward_decode_gated``'s
-     path with their launches in its threshold-2.0 runs beside), the
-     card's name and power limit, and the final ``{"ok": true, ...}``
-     line.
+     path with their launches in its threshold-2.0 runs beside, those on
+     the prefix-sharing path with their launches in its first sharing
+     run), the card's name and power limit, and the final ``{"ok": true,
+     ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
@@ -223,7 +244,7 @@ time line names its block plan (``decode_plan`` / ``mla_plan``, read
 from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8_plan``,
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
-line come from the run of its path (phase 4, 5, 6, 6c, 6d, 8, 10, 12,
+line come from the run of its path (phase 4, 5, 5b, 6, 6c, 6d, 8, 10, 12,
 12c, 12d-12h or 14). Each served model
 also has three decode chunks timed by the host clock and one traced per
 engine (``decode step`` lines, with the device kernels a step, the GEMM,
@@ -242,6 +263,7 @@ import functools
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -277,6 +299,9 @@ QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
 ZOO_LAYERS = {"musicgen-medium": 48, "chatglm3-6b": 28, "qwen1.5-32b": 64,
               "qwen3-moe-30b-a3b": 48, "chameleon-34b": 48,
               "mistral-large-123b": 24}
+# phase 5b's pool just above the live working set of its 8 shared-prefix
+# requests (4 slots, pages of 16): admission there evicts index pages
+SHARE_SMALL_POOL = 14
 # the fewest rows torch._int_mm takes on the card (the library yardstick)
 INT_MM_MIN_ROWS = 17
 # the seizure workload: training steps on the card; the first 20 held
@@ -2323,10 +2348,12 @@ def make_prompts(torch, vocab: int, seed: int = 11):
 
 
 def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
-              seeds=None, **engine_kw):
-    """Serve the 6 requests (24 new tokens each; request i seeded with
-    ``seeds[i]`` when given) with every launch counter reset just before
-    and read just after; the result goes to ``runs[name]``."""
+              seeds=None, on_engine=None, **engine_kw):
+    """Serve one request a prompt (the 6 of ``make_prompts`` but in phase
+    5b; 24 new tokens each; request i seeded with ``seeds[i]`` when given)
+    with every launch counter reset just before and read just after; the
+    result goes to ``runs[name]``. ``on_engine(engine)`` is called before
+    the reset (phase 5b's probe wraps the engine's admission there)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import xaif
     from repro_torch.serve.engine import SlotEngine
@@ -2337,18 +2364,22 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
                 for i, pr in enumerate(prompts)]
     engine = SlotEngine(RunConfig(arch=run_cfg, policy=policy), capacity=4,
                         max_len=160, chunk=8, prompt_bucket=16, **engine_kw)
+    if on_engine is not None:
+        on_engine(engine)
     torch.cuda.synchronize()
     xaif.reset_launch_counts()
     report = serve(engine, p, requests)
     torch.cuda.synchronize()
     launches = {k: n for k, n in xaif.launch_counts().items() if n}
     steps = engine.decode_calls * engine.chunk
-    assert len(report.served) == 6, [r.reject_reason for r in requests]
+    assert len(report.served) == len(prompts), [r.reject_reason
+                                                for r in requests]
     for r in requests:
         assert len(r.tokens) == 24 and all(
             0 <= t < run_cfg.vocab_size for t in r.tokens), (r.rid, r.tokens)
     lat = report.latency_percentiles()
-    print(f"serve {name}: 6/6 served, 24 tokens each, "
+    print(f"serve {name}: {len(prompts)}/{len(prompts)} served, 24 tokens "
+          f"each, "
           f"{report.tokens_per_s:.1f} tok/s p50={lat['p50'] * 1e3:.0f}ms "
           f"p99={lat['p99'] * 1e3:.0f}ms over {steps} decode steps "
           f"(rounds) and {engine.prefill_calls} prefills; launches "
@@ -2637,29 +2668,36 @@ def serve_alone(torch, cfg, params, prompt, seed, **engine_kw):
     return req.tokens
 
 
-def greedy_ties(torch, cfg, params, prompt, tokens):
+def teacher_logits(torch, cfg, params, prompt, tokens):
     """Teacher-forced batch-1 decode of ``prompt`` along greedy ``tokens``
     (a cache of the engine's 160 positions; every kernel keeps a row's
-    bits whatever the batch, so the logits are the engine's row's): at
-    each token, whether the top logit is tied exactly. Asserts each token
-    is its step's argmax."""
+    bits whatever the batch, so the logits are the engine's row's): the
+    logits [len(tokens), V] each token was picked from (fp32). Asserts
+    each token is its step's argmax."""
     from repro_torch.models import lm
     from repro_torch.serve.engine import _select
 
     cache = lm.init_cache(cfg, 1, 160)
     pr = torch.as_tensor(prompt, device="cuda")[None]
     logits, cache = lm.forward_prefill(params, pr, cfg, "auto", cache)
-    ties = []
+    rows = []
     for j, t in enumerate(tokens):
         row = logits[0]
         assert int(row.argmax()) == t, (j, int(row.argmax()), t)
-        ties.append(int((row == row.max()).sum()) > 1)
+        rows.append(row.float())
         if j + 1 < len(tokens):
             tok = torch.tensor([[t]], dtype=torch.int32, device="cuda")
             lg, exits, cache = lm.forward_decode(params, tok, cfg, "auto",
                                                  cache)
             logits, _ = _select(lg, exits, cfg, "auto")
-    return ties
+    return torch.stack(rows)
+
+
+def greedy_ties(torch, cfg, params, prompt, tokens):
+    """At each of greedy ``tokens`` (``teacher_logits``), whether its
+    step's top logit is tied exactly."""
+    rows = teacher_logits(torch, cfg, params, prompt, tokens)
+    return ((rows == rows.max(-1, keepdim=True).values).sum(-1) > 1).tolist()
 
 
 def check_sampler_tv(torch, cfg, params, prompts, kw, draws: int = 4096):
@@ -2794,6 +2832,454 @@ def run_sampled_spec(torch, run_serve, cfg_ne, params, prompts):
           f"replays bitwise, request 1 alone == co-batched, bitwise; "
           f"acceptance {runs[0]['report'].stats['spec_acceptance']:.3f}",
           flush=True)
+
+
+# -- phase 5b: prefix sharing and chunked prefill ----------------------------
+
+# a fork-point admission's first-token logits against the unshared
+# prefill's of the same prompt, as ``check_prefill`` holds the kernels
+# against the plain path: rel L2 under SHARE_MAX_REL, and no further from
+# the fp32 prefill than SHARE_FP32_RATIO x the unshared prefill (means
+# over a run's admissions). The shared suffix attends in fp32 (as JAX),
+# the flash kernel rounds P to bf16, and 48 layers carry each rounding on:
+# single logits part by more than a single kernel's 1e-2 + 1e-2 |ref|
+# (phase 5b prints the largest difference)
+SHARE_MAX_REL, SHARE_FP32_RATIO = 5e-2, 1.5
+
+
+def sharing_prompts(vocab: int, seed: int = 12):
+    """Phase 5b's 8 prompts from a seeded numpy generator: 6 open with one
+    64-token prefix (4 full pages of 16) and go on with suffixes of 1-40
+    tokens; 2 share a 70-token stem of their own (4 pages and 6 rows of a
+    fifth) and part there, with tails of 12 and 18 tokens, so the second
+    is admitted at a copy-on-write fork (rem 6)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, vocab, 64)
+    stem = rng.integers(0, vocab, 70)
+    out = [np.concatenate([common, rng.integers(0, vocab, n)])
+           for n in (1, 40, 9, 23, 16, 33)]
+    out += [np.concatenate([stem, rng.integers(0, vocab, n)])
+            for n in (12, 18)]
+    return [p.astype(np.int32) for p in out]
+
+
+def shared_prefill_launches(cfg, head: bool = True):
+    """Kernel launches of one fork-point prefill on a dense GQA arch: each
+    layer's seven GEMMs and its norms (two; four with a QK-norm), then the
+    final norm and the unembedding with ``head``; no flash attention (the
+    suffix attends in plain PyTorch, as JAX computes it)."""
+    nl = cfg.num_layers
+    return {"gemm": 7 * nl + int(head),
+            "rmsnorm": (4 if cfg.qk_norm else 2) * nl + int(head)}
+
+
+def _rows(torch, pool, row, positions, ps):
+    """Rows [len(positions), Hkv, D] of one layer's pool [P, Hkv, ps, D]
+    at absolute ``positions`` through a page-table ``row``."""
+    pos = torch.as_tensor(positions, device=pool.device)
+    page = torch.as_tensor(row, device=pool.device).long()[pos // ps]
+    return pool[page, :, pos % ps]
+
+
+class SharingProbe:
+    """Holds each fork-point admission of a sharing engine as it happens.
+    ``install`` (``serve_run``'s ``on_engine``) wraps the engine's
+    ``copy_page`` and ``prefill_into_shared`` on the instance and spies on
+    ``lm.forward_prefill_shared`` for the logits until ``close``. Per
+    admission, bitwise: every layer's shared prefix pages unchanged across
+    it; after a copy-on-write the first ``rem`` rows of region page 0
+    equal the donor's, and the donor page unchanged; and its launches
+    exactly ``shared_prefill_launches``. Kept for ``check_admissions``:
+    the prompt, its bucket, the fork point, layer 0's K/V rows at the
+    suffix positions and the first-token logits. The wrappers only copy
+    and compare tensors: no counted kernel runs in them."""
+
+    def __init__(self, torch, cfg):
+        self.torch, self.cfg = torch, cfg
+        self.admissions, self.cows = [], 0
+        self._cow, self._logits, self._restore = None, None, None
+
+    def install(self, engine):
+        import numpy as np
+
+        from repro_torch.core import xaif
+        from repro_torch.models import lm
+
+        torch, ps = self.torch, engine.page_size
+        copy0, shared0 = engine.copy_page, engine.prefill_into_shared
+        spied = lm.forward_prefill_shared
+
+        def spy(*args, **kw):
+            logits, cache = spied(*args, **kw)
+            if logits is not None:
+                self._logits = logits.float().clone()
+            return logits, cache
+
+        def copy_page(cache, src, dst):
+            donor = [pool[:, src].clone() for pool in cache.pools]
+            cache = copy0(cache, src, dst)
+            self._cow = (int(src), int(dst), donor)
+            return cache
+
+        def prefill_into_shared(params, cache, st, prompt, start, slot,
+                                max_new, prefix_ids, region_ids, row,
+                                seed=None):
+            pre = torch.as_tensor(np.asarray(prefix_ids, np.int64),
+                                  device="cuda")
+            before = [pool[:, pre].clone() for pool in cache.pools]
+            before_n = xaif.launch_counts()
+            out = shared0(params, cache, st, prompt, start, slot, max_new,
+                          prefix_ids, region_ids, row, seed)
+            after_n = xaif.launch_counts()
+            launches = {k: n - before_n.get(k, 0) for k, n in
+                        after_n.items() if n != before_n.get(k, 0)}
+            want = shared_prefill_launches(self.cfg)
+            assert launches == want, (launches, want)
+            pools = out[0].pools
+            assert all(torch.equal(p[:, pre], b)
+                       for p, b in zip(pools, before)), \
+                "a shared prefix page was written"
+            rem = start - len(pre) * ps
+            if self._cow is not None:
+                src, dst, donor = self._cow
+                self._cow = None
+                assert dst == int(region_ids[0]) and rem > 0, (dst, rem)
+                for p, d in zip(pools, donor):
+                    assert torch.equal(p[:, dst, :, :rem], d[:, :, :rem]), \
+                        "COW rows differ from the donor's"
+                    assert torch.equal(p[:, src], d), "the donor was written"
+                self.cows += 1
+            t = len(prompt)
+            suffix = list(range(start, t))
+            self.admissions.append(dict(
+                prompt=np.asarray(prompt), start=start, rem=rem,
+                bucket=engine._bucket(t), logits=self._logits,
+                k0=_rows(torch, pools[0][0], row, suffix, ps).clone(),
+                v0=_rows(torch, pools[1][0], row, suffix, ps).clone()))
+            return out
+
+        engine.copy_page = copy_page
+        engine.prefill_into_shared = prefill_into_shared
+        lm.forward_prefill_shared = spy
+        self._restore = (lm, spied)
+
+    def close(self):
+        if self._restore is not None:
+            lm, spied = self._restore
+            lm.forward_prefill_shared = spied
+            self._restore = None
+
+
+def prefill_refs(torch, cfg, params, prompt, bucket, refs):
+    """The unshared paged engine's prefill of ``prompt`` (``prefill_into``'s
+    bucketed batch-1 ``forward_prefill``, rerun: the same inputs give the
+    same bits) and the fp32 yardstick (the plain policy computing in fp32
+    on the same weights): (logits, layer-0 K and V [Hkv, T, D], fp32
+    logits), kept in ``refs`` by prompt."""
+    from repro_torch.models import lm
+
+    key = prompt.tobytes()
+    if key not in refs:
+        t = len(prompt)
+        padded = torch.zeros(1, bucket, dtype=torch.int32)
+        padded[0, :t] = torch.from_numpy(prompt)
+        lengths = torch.tensor([t], dtype=torch.int32, device="cuda")
+        out = []
+        for c, policy in ((cfg, "auto"),
+                          (dataclasses.replace(cfg, dtype="float32"), "ref")):
+            cache = lm.init_cache(c, 1, bucket)
+            with torch.inference_mode():
+                logits, cache = lm.forward_prefill(
+                    params, padded.cuda(), c, policy, cache, lengths=lengths)
+            out.append((logits.float(), cache.k[0, 0, :, :t],
+                        cache.v[0, 0, :, :t]))
+            del cache
+        refs[key] = (out[0][0], out[0][1], out[0][2], out[1][0])
+    return refs[key]
+
+
+def check_admissions(torch, cfg, params, admissions, refs):
+    """Each recorded fork-point admission against the unshared paged
+    engine's prefill of the same prompt (``prefill_refs``): layer 0's K/V
+    rows at the suffix positions bitwise (layer 0 runs embed, rmsnorm, the
+    GEMMs and rotary, and each keeps a row's bits whatever M); the
+    first-token logits within SHARE_MAX_REL (rel L2) and, on average, no
+    further from the fp32 prefill than SHARE_FP32_RATIO x the unshared
+    prefill. Returns the numbers: rel L2 max, mean to fp32 of both, the
+    largest and the RMS logit difference."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    r_su, r_sf, r_uf, worst, sq, n = [], [], [], 0.0, 0.0, 0
+    for a in admissions:
+        t = len(a["prompt"])
+        ref, k0, v0, f32 = prefill_refs(torch, cfg, params, a["prompt"],
+                                        a["bucket"], refs)
+        for got, want in ((a["k0"], k0), (a["v0"], v0)):
+            assert torch.equal(got, want[:, a["start"]:t].transpose(0, 1)), (
+                "layer-0 suffix K/V differ from the unshared prefill's",
+                t, a["start"])
+        got = a["logits"]
+        r_su.append(rel(got, ref))
+        r_sf.append(rel(got, f32))
+        r_uf.append(rel(ref, f32))
+        worst = max(worst, float((got - ref).abs().max()))
+        sq += float((got - ref).pow(2).sum())
+        n += got.numel()
+    out = dict(rel_max=max(r_su), to_fp32=sum(r_sf) / len(r_sf),
+               unshared_to_fp32=sum(r_uf) / len(r_uf), max_diff=worst,
+               rms=(sq / n) ** 0.5)
+    assert out["rel_max"] < SHARE_MAX_REL, (r_su, out)
+    assert out["to_fp32"] <= SHARE_FP32_RATIO * out["unshared_to_fp32"], out
+    return out
+
+
+def near_tie_parts(torch, cfg, params, prompts, got, want, rms, seen=None):
+    """Greedy ``got`` tokens against ``want`` (a run whose logits come from
+    another attention's rounding, ``rms`` apart on the first tokens): each
+    request either equals whole, or parts at a step j where ``want``'s
+    logits (``teacher_logits``, kept in ``seen`` by request) hold
+    ``got[j]`` within max(0.1, 5 x rms) of ``want[j]``: a near tie
+    rounding may split either way, by ``check_prefill``'s rule for a
+    prompt that is not clear. Returns the parted (request, step, logit
+    gap, exact tie); asserts the rest."""
+    thr = max(0.1, 5 * rms)
+    seen = {} if seen is None else seen
+    parted = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(g, w)) if x != y)
+        if i not in seen:
+            seen[i] = teacher_logits(torch, cfg, params, prompts[i], w)
+        rows = seen[i]
+        top, other = float(rows[j, w[j]]), float(rows[j, g[j]])
+        assert top - other <= thr, (i, j, top, other, thr)
+        parted.append((i, j, round(top - other, 5), top == other))
+    return parted
+
+
+def run_sharing(torch, run_serve, name, cfg, params, small_pool=None):
+    """Phase 5b (and 12e's sharing run): the 8 ``sharing_prompts`` through
+    the paged engine (pages of 16, 24 usable) without sharing, then with
+    ``prefix_sharing=True`` twice (the second must replay the first's
+    tokens bitwise) and, with ``small_pool``, once more on a pool just
+    above the live working set, where admission evicts index pages. Each
+    sharing run: every admission probed (``SharingProbe``,
+    ``check_admissions``: layer-0 K/V bitwise, first-token logits), at
+    least 5 fork-point admissions and a COW one
+    (24-page runs), fewer prefill tokens than without sharing, launches
+    exactly ``zoo_launches`` of its standard admissions and decode steps
+    plus ``shared_prefill_launches`` a fork-point admission, and the
+    tokens of the run without sharing up to a near tie
+    (``near_tie_parts``). Returns the runs."""
+    prompts = sharing_prompts(cfg.vocab_size)
+    refs, seen = {}, {}
+    paged = dict(paged=True, page_size=16)
+    off = run_serve(f"{name}-share-off", cfg, params, prompts,
+                    num_pages=25, **paged)
+    assert "attention" in off["launches"], off["launches"]
+    runs = {}
+    pools = [("share", 25), ("share-again", 25)]
+    if small_pool is not None:
+        pools.append(("share-evict", small_pool))
+    for label, pool in pools:
+        probe = SharingProbe(torch, cfg)
+        try:
+            run = run_serve(f"{name}-{label}", cfg, params, prompts,
+                            num_pages=pool, prefix_sharing=True,
+                            on_engine=probe.install, **paged)
+        finally:
+            probe.close()
+        stats = run["report"].stats
+        n_shared = int(stats["shared_admissions"])
+        assert n_shared == len(probe.admissions), (n_shared,
+                                                   len(probe.admissions))
+        assert n_shared >= 5, stats
+        assert stats["prefill_tokens"] < off["report"].stats[
+            "prefill_tokens"], (stats, off["report"].stats)
+        if pool == 25:
+            assert probe.cows >= 1, "no copy-on-write admission"
+        else:
+            assert stats["index_evictions"] > 0, stats
+        want = zoo_launches(cfg, run["steps"], run["prefills"], paged=True)
+        for k, n in shared_prefill_launches(cfg).items():
+            want[k] += n_shared * n
+        assert run["launches"] == want, (run["launches"], want)
+        num = check_admissions(torch, cfg, params, probe.admissions, refs)
+        parted = near_tie_parts(torch, cfg, params, prompts, run["tokens"],
+                                off["tokens"], num["rms"], seen)
+        runs[label] = run
+        print(f"serve {name}-{label} ({pool - 1} usable pages): "
+              f"{n_shared} fork-point admissions ({probe.cows} COW), "
+              f"{int(stats['shared_tokens'])} prompt tokens from resident "
+              f"pages, prefill tokens {int(stats['prefill_tokens'])} "
+              f"against {int(off['report'].stats['prefill_tokens'])} "
+              f"unshared; index {int(stats['index_pages'])} pages, "
+              f"{int(stats['index_evictions'])} evicted; bitwise: shared "
+              f"pages untouched, COW rows == donor's, layer-0 suffix K/V "
+              f"== the unshared prefill's; first-token logits rel L2 max "
+              f"{num['rel_max']:.3e} (bound {SHARE_MAX_REL}), to fp32 "
+              f"{num['to_fp32']:.3e} against the unshared prefill's "
+              f"{num['unshared_to_fp32']:.3e}, max diff "
+              f"{num['max_diff']:.4f}, RMS {num['rms']:.4f}; "
+              f"launches exact, {shared_prefill_launches(cfg)} and no "
+              f"flash a fork-point admission; {8 - len(parted)} of 8 "
+              f"requests == unshared tokens whole, parted (request, step, "
+              f"gap, exact tie) {parted}", flush=True)
+    assert runs["share-again"]["tokens"] == runs["share"]["tokens"], \
+        "a second sharing run does not replay"
+    return runs
+
+
+def run_chunked(torch, cfg, params):
+    """Phase 5b's chunked prefill on yi-9b: a 128-token prompt (numpy seed
+    13) goes in as one 64-token ``prefill_chunk`` (no head) and
+    ``prefill_into_shared`` for the other 64, into 8 pages of one slot;
+    launches exactly ``shared_prefill_launches`` (no head, then head);
+    layer 0's K/V at all 128 positions == the full prefill's, bitwise,
+    the logits held as ``check_admissions`` holds them; then 24 tokens
+    decoded, == ``generate``'s up to a near tie (``near_tie_parts``)."""
+    import numpy as np
+
+    from repro_torch.core import xaif
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine, generate
+    from repro_torch.serve.paging import PageAllocator
+
+    prompt = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, 128).astype(np.int32)
+    engine = SlotEngine(cfg, capacity=4, max_len=160, chunk=8, paged=True,
+                        page_size=16)
+    cache, st = engine.init_state()
+    alloc = PageAllocator(engine.num_pages, 4, engine.max_pages, 16)
+    ids = alloc.admit(0, bucket_len=128, true_len=128, max_new=24)
+    row = alloc.table[0]
+    probe = SharingProbe(torch, cfg)
+    probe.install(engine)
+    try:
+        xaif.reset_launch_counts()
+        cache = engine.prefill_chunk(params, cache, prompt[:64], 0, 0, [],
+                                     ids[:4], row)
+        chunk_n = {k: n for k, n in xaif.launch_counts().items() if n}
+        cache, st, tok0 = engine.prefill_into_shared(
+            params, cache, st, prompt, 64, 0, 24, ids[:4], ids[4:], row)
+    finally:
+        probe.close()
+    assert chunk_n == shared_prefill_launches(cfg, head=False), chunk_n
+    assert engine.prefill_tokens == 128, engine.prefill_tokens
+    num = check_admissions(torch, cfg, params, probe.admissions, {})
+    full = lm.init_cache(cfg, 1, 128)
+    with torch.inference_mode():
+        _, full = lm.forward_prefill(params, torch.from_numpy(prompt)[None]
+                                     .cuda(), cfg, "auto", full)
+    for pool, ref in zip(cache.pools, (full.k, full.v)):
+        got = _rows(torch, pool[0], row, list(range(128)), 16)
+        assert torch.equal(got, ref[0, 0].transpose(0, 1)), \
+            "chunked layer-0 K/V differ from the full prefill's"
+    tokens = [int(tok0)]
+    while len(tokens) < 24:
+        steps = min(engine.chunk, 24 - len(tokens))
+        alloc.ensure(0, 128 + len(tokens) - 1 + steps - 1)
+        cache = engine.set_page_table(cache, alloc.table)
+        seen = int(st.generated[0])
+        cache, st, toks = engine.decode(params, cache, st)
+        tokens += toks[0, :int(st.generated[0]) - seen].tolist()
+    want, _ = generate(cfg, params, prompt[None], 24)
+    parted = near_tie_parts(torch, cfg, params, [prompt], [tokens],
+                            [want[0].tolist()], num["rms"])
+    assert len(probe.admissions) == 1, probe.admissions
+    print(f"chunked prefill {cfg.name}: 64 + 64 tokens, launches "
+          f"{chunk_n} for the chunk and {shared_prefill_launches(cfg)} for "
+          f"the rest; layer-0 K/V of all 128 positions == the full "
+          f"prefill's, bitwise; first-token logits rel L2 "
+          f"{num['rel_max']:.3e}, to fp32 {num['to_fp32']:.3e} against the "
+          f"full prefill's {num['unshared_to_fp32']:.3e}, max diff "
+          f"{num['max_diff']:.4f}; 24 decoded tokens == generate "
+          f"{'whole' if not parted else f'up to a near tie {parted}'}",
+          flush=True)
+
+
+def time_admission(torch, cfg, params, card):
+    """The device time of one fork-point admission against the standard
+    admission of the same prompt: ``sharing_prompts()[1]`` (64 shared and
+    40 suffix tokens: a suffix bucket of 48 against a bucket of 112) into
+    slots of one paged engine, the donor's 64 tokens admitted first. After
+    2 warm-up calls each, 6 in turns (standard, shared, shared,
+    standard, ...): the span a call by CUDA events (host launch gaps
+    included), then 5 of each under torch.profiler: the device kernel
+    time a call and the kernels a call. A measurement, printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.paging import PageAllocator
+
+    prompts = sharing_prompts(cfg.vocab_size)
+    donor, p = prompts[0], prompts[1]
+    engine = SlotEngine(cfg, capacity=4, max_len=160, chunk=8, paged=True,
+                        page_size=16, prefix_sharing=True)
+    cache, st = engine.init_state()
+    alloc = PageAllocator(engine.num_pages, 4, engine.max_pages, 16,
+                          sharing=True)
+    t0 = len(donor)
+    ids0 = alloc.admit(0, engine._bucket(t0), t0, 24)
+    cache, st, _ = engine.prefill_into(params, cache, st, donor, 0, 24,
+                                       page_ids=ids0)
+    alloc.register(donor, 0)
+    t = len(p)
+    ids1 = alloc.admit(1, engine._bucket(t), t, 24)
+    pages, _, _ = alloc.match(p)
+    start = len(pages) * 16
+    pre, reg = alloc.admit_shared(2, pages, None, 0, engine._bucket(t - start),
+                                  t, 24)
+    calls = {
+        "standard": lambda: engine.prefill_into(params, cache, st, p, 1, 24,
+                                                page_ids=ids1),
+        "shared": lambda: engine.prefill_into_shared(
+            params, cache, st, p, start, 2, 24, pre, reg, alloc.table[2])}
+    for fn in calls.values():
+        for _ in range(2):
+            fn()
+    spans = {k: [] for k in calls}
+    for i in range(6):
+        for name in (("standard", "shared") if i % 2 == 0 else
+                     ("shared", "standard")):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            calls[name]()
+            b.record()
+            torch.cuda.synchronize()
+            spans[name].append(a.elapsed_time(b))
+    dev, kernels = {}, {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"
+               and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        dev[name] = sum(e.self_device_time_total for e in evs) / 1e3 / 5
+        kernels[name] = sum(e.count for e in evs
+                            if not e.key.startswith(("Memcpy", "Memset")))
+        kernels[name] /= 5
+    med = {k: statistics.median(v) for k, v in spans.items()}
+    print(f"admission {cfg.name}, a {t}-token prompt: standard (bucket "
+          f"{engine._bucket(t)}) {med['standard']:.3f} ms a call by CUDA "
+          f"events (median of 6 in turns; "
+          f"{[round(x, 3) for x in spans['standard']]}), device "
+          f"{dev['standard']:.3f} ms and {kernels['standard']:.0f} kernels "
+          f"a call; fork-point (64 shared, suffix bucket "
+          f"{engine._bucket(t - start)}) {med['shared']:.3f} ms "
+          f"({[round(x, 3) for x in spans['shared']]}), device "
+          f"{dev['shared']:.3f} ms and {kernels['shared']:.0f} kernels a "
+          f"call; on {card}", flush=True)
+    return med, dev
 
 
 def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
@@ -3169,7 +3655,7 @@ def zoo_launches(cfg, steps: int, prefills: int, paged: bool):
 
 
 def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
-            spec: tuple = (), gated: bool = False):
+            spec: tuple = (), gated: bool = False, sharing: bool = False):
     """Phases 12b-12h, one zoo arch served at full width and
     ``ZOO_LAYERS[name]`` layers (random weights from seed 0, bf16; the
     phases before freed theirs), from token ids (musicgen's and
@@ -3187,7 +3673,9 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
     verify_decode(_paged) on every layer a round) for each of ``spec``:
     "tied-paged" (the target as its own draft, on the paged engine) and
     "draft2l-contiguous" (a 2-layer draft of its own weights). ``gated``:
-    the gated engine at an exit threshold of 2.0 too (``serve_gated``)."""
+    the gated engine at an exit threshold of 2.0 too (``serve_gated``).
+    ``sharing``: phase 5b's shared-prefix stream too (``run_sharing``, on
+    24 pages)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
@@ -3243,6 +3731,8 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
           f"request; {nl} attn_decode_paged a step, no attn_decode; peak "
           f"{int(paged['report'].stats['peak_pages'])} of 24 pages",
           flush=True)
+    if sharing:
+        run_sharing(torch, run_serve, name, cfg, params)
 
     if spec:
         cfg_ne = dataclasses.replace(cfg, early_exit=None)
@@ -3500,6 +3990,14 @@ def main() -> int:
     print("serve paged: tokens == contiguous engine, bitwise, per request",
           flush=True)
 
+    # -- 5b. prefix sharing: 8 shared-prefix requests unshared, then shared
+    #    on 24 pages twice and on a pool just above the working set;
+    #    chunked prefill; a fork-point admission timed -------------------
+    run_sharing(torch, run_serve, "yi-9b", cfg, params,
+                small_pool=SHARE_SMALL_POOL)
+    run_chunked(torch, cfg, params)
+    time_admission(torch, cfg, params, card)
+
     # -- 6. greedy speculative decoding, against plain greedy on yi-9b
     #    without its exit heads (the same weights) -------------------------
     cfg_ne = dataclasses.replace(cfg, early_exit=None)
@@ -3609,7 +4107,8 @@ def main() -> int:
         # gated decode (phases 12e, 12g): chatglm3's QKV biases and half
         # rotary, chameleon's K-norm in the propagated rows
         run_zoo(torch, run_serve, t_start, name, prefill, spec,
-                gated=name in ("chatglm3-6b", "chameleon-34b"))
+                gated=name in ("chatglm3-6b", "chameleon-34b"),
+                sharing=name == "chatglm3-6b")
 
     # -- 13. the scalar fp32 flash instance is on no serving path ----------
     fp32 = [n for n, r in runs.items() if "attention_fp32" in r["launches"]]
@@ -3761,6 +4260,20 @@ def main() -> int:
             run, counter = gated_paths[k["name"]], replaces[k["name"]][3]
             k["paths"] = ["serve", "forward_decode_gated"]
             k["gated_launches"] = runs[run]["launches"][counter]
+    # the prefix-sharing path (phases 5b, 12e): the kernels of the first
+    # 24-page sharing run of yi-9b (chatglm3's decode instance: of its
+    # own), with their launches there (standard and fork-point admissions
+    # and decode steps)
+    sharing_paths = {
+        "gemm": "yi-9b-share", "rmsnorm": "yi-9b-share",
+        "attention": "yi-9b-share", "attn_decode_paged": "yi-9b-share",
+        "entropy_exit": "yi-9b-share",
+        "attn_decode_paged_g16": "chatglm3-6b-share"}
+    for k in kernels:
+        if k["name"] in sharing_paths:
+            run, counter = sharing_paths[k["name"]], replaces[k["name"]][3]
+            k["paths"] = k.get("paths", ["serve"]) + ["prefix_sharing"]
+            k["sharing_launches"] = runs[run]["launches"][counter]
     # the seizure evaluation's instances (phase 14's kernels run): the
     # transformer's attention and norms; both models' heads and exits
     seizure_kernels = {

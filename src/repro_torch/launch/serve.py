@@ -44,6 +44,16 @@ logits); ``--threshold`` is therefore rejected with ``--draft``.
 ``--draft`` is rejected for MLA archs and archs with recurrent layers, as
 in the JAX package.
 
+``--prefix-sharing`` (with ``--paged``; all-attention GQA archs without
+an MoE) admits a prompt at its fork point against the resident page
+chains: matched pages are mapped read-only, a partial boundary page is
+copied, and only the unshared suffix is prefilled. ``--shared-prefix-len
+N`` opens every prompt with the same N tokens (a system prompt) to give
+it something to share:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --device cpu --paged --prefix-sharing --shared-prefix-len 24
+
 ``--gated`` decodes through the gated early-exit path: on steps where
 every live slot exits, the layers past the exit are skipped and their KV
 filled by CALM propagation. It needs an attention-only arch with one exit
@@ -95,6 +105,15 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None,
                     help="page pool size incl. the scratch page (default: "
                          "the contiguous worst case + 1)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="radix-match prompts against resident KV page "
+                         "chains; matched prefixes are mapped (refcounted, "
+                         "copy-on-write boundary) and only the unshared "
+                         "suffix is prefilled (requires --paged)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="give every request a common prompt prefix of "
+                         "this many tokens (a workload for "
+                         "--prefix-sharing)")
     ap.add_argument("--draft", default=None,
                     help="draft arch for greedy speculative decoding")
     ap.add_argument("--spec-k", type=int, default=None,
@@ -114,8 +133,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.prompt_len_max + args.new_tokens > args.max_len:
-        ap.error("--max-len must fit --prompt-len-max + --new-tokens")
+    if (args.shared_prefix_len + args.prompt_len_max + args.new_tokens
+            > args.max_len):
+        ap.error("--max-len must fit --shared-prefix-len + "
+                 "--prompt-len-max + --new-tokens")
     # invalid flag combinations die here, before any model is built
     if not args.paged and (args.num_pages is not None
                            or args.page_size != 16):
@@ -124,6 +145,15 @@ def main(argv=None):
         ap.error("--paged cannot be combined with --gated: the gated "
                  "early-exit decode path is not page-aware (as in the JAX "
                  "package); drop one of the two flags")
+    if args.prefix_sharing and not args.paged:
+        ap.error("--prefix-sharing requires --paged: shared prefixes are "
+                 "mapped as refcounted KV pages, which only exist in the "
+                 "paged engine")
+    if args.prefix_sharing:
+        try:
+            lm.check_shared_prefill(get_arch(args.arch))
+        except ValueError as e:
+            ap.error(f"--prefix-sharing: {e}")
     if args.gated:
         try:
             lm.check_gated(get_arch(args.arch))
@@ -177,13 +207,21 @@ def main(argv=None):
         prompt_lens=(args.prompt_len_min, args.prompt_len_max),
         max_new_tokens=args.new_tokens, vocab_size=cfg.vocab_size,
         seed=args.seed)
+    if args.shared_prefix_len > 0:
+        # every prompt opens with the same system-prompt-like prefix (the
+        # JAX launcher's draw), a unique suffix after it
+        common = np.random.default_rng(args.seed + 1).integers(
+            0, cfg.vocab_size, (args.shared_prefix_len,), dtype=np.int32)
+        for r in requests:
+            r.prompt = np.concatenate([common, r.prompt])
     engine = SlotEngine(RunConfig(arch=cfg), capacity=args.capacity,
                         max_len=args.max_len, chunk=args.chunk,
                         device=args.device, paged=args.paged,
                         page_size=args.page_size, num_pages=args.num_pages,
                         spec=spec, gated=args.gated,
                         temperature=args.temperature, top_k=args.top_k,
-                        top_p=args.top_p, sample_seed=args.sample_seed)
+                        top_p=args.top_p, sample_seed=args.sample_seed,
+                        prefix_sharing=args.prefix_sharing)
     report = serve(engine, params, requests, realtime=args.rate > 0)
 
     lat = report.latency_percentiles()
@@ -193,6 +231,7 @@ def main(argv=None):
           f"requests={args.requests} rate={args.rate or 'inf'}/s "
           f"device={engine.device} paged={engine.paged} "
           f"spec_k={engine.spec_k} gated={engine.gated} "
+          f"prefix_sharing={engine.prefix_sharing} "
           f"temperature={engine.temperature}")
     print(f"  throughput: {report.decode_tokens} tokens in "
           f"{report.wall_s:.2f}s = {report.tokens_per_s:.1f} tok/s "
@@ -211,6 +250,13 @@ def main(argv=None):
         print(f"  pages: peak {int(report.stats['peak_pages'])} of "
               f"{engine.num_pages - 1} usable ({engine.page_size} "
               f"positions each)")
+    if engine.prefix_sharing:
+        print(f"  sharing: {int(report.stats['shared_admissions'])} shared "
+              f"admissions, {int(report.stats['shared_tokens'])} prompt "
+              f"tokens served from resident pages (prefill pushed "
+              f"{int(report.stats['prefill_tokens'])} bucketed tokens); "
+              f"index {int(report.stats['index_pages'])} pages, "
+              f"{int(report.stats['index_evictions'])} evicted")
     if spec is not None:
         print(f"  spec decode: k={spec.k} draft={args.draft} acceptance="
               f"{report.stats['spec_acceptance']:.2%}")

@@ -2,7 +2,7 @@
 DeepSeek-V2 Multi-head Latent Attention (MLA).
 
 GQA (with optional QKV biases and a QK-norm: q and k normalised over the
-head dim before rotary) has four execution modes over one parameter set:
+head dim before rotary) has five execution modes over one parameter set:
   * prefill: full-sequence causal attention through the XAIF
     ``attention`` op (the flash kernel on the card), K/V written into the
     request's cache;
@@ -13,7 +13,11 @@ head dim before rotary) has four execution modes over one parameter set:
     by its own cache length;
   * verify (speculative decoding): K1 query tokens per sequence through
     ``verify_decode`` / ``verify_decode_paged``, query i masked to the
-    window of the i-th sequential decode step.
+    window of the i-th sequential decode step;
+  * shared prefill (prefix sharing, chunked prefill): a prompt's suffix
+    against prefix pages already resident in the pool
+    (``apply_attention_prefill_shared``), its K/V written into the slot's
+    own pages; the attention is plain fp32 PyTorch, as JAX computes it.
 
 MLA caches only the compressed latent and the shared rotary key
 (``MLACache``, or in pages ``PagedMLACache``). Prefill decompresses K/V
@@ -258,6 +262,88 @@ def apply_attention_decode_paged(params, x: torch.Tensor, cfg: ArchConfig,
                     state.k_pages, state.v_pages, page_table, cache_pos)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim).to(x.dtype)
     return xaif.call("gemm", policy, out, params["wo"]), state
+
+
+class SharedPrefillCtx(NamedTuple):
+    """Where a FORK-POINT prefill over a shared-prefix paged cache reads
+    and writes. ``prefix_ids`` [n] are the matched READ-ONLY full pages
+    (entries past the match may be -1: gathered from the scratch page and
+    masked), ``region_ids`` [n_region] the slot's exclusive COW + suffix
+    pages (pad entries may be the scratch page 0), ``start`` the absolute
+    position of the first suffix token, ``n_prefix`` the tokens resident in
+    the shared full pages (``start - n_prefix`` is the in-page offset of the
+    COW fork) and ``true_len`` the whole prompt's length. The JAX package
+    pads both id lists to bound its jit traces; nothing here needs the pad,
+    and the result does not depend on it."""
+    prefix_ids: torch.Tensor   # [n] int, -1 past the match
+    region_ids: torch.Tensor   # [n_region] int
+    start: int
+    n_prefix: int
+    true_len: int
+
+
+def apply_attention_prefill_shared(params, x: torch.Tensor, cfg: ArchConfig,
+                                   policy: str, state: PagedKVCache,
+                                   ctx: SharedPrefillCtx
+                                   ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Suffix-only prefill against a shared paged prefix: x [1, Tsuf, d]
+    (right-padded suffix), ``state`` one layer's pools [P, Hkv, ps, D].
+
+    The suffix K/V (``_project_qkv`` at the absolute positions, so biases,
+    the QK-norm and partial rotary come along) is written in place into
+    the region pages from the fork offset on (the COW page's first
+    ``start - n_prefix`` rows, copied from the donor, are kept), then the
+    suffix queries attend [shared prefix pages ++ region] under an explicit
+    absolute-position mask. Shared pages are only read. The numerics are
+    the JAX package's (no Pallas kernel there either): fp32, scale
+    d^-0.5, -1e30 on masked lanes, which the softmax turns into exact
+    zeros. V rows past the prompt (pad and scratch entries) are zeroed
+    before the product, as the port's plain paged attention zeroes the
+    rows it masks: 0 * NaN would carry a NaN from stale or scratch memory
+    into the output."""
+    tsuf = x.shape[1]
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ps = state.k_pages.shape[-2]
+    dev = x.device
+    qpos = ctx.start + torch.arange(tsuf, device=dev)    # absolute positions
+    q, k, v = _project_qkv(params, x, cfg, policy, qpos[None])
+    region = ctx.region_ids.to(device=dev, dtype=torch.long)
+    at = ctx.start - ctx.n_prefix + torch.arange(tsuf, device=dev)
+    page, off = region[at // ps], at % ps
+    state.k_pages[page, :, off] = k[0].transpose(0, 1).to(state.k_pages.dtype)
+    state.v_pages[page, :, off] = v[0].transpose(0, 1).to(state.v_pages.dtype)
+
+    pre = ctx.prefix_ids.to(device=dev, dtype=torch.long)
+    pids = torch.cat([torch.where(pre >= 0, pre, 0), region])
+
+    def flat(pages):      # [N, Hkv, ps, D] -> [Hkv, N * ps, D]
+        return pages.transpose(0, 1).reshape(hkv, -1, dh)
+
+    keys, vals = flat(state.k_pages[pids]), flat(state.v_pages[pids])
+    n_pre, n_reg = pre.shape[0] * ps, region.shape[0] * ps
+    kpos = torch.cat([torch.arange(n_pre, device=dev),
+                      ctx.n_prefix + torch.arange(n_reg, device=dev)])
+    valid = torch.cat([torch.arange(n_pre, device=dev) < ctx.n_prefix,
+                       kpos[n_pre:] < ctx.true_len])
+    mask = valid[None, :] & (kpos[None, :] <= qpos[:, None])    # [Tsuf, S]
+    g = hq // hkv
+    qf = q[0].float() * (dh ** -0.5)                     # [Hq, Tsuf, D]
+    kf = keys.float().repeat_interleave(g, dim=0)
+    vf = torch.where(valid[:, None], vals.float(), 0.0).repeat_interleave(
+        g, dim=0)
+    logits = torch.einsum("htd,hsd->hts", qf, kf)
+    logits = torch.where(mask[None], logits, -1e30)
+    out = torch.einsum("hts,hsd->htd", torch.softmax(logits, dim=-1), vf)
+    out = out.to(x.dtype).transpose(0, 1).reshape(1, tsuf, hq * dh)
+    return xaif.call("gemm", policy, out, params["wo"]), state
+
+
+def copy_page(state: PagedKVCache, src: int, dst: int) -> PagedKVCache:
+    """Copy-on-write: pool page ``src`` -> ``dst`` in every layer of
+    layer-stacked pools [L, P, Hkv, ps, D], in place."""
+    for pool in state:
+        pool[:, dst] = pool[:, src]
+    return state
 
 
 def _verify_out(params, out: torch.Tensor, x: torch.Tensor,

@@ -32,6 +32,11 @@ place.
 ``forward_decode_gated`` (attention-only archs with one exit, contiguous
 cache) skips the layers past the exit when every live row exits there,
 filling their cache rows by CALM propagation from the exit hidden state.
+
+``forward_prefill_shared`` (paged cache; all-attention GQA archs without
+an MoE) prefills only the suffix of a prompt whose prefix KV is already
+resident in shared pages (prefix sharing), or one chunk of a long prompt
+(chunked prefill); ``copy_pages`` is its copy-on-write.
 """
 from __future__ import annotations
 
@@ -80,6 +85,24 @@ def _check_gqa(cfg: ArchConfig, what: str) -> None:
     if cfg.mla is not None:
         raise ValueError(f"{cfg.name}: {what} is not defined for MLA archs "
                          f"(the JAX package refuses it too)")
+
+
+def shared_prefill_ok(cfg: ArchConfig) -> bool:
+    """Whether the fork-point prefill (prefix sharing, chunked prefill) is
+    defined for ``cfg``: all-attention GQA without an MoE, as in JAX."""
+    return not cfg.recurrent and cfg.mla is None and cfg.moe is None
+
+
+def check_shared_prefill(cfg: ArchConfig) -> None:
+    """Raise ValueError unless ``shared_prefill_ok(cfg)``."""
+    if not shared_prefill_ok(cfg):
+        raise ValueError(
+            f"{cfg.name}: the fork-point prefill (prefix sharing, chunked "
+            f"prefill) needs an all-attention GQA arch without an MoE, as "
+            f"the JAX package asserts: a recurrent (Mamba or xLSTM) state "
+            f"cannot resume from a page chain, MLA latents are not "
+            f"share-indexed, and an MoE's capacity-grouped prefill would "
+            f"route the suffix apart from the whole prompt")
 
 
 # ---------------------------------------------------------------------------
@@ -459,9 +482,10 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
                  policy: str, state, mode: str, cache_pos=None,
                  page_table=None, live=None):
     """One layer: the sequence mixer of ``spec`` (``mode`` prefill / decode
-    / verify) then the MLP, the MoE or nothing (``ffn == "none"``).
-    ``live`` [B] bool (decode): slots that still matter — dead ones are
-    masked out of MoE routing."""
+    / verify / prefill_shared) then the MLP, the MoE or nothing (``ffn ==
+    "none"``). In mode ``prefill_shared`` ``page_table`` carries the
+    ``attn.SharedPrefillCtx``. ``live`` [B] bool (decode): slots that still
+    matter — dead ones are masked out of MoE routing."""
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
     if spec.mixer in _RECURRENT:    # slot-indexed state, paged cache or not
@@ -479,6 +503,9 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
                                                  cache_pos, page_table)
     elif mode == "prefill":
         out, _ = attn.apply_attention_prefill(m, h, cfg, policy, state)
+    elif mode == "prefill_shared":
+        out, _ = attn.apply_attention_prefill_shared(m, h, cfg, policy, state,
+                                                     page_table)
     elif mode == "decode" and page_table is None:
         out, _ = attn.apply_attention_decode(m, h, cfg, policy, state,
                                              cache_pos)
@@ -571,6 +598,45 @@ def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
         pos = lengths.to(torch.int32)
     logits = _head(params, last, cfg, policy)
     return logits[:, 0], cache._replace(pos=pos)
+
+
+def copy_pages(cache: PagedLMCache, src: int, dst: int) -> PagedLMCache:
+    """Copy-on-write: duplicate pool page ``src`` into ``dst`` in every
+    attention layer, in place. The boundary page of a partial prefix match
+    is copied here BEFORE the suffix prefill writes into it, so the
+    divergent suffix never writes a page another slot still maps."""
+    attn.copy_page(cache.pools, src, dst)
+    return cache
+
+
+def forward_prefill_shared(params, inputs: torch.Tensor, cfg: ArchConfig,
+                           policy: str, cache: PagedLMCache, slot: int,
+                           ctx: attn.SharedPrefillCtx, row_ids,
+                           head: bool = True):
+    """Fork-point prefill: run ONLY the unshared suffix of a prompt whose
+    prefix KV is already resident in the page pools.
+
+    ``inputs`` [1, Tsuf] holds the right-padded suffix (token ids, or a
+    stub frontend's embeddings); ``ctx`` the shared / region page ids and
+    the absolute positions; ``row_ids`` [max_pages] the slot's complete new
+    page-table row (prefix ++ region, -1 beyond), written into the device
+    table here with the slot's length ``ctx.true_len`` (other rows are the
+    caller's to push). All-attention GQA archs without an MoE only
+    (``check_shared_prefill``). Returns (first-token logits [1, V], cache),
+    or ``(None, cache)`` with ``head=False`` (chunked prefill's
+    intermediate chunks: only the KV writes matter)."""
+    check_shared_prefill(cfg)
+    x = _embed(params, inputs, cfg)
+    x = _run_layers(params, x, range(cfg.num_layers), cfg, policy, cache,
+                    "prefill_shared", page_table=ctx)
+    cache.page_table[slot] = torch.as_tensor(
+        row_ids, dtype=torch.int32).to(cache.page_table.device)
+    cache.pos[slot] = ctx.true_len
+    if not head:
+        return None, cache
+    n = ctx.true_len - ctx.start
+    logits = _head(params, x[:, n - 1:n].contiguous(), cfg, policy)
+    return logits[:, 0], cache
 
 
 def forward_decode(params, tokens: torch.Tensor, cfg: ArchConfig,

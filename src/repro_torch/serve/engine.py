@@ -26,6 +26,13 @@ continuous-batching engine and the one-request reference loop
     scores all of them, and each slot accepts a variable-length prefix
     (greedy: proposals equal to the target's argmax; sampled: residual
     rejection sampling, ``spec_accept``).
+  * Prefix sharing (``prefix_sharing=True``, paged engines of
+    all-attention GQA archs without an MoE): the scheduler radix-matches a
+    prompt against resident page chains (``serve/paging.py``), maps the
+    matched pages read-only, copies a partial boundary page
+    (``copy_page``) and prefills only the unshared suffix against them
+    (``prefill_into_shared``). ``prefill_chunk`` runs one page-aligned
+    chunk of a long prompt through the same fork-point prefill.
   * Gated early-exit decode (``gated=True``): ``lm.forward_decode_gated``
     skips the layers past the exit on steps where every live slot exits.
   * Sampling (``temperature > 0``, optional ``top_k`` / ``top_p``):
@@ -55,6 +62,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.early_exit import (gated_layer_fraction,
                                          merge_exit_logits)
 from repro_torch.models import lm
+from repro_torch.models.attention import SharedPrefillCtx
 
 
 def _as_run(run: Union[RunConfig, ArchConfig]) -> RunConfig:
@@ -304,6 +312,16 @@ class SlotEngine:
     package refuses verify for MLA) without recurrent layers (JAX refuses
     those too).
 
+    ``prefix_sharing``: admission at the fork point (paged engines of
+    all-attention GQA archs without an MoE, as in JAX): only the suffix a
+    prompt does not share with a resident chain is prefilled, attending
+    the shared pages in place (``prefill_into_shared``); its first token
+    comes from the JAX package's fp32 suffix attention, where a full
+    prefill runs the flash kernel. ``persistent_prefix_index``: ``serve()``
+    parks its pool, refcounts and index in ``resident`` and the next
+    ``serve()`` resumes them, so a prefix seen in one stream is shared in
+    the next.
+
     ``gated``: decode through ``lm.forward_decode_gated`` (attention-only
     archs with one exit; contiguous engine, no ``spec``, as in JAX). It
     reads one boolean on the host a step, which the ungated step never
@@ -324,9 +342,27 @@ class SlotEngine:
                  num_pages: Optional[int] = None,
                  spec: Optional[SpecConfig] = None, gated: bool = False,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, sample_seed: int = 0):
+                 top_p: float = 1.0, sample_seed: int = 0,
+                 prefix_sharing: bool = False,
+                 persistent_prefix_index: bool = False):
         self.run = _as_run(run)
         cfg = self.run.arch
+        # the fork-point prefill: prefix sharing and chunked prefill
+        self.shared_prefill_ok = lm.shared_prefill_ok(cfg)
+        if prefix_sharing:
+            if not paged:
+                raise ValueError("prefix sharing requires the paged engine: "
+                                 "shared prefixes are mapped as refcounted "
+                                 "KV pages")
+            lm.check_shared_prefill(cfg)
+        if persistent_prefix_index and not prefix_sharing:
+            raise ValueError("a persistent prefix index needs "
+                             "prefix_sharing=True")
+        self.prefix_sharing = prefix_sharing
+        self.persistent_prefix_index = persistent_prefix_index
+        # (cache, state, allocator) parked by the last serve() call when the
+        # index is persistent; the next scheduler pops it before reuse
+        self.resident = None
         if gated:
             lm.check_gated(cfg)
             if paged:
@@ -395,7 +431,8 @@ class SlotEngine:
                 dtype=torch.float32, device=self.device)
         self.decode_calls = 0
         self.prefill_calls = 0
-        # bucketed tokens pushed through prefill (proportional to its FLOPs)
+        # bucketed tokens pushed through prefill (proportional to its FLOPs;
+        # a shared admission counts its suffix bucket, a chunk its length)
         self.prefill_tokens = 0
         # the engine owns the draft's weights and its contiguous slot cache
         self.draft_params = None
@@ -469,9 +506,7 @@ class SlotEngine:
             if ids.shape != (n_bucket,):
                 raise ValueError(f"{tuple(ids.shape)} page ids for a bucket "
                                  f"of {n_bucket} pages")
-        padded = torch.zeros(1, bucket, dtype=torch.int32)
-        padded[0, :t] = prompt
-        padded = padded.to(self.device)
+        padded = self._padded(prompt, bucket)
         slot_cache = lm.init_cache(cfg, 1, bucket, device=self.device)
         lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
         logits, slot_cache = lm.forward_prefill(params, padded, cfg, policy,
@@ -481,6 +516,25 @@ class SlotEngine:
                                ids.to(self.device))
         else:
             lm.fill_slot(cache, slot_cache, slot, t)
+        tok0 = self._admit_slot(st, logits, slot, max_new, seed)
+        self.prefill_calls += 1
+        self.prefill_tokens += bucket
+        if self.spec is not None:
+            self._admit_draft(params, padded, t, slot)
+        return cache, st, tok0
+
+    def _padded(self, tokens, length: int) -> torch.Tensor:
+        """[1, length] int32 on the device: ``tokens`` right-padded with
+        0 (the pad is masked by the true length)."""
+        padded = torch.zeros(1, length, dtype=torch.int32)
+        padded[0, :len(tokens)] = torch.as_tensor(np.asarray(tokens),
+                                                  dtype=torch.int32)
+        return padded.to(self.device)
+
+    def _admit_slot(self, st: DecodeState, logits: torch.Tensor, slot: int,
+                    max_new: int, seed: Optional[int]) -> torch.Tensor:
+        """Flip ``slot`` live in ``st`` (in place) with its first token,
+        drawn from the prefill's logits [1, V]; returns the token."""
         if self._sampler is None:
             tok0 = logits[0].argmax(-1).to(torch.int32)
         else:
@@ -494,11 +548,96 @@ class SlotEngine:
         st.generated[slot] = 1
         st.budget[slot] = max_new
         st.quarantined[slot] = False
-        self.prefill_calls += 1
-        self.prefill_tokens += bucket
+        return tok0
+
+    # -- prefix-sharing admission and chunked prefill ----------------------
+
+    def _check_shared(self) -> None:
+        if not self.paged:
+            raise ValueError("the fork-point prefill needs the paged engine")
+        lm.check_shared_prefill(self.run.arch)
+
+    @torch.inference_mode()
+    def copy_page(self, cache: lm.PagedLMCache, src: int, dst: int
+                  ) -> lm.PagedLMCache:
+        """Copy-on-write: duplicate pool page ``src`` into the slot's
+        exclusive page ``dst`` in every attention layer (in place)."""
+        if not self.paged:
+            raise ValueError("copy_page on a contiguous engine")
+        return lm.copy_pages(cache, int(src), int(dst))
+
+    def _shared_ctx(self, prefix_ids, region_ids, start: int, n_prefix: int,
+                    true_len: int):
+        ids = [torch.as_tensor(np.asarray(a, np.int64).reshape(-1),
+                               device=self.device)
+               for a in (prefix_ids, region_ids)]
+        return SharedPrefillCtx(ids[0], ids[1], start, n_prefix, true_len)
+
+    @torch.inference_mode()
+    def prefill_into_shared(self, params, cache, st: DecodeState, prompt,
+                            start: int, slot: int, max_new: int, prefix_ids,
+                            region_ids, row, seed: Optional[int] = None):
+        """Admit one request at its FORK POINT: only ``prompt[start:]``
+        (right-padded to its bucket) is prefilled; positions [0, start) are
+        already resident in the shared ``prefix_ids`` pages plus the first
+        ``start mod page_size`` rows of the COW page ``region_ids[0]``
+        (copied by ``copy_page`` before this call). ``row`` is the slot's
+        complete host mirror page-table row, written into the device table
+        here. Under ``spec`` the draft's contiguous cache is filled from
+        the WHOLE prompt (the draft keeps no index). Returns (cache, st,
+        first_token) with the token on the device."""
+        self._check_shared()
+        prompt = np.asarray(prompt, np.int32)
+        t = int(prompt.shape[0])
+        if not 0 < start < t or t + max_new > self.max_len:
+            raise ValueError(f"fork point {start} of a {t}-token prompt "
+                             f"(+ {max_new} new, max_len {self.max_len})")
+        n_prefix = len(np.asarray(prefix_ids).reshape(-1)) * self.page_size
+        if not n_prefix <= start < n_prefix + self.page_size:
+            raise ValueError(f"fork point {start} is not in the page after "
+                             f"the {n_prefix} shared positions")
+        suffix_bucket = self._bucket(t - start)
+        ctx = self._shared_ctx(prefix_ids, region_ids, start, n_prefix, t)
+        logits, cache = lm.forward_prefill_shared(
+            params, self._padded(prompt[start:], suffix_bucket),
+            self.run.arch, self.run.policy, cache, slot, ctx, row)
+        tok0 = self._admit_slot(st, logits, slot, max_new, seed)
+        self.prefill_tokens += suffix_bucket
         if self.spec is not None:
-            self._admit_draft(params, padded, t, slot)
+            self._admit_draft(params, self._padded(prompt, self._bucket(t)),
+                              t, slot)
         return cache, st, tok0
+
+    @torch.inference_mode()
+    def prefill_chunk(self, params, cache, chunk_tokens, start: int,
+                      slot: int, prefix_ids, region_ids, row):
+        """Run ONE intermediate chunk of a chunked prefill (no admission,
+        no logits): ``chunk_tokens`` (C tokens, C a multiple of the page
+        size, ``start`` a multiple of C) at absolute positions [start,
+        start + C) against the slot's resident pages ``prefix_ids`` (all
+        full: ``len(prefix_ids) * page_size == start``), written into the
+        next ``region_ids`` (C / page_size pages). ``row`` is the slot's
+        complete mirror page-table row. The prompt's last chunk goes
+        through ``prefill_into_shared``, which admits the slot. Returns
+        the cache."""
+        self._check_shared()
+        chunk = np.asarray(chunk_tokens, np.int32).reshape(-1)
+        c_len, ps = int(chunk.shape[0]), self.page_size
+        n_full = len(np.asarray(prefix_ids).reshape(-1))
+        n_region = len(np.asarray(region_ids).reshape(-1))
+        if (c_len == 0 or c_len % ps or start % c_len or n_full * ps != start
+                or n_region != c_len // ps):
+            raise ValueError(f"a chunk of {c_len} tokens at {start} needs "
+                             f"page-aligned bounds, {start // ps} resident "
+                             f"pages and {c_len // ps} region pages (got "
+                             f"{n_full} and {n_region})")
+        ctx = self._shared_ctx(prefix_ids, region_ids, start, start,
+                               start + c_len)
+        _, cache = lm.forward_prefill_shared(
+            params, self._padded(chunk, c_len), self.run.arch,
+            self.run.policy, cache, slot, ctx, row, head=False)
+        self.prefill_tokens += c_len
+        return cache
 
     def _admit_draft(self, params, padded: torch.Tensor, t: int,
                      slot: int) -> None:

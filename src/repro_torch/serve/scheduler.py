@@ -10,6 +10,16 @@ pages as well as free slots, pages grow on demand before each chunk (the
 page table goes to the device only when it changed) and return to the pool
 at retire.
 
+With prefix sharing on (``SlotEngine(prefix_sharing=True)``) admission
+first radix-matches the prompt against resident page chains and, when a
+full page matches and the copy-on-write / suffix region can be reserved,
+admits at the fork point: the matched pages are mapped read-only, a
+partial boundary page is copied, and only the suffix is prefilled.
+Otherwise (no match, or a region that does not fit now) it falls through
+to the standard prefill. Every admission registers the prompt's full pages
+in the index and every retirement the chain whose KV was written, so later
+requests share them; a quarantined slot's chain is never registered.
+
 Prompts that cannot fit (``len(prompt) + max_new_tokens > max_len``) are
 REJECTED — ``Request.reject_reason`` is set and the request comes back
 unserved, never silently truncated.
@@ -126,11 +136,19 @@ class SlotScheduler:
     def __init__(self, engine: SlotEngine, params):
         self.engine = engine
         self.params = params
-        self.cache, self.state = engine.init_state()
         self.alloc: Optional[PageAllocator] = None
-        if engine.paged:
-            self.alloc = PageAllocator(engine.num_pages, engine.capacity,
-                                       engine.max_pages, engine.page_size)
+        if engine.persistent_prefix_index and engine.resident is not None:
+            # resume the previous serve() call's pool: index, refcounts and
+            # the device cache stay warm, so recurring prefixes hit in the
+            # next stream. Popped, so the engine holds no second handle.
+            self.cache, self.state, self.alloc = engine.resident
+            engine.resident = None
+        else:
+            self.cache, self.state = engine.init_state()
+            if engine.paged:
+                self.alloc = PageAllocator(engine.num_pages, engine.capacity,
+                                           engine.max_pages, engine.page_size,
+                                           sharing=engine.prefix_sharing)
         self.free: deque = deque(range(engine.capacity))
         self.occupant: Dict[int, Request] = {}       # slot -> request
         self._gen_seen: Dict[int, int] = {}          # slot -> tokens recorded
@@ -138,6 +156,8 @@ class SlotScheduler:
         self._t_last: Dict[int, float] = {}          # slot -> last token time
         self.clock: Optional[Callable[[], float]] = None   # set by serve()
         self.max_concurrency = 0
+        self.shared_tokens = 0              # prompt tokens NOT prefilled
+        self.shared_admissions = 0          # fork-point admissions
 
     def _now(self, fallback: float) -> float:
         return self.clock() if self.clock is not None else fallback
@@ -156,6 +176,9 @@ class SlotScheduler:
             return REJECTED
         if not self.free:
             return FULL
+        sharing = self.alloc is not None and self.alloc.index is not None
+        if sharing and self._admit_shared(req, now, t):
+            return ADMITTED
         page_ids = None
         if self.alloc is not None:
             bucket = self.engine._bucket(t)
@@ -171,6 +194,53 @@ class SlotScheduler:
         self.cache, self.state, tok0 = self.engine.prefill_into(
             self.params, self.cache, self.state, req.prompt, slot,
             req.max_new_tokens, page_ids=page_ids, seed=req.seed)
+        if sharing:
+            # index the prompt's full pages (written above, before any
+            # reader's prefill: one device stream)
+            self.alloc.register(np.asarray(req.prompt), slot)
+        self._finish_admit(req, slot, tok0, now, t)
+        return ADMITTED
+
+    def _admit_shared(self, req: Request, now: float, t: int) -> bool:
+        """Fork-point admission against the prefix index. False when no
+        full page matches, or when the COW / suffix region cannot be
+        reserved now: bucket rounding can make the shared reservation
+        LARGER than the standard one (rem + bucket(t - start) may exceed
+        bucket(t)), so the caller falls through to the standard path
+        rather than reporting FULL."""
+        prompt = np.asarray(req.prompt)
+        pages, boundary, rem = self.alloc.match(prompt)
+        if not pages:
+            return False                             # min share: 1 full page
+        if boundary is None:
+            rem = 0
+        start = len(pages) * self.engine.page_size + rem
+        suffix_bucket = self.engine._bucket(t - start)
+        if not self.alloc.can_admit_shared(pages, boundary, rem,
+                                           suffix_bucket, t,
+                                           req.max_new_tokens):
+            return False
+        slot = self.free.popleft()
+        prefix_ids, region_ids = self.alloc.admit_shared(
+            slot, pages, boundary, rem, suffix_bucket, t, req.max_new_tokens)
+        if rem > 0:
+            # copy-on-write: the boundary page is duplicated BEFORE the
+            # suffix prefill writes into it; the donor page is never
+            # written by this slot
+            self.cache = self.engine.copy_page(self.cache, int(boundary),
+                                               int(region_ids[0]))
+        self.cache, self.state, tok0 = self.engine.prefill_into_shared(
+            self.params, self.cache, self.state, prompt, start, slot,
+            req.max_new_tokens, prefix_ids, region_ids,
+            self.alloc.table[slot], seed=req.seed)
+        self.alloc.register(prompt, slot)
+        self.shared_tokens += start
+        self.shared_admissions += 1
+        self._finish_admit(req, slot, tok0, now, t)
+        return True
+
+    def _finish_admit(self, req: Request, slot: int, tok0, now: float,
+                      t: int) -> None:
         tok_i = int(tok0)                            # host sync: prefill done
         t_tok = max(self._now(now), req.arrival)
         req.t_admitted = now
@@ -181,7 +251,6 @@ class SlotScheduler:
         self._true_len[slot] = t
         self._t_last[slot] = t_tok
         self.max_concurrency = max(self.max_concurrency, len(self.occupant))
-        return ADMITTED
 
     def admission_round(self, waiting: deque, now: float,
                         realtime: bool) -> bool:
@@ -221,12 +290,23 @@ class SlotScheduler:
                                                     self.alloc.table)
             self.alloc.dirty = False
 
-    def _retire(self, slot: int) -> None:
+    def _retire(self, slot: int, req: Request, register: bool = True
+                ) -> None:
+        """Return a finished slot to the pool. With sharing on, its chain
+        is indexed first (``register=False`` for a quarantined slot: its
+        KV must never be shared): KV is resident through position
+        t + len(tokens) - 2 (the last token was never fed back), hence
+        ``tokens[:-1]``."""
         del self.occupant[slot]
         del self._gen_seen[slot]
         del self._true_len[slot]
         self._t_last.pop(slot, None)
         if self.alloc is not None:
+            if register and self.alloc.index is not None:
+                chain = np.concatenate([np.asarray(req.prompt, np.int64),
+                                        np.asarray(req.tokens[:-1],
+                                                   np.int64)])
+                self.alloc.register(chain, slot)
             self.alloc.release(slot)                 # pages -> free list
         self.free.append(slot)                       # backfill: host-only
 
@@ -258,19 +338,23 @@ class SlotScheduler:
                 self._t_last[slot] = t_tok
             if quar_np[slot]:
                 # non-finite logits: shed ONLY this request and zero its
-                # KV (row or pages) before the slot or pages are reused
-                pages = (self.alloc.owned[slot] if self.alloc is not None
-                         else None)
+                # KV (row or pages) before the slot or pages are reused;
+                # only the pages it alone holds (refcount 1): a shared
+                # prefix page holds a donor's KV, which others still read
+                pages = None
+                if self.alloc is not None:
+                    pages = [p for p in self.alloc.owned[slot]
+                             if self.alloc.refcnt.get(p) == 1]
                 self.cache = self.engine.scrub_slot_kv(self.cache, slot,
                                                        pages)
                 req.reject_reason = reject_reason(
                     REASON_NAN, "non-finite logits: slot quarantined, "
                     f"{len(req.tokens)} tokens salvaged")
                 req.t_finished = max(now, req.arrival)
-                self._retire(slot)
+                self._retire(slot, req, register=False)
             elif done_np[slot]:
                 req.t_finished = max(now, req.arrival)
-                self._retire(slot)
+                self._retire(slot, req)
         return produced
 
     @property
@@ -319,6 +403,14 @@ def serve(engine: SlotEngine, params, requests: List[Request],
     stats["prefill_tokens"] = float(engine.prefill_tokens)   # cumulative
     if sched.alloc is not None:
         stats["peak_pages"] = float(sched.alloc.peak_pages)
+        if sched.alloc.index is not None:
+            stats["shared_tokens"] = float(sched.shared_tokens)
+            stats["shared_admissions"] = float(sched.shared_admissions)
+            stats["index_pages"] = float(len(sched.alloc.index))
+            stats["index_evictions"] = float(sched.alloc.index.evictions)
+    if engine.persistent_prefix_index:
+        # park the warm pool for the next serve() call (popped before reuse)
+        engine.resident = (sched.cache, sched.state, sched.alloc)
     return ServeReport(requests=requests, wall_s=wall, decode_tokens=total,
                        stats=stats)
 

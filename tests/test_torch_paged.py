@@ -239,8 +239,12 @@ def test_allocator_reservation_accounting():
         alloc.ensure(0, last_pos=24)                # past the reservation
     alloc.release(0)
     assert alloc.available == 8 and not alloc.owned
-    with pytest.raises(NotImplementedError):
-        PageAllocator(9, 4, 4, 8, sharing=True)
+    # with sharing on (no prefix indexed yet) the same admission reserves
+    # the same worst case
+    shared = PageAllocator(9, 4, 4, 8, sharing=True)
+    assert shared.index is not None and shared.available == 8
+    shared.admit(0, bucket_len=16, true_len=12, max_new=12)
+    assert shared.available == 8 - 3
     drained = PageAllocator(num_pages=2, capacity=1, max_pages=1, page_size=8)
     drained.free.clear()
     with pytest.raises(PoolExhausted):
