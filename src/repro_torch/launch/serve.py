@@ -54,6 +54,20 @@ it something to share:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --device cpu --paged --prefix-sharing --shared-prefix-len 24
 
+``--preemption`` / ``--priority N`` / ``--prefill-chunk C`` /
+``--slo-ttft-ms T`` route the stream through the overload scheduler
+(``serve/overload.py``): optimistic page admission whose growth preempts
+(host-swaps or re-prefills) the lowest-priority victim instead of
+rejecting new work, N aged priority classes, per-request TTFT sheds, and
+long prompts admitted as C-token prefill chunks between decode chunks. One
+``overload:`` line reports the scheduler's counts. ``--preemption`` and
+``--prefill-chunk`` need ``--paged``; C must be a multiple of
+``--page-size`` (exit 2 otherwise):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
+        --device cpu --paged --num-pages 9 --capacity 3 --preemption \
+        --priority 3 --prefill-chunk 16
+
 ``--gated`` decodes through the gated early-exit path: on steps where
 every live slot exits, the layers past the exit are skipped and their KV
 filled by CALM propagation. It needs an attention-only arch with one exit
@@ -81,6 +95,7 @@ import numpy as np
 from repro_torch.configs.base import RunConfig, get_arch, list_archs
 from repro_torch.models import lm
 from repro_torch.serve.engine import SlotEngine, SpecConfig
+from repro_torch.serve.overload import OverloadConfig
 from repro_torch.serve.scheduler import poisson_requests, serve
 
 
@@ -114,6 +129,24 @@ def main(argv=None):
                     help="give every request a common prompt prefix of "
                          "this many tokens (a workload for "
                          "--prefix-sharing)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="overload control: optimistic page admission with "
+                         "priority-aware preemption; victims are host-"
+                         "swapped or re-prefilled instead of new arrivals "
+                         "being rejected (requires --paged)")
+    ap.add_argument("--priority", type=int, default=0, metavar="N",
+                    help="number of priority classes: each request draws a "
+                         "priority in [0, N) (higher = sooner; aged so "
+                         "nothing starves); N <= 1 keeps one class. Routed "
+                         "through the overload scheduler")
+    ap.add_argument("--prefill-chunk", type=int, default=0, metavar="C",
+                    help="chunked prefill: admit long prompts as C-token "
+                         "prefill chunks between decode chunks (requires "
+                         "--paged; C a multiple of --page-size)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="stamp every request with this first-token SLO; "
+                         "the overload scheduler sheds queued requests "
+                         "that have already missed it (0 = off)")
     ap.add_argument("--draft", default=None,
                     help="draft arch for greedy speculative decoding")
     ap.add_argument("--spec-k", type=int, default=None,
@@ -149,6 +182,23 @@ def main(argv=None):
         ap.error("--prefix-sharing requires --paged: shared prefixes are "
                  "mapped as refcounted KV pages, which only exist in the "
                  "paged engine")
+    if args.preemption and not args.paged:
+        ap.error("--preemption requires --paged: optimistic admission and "
+                 "the host-swap pool work on KV pages; add --paged")
+    if args.prefill_chunk:
+        if not args.paged:
+            ap.error("--prefill-chunk requires --paged: chunk KV is written "
+                     "page by page into the pool; add --paged")
+        if args.prefill_chunk < 0 or args.prefill_chunk % args.page_size:
+            ap.error(f"--prefill-chunk {args.prefill_chunk} must be a "
+                     f"positive multiple of --page-size {args.page_size}: "
+                     f"chunk boundaries must land on page boundaries")
+        if args.draft:
+            ap.error("--draft cannot be combined with --prefill-chunk: "
+                     "chunked admission writes the target's KV page by "
+                     "page and never prefills the draft's slot cache")
+    if args.priority < 0:
+        ap.error("--priority must be >= 0 (number of priority classes)")
     if args.prefix_sharing:
         try:
             lm.check_shared_prefill(get_arch(args.arch))
@@ -201,12 +251,23 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, early_exit=dataclasses.replace(
             cfg.early_exit, entropy_threshold=args.threshold))
     params = lm.init_lm(cfg, seed=0, device=args.device)
+    overload = None
+    if (args.preemption or args.priority > 1 or args.prefill_chunk
+            or args.slo_ttft_ms > 0):
+        overload = OverloadConfig(
+            mode="preempt" if args.preemption else "reject",
+            prefill_chunk=args.prefill_chunk)
+    prio_spec = None
+    if args.priority > 1:
+        prio_spec = (np.arange(args.priority),
+                     np.full(args.priority, 1.0 / args.priority))
     requests = poisson_requests(
         num=args.requests,
         rate_hz=(args.rate if args.rate > 0 else np.inf),
         prompt_lens=(args.prompt_len_min, args.prompt_len_max),
         max_new_tokens=args.new_tokens, vocab_size=cfg.vocab_size,
-        seed=args.seed)
+        seed=args.seed, priorities=prio_spec,
+        slo_ttft_ms=args.slo_ttft_ms if args.slo_ttft_ms > 0 else None)
     if args.shared_prefix_len > 0:
         # every prompt opens with the same system-prompt-like prefix (the
         # JAX launcher's draw), a unique suffix after it
@@ -222,7 +283,8 @@ def main(argv=None):
                         temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, sample_seed=args.sample_seed,
                         prefix_sharing=args.prefix_sharing)
-    report = serve(engine, params, requests, realtime=args.rate > 0)
+    report = serve(engine, params, requests, realtime=args.rate > 0,
+                   overload=overload)
 
     lat = report.latency_percentiles()
     ttft = report.ttft_percentiles()
@@ -257,6 +319,14 @@ def main(argv=None):
               f"{int(report.stats['prefill_tokens'])} bucketed tokens); "
               f"index {int(report.stats['index_pages'])} pages, "
               f"{int(report.stats['index_evictions'])} evicted")
+    if overload is not None:
+        st = report.stats
+        print(f"  overload: mode={overload.mode} " + " ".join(
+            f"{k}={int(v)}" for k, v in st.items()
+            if k in ("preemptions", "swap_outs", "swap_resumes",
+                     "recompute_resumes", "shed_ttft", "shed_deadline",
+                     "chunked_admissions", "swap_bytes_peak"))
+            + f" completion={report.completion_rate:.0%}")
     if spec is not None:
         print(f"  spec decode: k={spec.k} draft={args.draft} acceptance="
               f"{report.stats['spec_acceptance']:.2%}")

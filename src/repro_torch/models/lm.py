@@ -37,6 +37,8 @@ filling their cache rows by CALM propagation from the exit hidden state.
 an MoE) prefills only the suffix of a prompt whose prefix KV is already
 resident in shared pages (prefix sharing), or one chunk of a long prompt
 (chunked prefill); ``copy_pages`` is its copy-on-write.
+``gather_pages`` / ``scatter_pages`` move whole pool pages out and back
+in (the overload scheduler's host swap).
 """
 from __future__ import annotations
 
@@ -606,6 +608,44 @@ def copy_pages(cache: PagedLMCache, src: int, dst: int) -> PagedLMCache:
     is copied here BEFORE the suffix prefill writes into it, so the
     divergent suffix never writes a page another slot still maps."""
     attn.copy_page(cache.pools, src, dst)
+    return cache
+
+
+def gather_pages(cache: PagedLMCache, page_ids: torch.Tensor):
+    """Gather pool pages ``page_ids`` (position order) out of every
+    attention layer: the device side of a host SWAP-OUT. The port stacks
+    every attention layer's pool in one [La, P, ...] tensor (dense prefix
+    layers and the super-blocks' layers in absolute order, the layer axis
+    first), so the blocks are one ``PagedKVCache`` (GQA K / V) or
+    ``PagedMLACache`` (latent / rotary key) of [La, n, ...] tensors.
+    Recurrent state is slot-indexed, not paged: an arch with no attention
+    layer gives None."""
+    pools = cache.pools
+    if not pools:
+        return None
+    ids = page_ids.to(device=pools[0].device, dtype=torch.long)
+    return type(pools)(*(pool.index_select(1, ids) for pool in pools))
+
+
+def scatter_pages(cache: PagedLMCache, page_ids: torch.Tensor,
+                  blocks) -> PagedLMCache:
+    """Write swapped-out ``blocks`` (a :func:`gather_pages` result) into
+    pool pages ``page_ids`` of every attention layer, in place: the device
+    side of a SWAP-IN. The ids need not be those the blocks were gathered
+    from: the resumed slot maps fresh pages in the same position order,
+    so the bytes it attends are the same."""
+    pools = cache.pools
+    if not pools:
+        if blocks is not None:
+            raise ValueError("page blocks for a cache without a page pool")
+        return cache
+    ids = page_ids.to(device=pools[0].device, dtype=torch.long)
+    for pool, blk in zip(pools, blocks):
+        if blk.shape[1] != ids.shape[0] or blk.shape[2:] != pool.shape[2:]:
+            raise ValueError(f"blocks {tuple(blk.shape)} for {ids.shape[0]} "
+                             f"pages of a pool {tuple(pool.shape)}")
+        pool.index_copy_(1, ids, blk.to(device=pool.device,
+                                        dtype=pool.dtype))
     return cache
 
 

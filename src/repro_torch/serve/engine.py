@@ -33,6 +33,13 @@ continuous-batching engine and the one-request reference loop
     (``copy_page``) and prefills only the unshared suffix against them
     (``prefill_into_shared``). ``prefill_chunk`` runs one page-aligned
     chunk of a long prompt through the same fork-point prefill.
+  * Preemption (the overload scheduler, ``serve/overload.py``):
+    ``fetch_pages`` swaps a victim's pages out to host memory,
+    ``deactivate_slot`` kills its slot, and a resume writes the pages
+    back into fresh ids (``restore_pages``) and re-arms a slot at the
+    victim's position, token, budget and generator (``restore_slot``).
+    All of it runs between chunks: the decode step reads nothing on the
+    host.
   * Gated early-exit decode (``gated=True``): ``lm.forward_decode_gated``
     skips the layers past the exit on steps where every live slot exits.
   * Sampling (``temperature > 0``, optional ``top_k`` / ``top_p``):
@@ -701,6 +708,84 @@ class SlotEngine:
         for pool in cache.pools:
             pool[:, ids] = 0
         return cache
+
+    # -- preemption: host swap and slot resume -----------------------------
+    #
+    # The JAX engine pads the page ids to a power of two so that swaps of
+    # any page count share one jit trace; nothing here is traced, so the
+    # port gathers and scatters the exact ids (a deliberate divergence: no
+    # pad blocks ride along, and nothing is written to the scratch page).
+
+    def _page_ids(self, page_ids) -> torch.Tensor:
+        if not self.paged:
+            raise ValueError("page swap on a contiguous engine")
+        ids = np.asarray(page_ids, np.int64).reshape(-1)
+        if ids.size == 0 or ids.size > self.max_pages or (ids < 1).any() \
+                or (ids >= self.num_pages).any():
+            raise ValueError(f"page ids {ids.tolist()} are not 1..."
+                             f"{self.max_pages} pool pages of "
+                             f"{self.num_pages}")
+        return torch.as_tensor(ids, device=self.device)
+
+    @torch.inference_mode()
+    def fetch_pages(self, cache: lm.PagedLMCache, page_ids):
+        """SWAP-OUT: gather the pool pages ``page_ids`` (position order)
+        from every attention layer in one batched gather a pool on the
+        device, then copy the blocks to host memory (pinned on a card) and
+        wait for the copy. Returns the blocks (``lm.gather_pages``'s
+        structure, on the host); None for an arch without a pool."""
+        blocks = lm.gather_pages(cache, self._page_ids(page_ids))
+        if blocks is None:
+            return None
+        pin = self.device.type == "cuda"
+        host = type(blocks)(*(
+            torch.empty(b.shape, dtype=b.dtype, pin_memory=pin).copy_(
+                b, non_blocking=pin) for b in blocks))
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    @torch.inference_mode()
+    def restore_pages(self, cache: lm.PagedLMCache, page_ids, blocks
+                      ) -> lm.PagedLMCache:
+        """SWAP-IN: write ``blocks`` (a :meth:`fetch_pages` result) into
+        the FRESH pool pages ``page_ids``, in place: the same position
+        order, possibly other ids than at swap-out."""
+        return lm.scatter_pages(cache, self._page_ids(page_ids), blocks)
+
+    @torch.inference_mode()
+    def restore_slot(self, cache, st: DecodeState, slot: int, token: int,
+                     budget: int, pos: int, rng_state=None):
+        """Re-arm ``slot`` after a swap-in, in place: the last generated
+        ``token`` is the next decode input, ``budget`` tokens remain (the
+        generated count restarts at 0), the cache position is the one KV
+        row not yet written (the last token's), and with ``rng_state``
+        (``torch.Generator.get_state()`` of the victim's generator, saved
+        at swap-out) the slot draws from a generator set to it, so a
+        sampled request goes on with its uninterrupted stream. Returns
+        (cache, st)."""
+        st.tokens[slot] = int(token)
+        st.done[slot] = budget <= 0
+        st.generated[slot] = 0
+        st.budget[slot] = int(budget)
+        st.quarantined[slot] = False
+        if rng_state is not None:
+            if st.rng is None:
+                raise ValueError("a generator state for a greedy engine")
+            st.rng[slot] = torch.Generator(device=self.device)
+            st.rng[slot].set_state(rng_state)
+        cache.pos[slot] = int(pos)
+        return cache, st
+
+    @torch.inference_mode()
+    def deactivate_slot(self, st: DecodeState, slot: int) -> DecodeState:
+        """Kill a preempted or stopped slot on the device: mark it done,
+        so the next decode chunk freezes its token, pins its cache
+        position and masks it out of MoE routing. On a paged engine its
+        page-table row is cleared by the host (appends go to the scratch
+        page); the next admission rewrites the rest."""
+        st.done[slot] = True
+        return st
 
     # -- decode ------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Host-side page allocation for the paged KV serve engine (port of
-``repro.serve.paging``, with prefix sharing; the overload subsystem's
-optimistic mode and snapshots' ``clone`` are not ported).
+``repro.serve.paging``, with prefix sharing and the overload subsystem's
+optimistic mode; snapshots' ``clone`` is not ported).
 
 The device never allocates: the :class:`PageAllocator` owns the free list,
 per-slot page ownership and a numpy mirror of the device page table. The
@@ -38,6 +38,16 @@ Invariants:
   on-demand growth during decode can never fail. With sharing off every
   refcount is exactly 1 and the arithmetic is that of the allocator
   without sharing.
+
+OPTIMISTIC mode (``optimistic=True``, the overload scheduler of
+``serve/overload.py``): admission drops the worst-case reservation and
+asks only for the pages mapped RIGHT NOW (the prefill bucket, or the COW
++ suffix region); ``reserved`` then tracks the high-water mark of actual
+ownership instead of a promise. So ``_pop_free`` can run dry mid-decode:
+it raises :class:`PoolExhausted` and the overload scheduler preempts a
+victim, frees or host-swaps its pages and retries the growth. Every
+successful pop lands in the table row before the next, so a failed
+``ensure`` leaves the mirror and ownership consistent and can be retried.
 """
 from __future__ import annotations
 
@@ -183,16 +193,19 @@ class PrefixIndex:
 
 
 class PoolExhausted(RuntimeError):
-    """A page pop found the pool dry with nothing reclaimable. Reservation
-    accounting rules this out for every admitted request, so it signals a
-    broken invariant."""
+    """A page pop found the pool dry with nothing reclaimable. Under
+    optimistic admission this is the overload scheduler's cue to preempt
+    a victim and retry; otherwise reservation accounting rules it out for
+    every admitted request, so it signals a broken invariant."""
 
 
 class PageAllocator:
     def __init__(self, num_pages: int, capacity: int, max_pages: int,
-                 page_size: int, sharing: bool = False):
+                 page_size: int, sharing: bool = False,
+                 optimistic: bool = False):
         if num_pages < 2:
             raise ValueError("need at least one non-scratch page")
+        self.optimistic = optimistic
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages = max_pages
@@ -221,11 +234,15 @@ class PageAllocator:
     def _pop_free(self) -> int:
         """Pop a free page, evicting LRU index-only pages if the free list
         ran dry (covered by ``available``'s reclaimable term, so a pop
-        guarded by ``can_admit`` / the reservation never fails)."""
+        guarded by ``can_admit`` / the reservation never fails, unless
+        admission is optimistic)."""
         while not self.free:
             freed = (self.index.evict_one(self)
                      if self.index is not None else None)
             if freed is None:
+                if self.optimistic:
+                    raise PoolExhausted("page pool dry under optimistic "
+                                        "admission")
                 raise PoolExhausted("allocator exhausted despite reservation "
                                     "accounting")
         pid = self.free.popleft()
@@ -262,7 +279,11 @@ class PageAllocator:
                      max_new: int) -> int:
         # bucket pages are allocated up front; decode appends stop at
         # position true_len + max_new - 1 (dead-slot re-appends go to
-        # scratch or the slot's own last page, never elsewhere)
+        # scratch or the slot's own last page, never elsewhere). Optimistic
+        # admission asks for the bucket alone: growth is backed by
+        # preemption, not a promise
+        if self.optimistic:
+            return self.pages_for(bucket_len)
         return max(self.pages_for(bucket_len),
                    self.pages_for(true_len + max_new))
 
@@ -293,9 +314,13 @@ class PageAllocator:
 
     def ensure(self, slot: int, last_pos: int) -> None:
         """Grow ``slot`` so position ``last_pos`` has a page (on-demand
-        decode allocation, covered by the admission reservation)."""
+        decode allocation, covered by the admission reservation; under
+        optimistic admission the reservation follows the growth and a dry
+        pool raises :class:`PoolExhausted`)."""
         need = last_pos // self.page_size + 1
-        if need > self.reserved[slot]:
+        if self.optimistic:
+            self.reserved[slot] = max(self.reserved[slot], need)
+        elif need > self.reserved[slot]:
             raise ValueError(f"slot {slot}: position {last_pos} is past its "
                              f"reservation of {self.reserved[slot]} pages")
         pages = self.owned[slot]
@@ -352,8 +377,11 @@ class PageAllocator:
         pages leave the reclaimable count the moment admission retains
         them."""
         n_region = self.pages_for(rem + suffix_bucket)
-        need = max(n_region,
-                   self.pages_for(true_len + max_new) - len(prefix_pages))
+        if self.optimistic:
+            need = n_region
+        else:
+            need = max(n_region,
+                       self.pages_for(true_len + max_new) - len(prefix_pages))
         return need <= self.available - self._pinned(prefix_pages, boundary)
 
     def admit_shared(self, slot: int, prefix_pages: Sequence[int],
@@ -384,8 +412,9 @@ class PageAllocator:
                                             # the caller's next operation
         ids = [int(p) for p in prefix_pages] + region
         self.owned[slot] = ids
-        self.reserved[slot] = max(len(ids),
-                                  self.pages_for(true_len + max_new))
+        self.reserved[slot] = (len(ids) if self.optimistic else
+                               max(len(ids),
+                                   self.pages_for(true_len + max_new)))
         self.table[slot, :] = -1
         self.table[slot, :len(ids)] = ids
         self.dirty = True

@@ -22,7 +22,16 @@ requests share them; a quarantined slot's chain is never registered.
 
 Prompts that cannot fit (``len(prompt) + max_new_tokens > max_len``) are
 REJECTED — ``Request.reject_reason`` is set and the request comes back
-unserved, never silently truncated.
+unserved, never silently truncated. A request with a ``stop_token``
+retires at its first emission of it (kept, the rest of the chunk's rows
+dropped): ``max_new_tokens`` is then a cap, not the realized length.
+
+OVERLOAD CONTROL: ``serve(..., overload=OverloadConfig(...))`` runs the
+stream through :class:`repro_torch.serve.overload.OverloadScheduler`
+instead: priority-aged admission, optimistic paging with preemption (host
+swap or re-prefill resume), SLO sheds and chunked prefill. This base
+scheduler keeps the worst-case reservation and is the reject-only
+baseline.
 """
 from __future__ import annotations
 
@@ -47,12 +56,20 @@ class Request:
     # optional per-request sample seed: a seeded request replays the same
     # tokens whatever slot it lands in (sampled engines; greedy ignores it)
     seed: Optional[int] = None
+    # optional early stop: retire at the FIRST emission of this token id
+    # (kept), so ``max_new_tokens`` is a reservation cap
+    stop_token: Optional[int] = None
+    # -- overload control (all optional) -----------------------------------
+    priority: int = 0                     # higher = more important
+    deadline_ms: Optional[float] = None   # complete within this, or shed
+    slo_ttft_ms: Optional[float] = None   # first token within this, or shed
 
     # lifecycle (filled by the scheduler)
     t_admitted: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finished: Optional[float] = None
     reject_reason: Optional[str] = None
+    preemptions: int = 0
     tokens: List[int] = field(default_factory=list)
     itl: List[float] = field(default_factory=list)  # inter-token gaps (s)
 
@@ -103,13 +120,36 @@ class ServeReport:
     def latency_percentiles(self) -> Dict[str, float]:
         return _pctiles([r.latency for r in self.served])
 
-    def ttft_percentiles(self) -> Dict[str, float]:
-        return _pctiles([r.ttft for r in self.served if r.ttft is not None])
+    def ttft_percentiles(self, min_priority: Optional[int] = None
+                         ) -> Dict[str, float]:
+        """Time-to-first-token percentiles over served requests (with
+        ``min_priority``: only those of ``priority >= min_priority``)."""
+        return _pctiles([r.ttft for r in self.served if r.ttft is not None
+                         and (min_priority is None
+                              or r.priority >= min_priority)])
 
     def itl_percentiles(self) -> Dict[str, float]:
         """Inter-token gaps pooled over served requests (chunk-granular:
         a chunk's wall time is spread over the tokens it produced)."""
         return _pctiles([g for r in self.served for g in r.itl])
+
+    def breakdown(self) -> Dict[str, float]:
+        """Mean time a request spends queued (arrival -> admission), in
+        prefill (admission -> first token) and in decode (first token ->
+        done)."""
+        done = [r for r in self.served if r.t_finished is not None
+                and r.t_first_token is not None and r.t_admitted is not None]
+        if not done:
+            nan = float("nan")
+            return {"queue_s": nan, "prefill_s": nan, "decode_s": nan}
+        return {
+            "queue_s": float(np.mean(
+                [max(r.t_admitted - r.arrival, 0.0) for r in done])),
+            "prefill_s": float(np.mean(
+                [max(r.t_first_token - r.t_admitted, 0.0) for r in done])),
+            "decode_s": float(np.mean(
+                [max(r.t_finished - r.t_first_token, 0.0) for r in done])),
+        }
 
 
 # admit() outcomes
@@ -118,10 +158,13 @@ FULL = "full"          # retry when a slot / pages free up
 REJECTED = "rejected"  # can never be served by this engine
 
 # every reject_reason is "<code>: <detail>" with <code> one of these
-REASON_SHED = "shed"
-REASON_TOO_LONG = "too-long"
-REASON_NAN = "nan-quarantined"
-REJECT_REASONS = (REASON_SHED, REASON_TOO_LONG, REASON_NAN)
+REASON_SHED = "shed"              # load shedding / unservable by this pool
+REASON_DEADLINE = "deadline"      # completion deadline infeasible
+REASON_TTFT = "ttft-slo"          # first-token SLO already missed
+REASON_TOO_LONG = "too-long"      # prompt + budget exceeds max_len
+REASON_NAN = "nan-quarantined"    # non-finite logits: slot quarantined
+REJECT_REASONS = (REASON_SHED, REASON_DEADLINE, REASON_TTFT,
+                  REASON_TOO_LONG, REASON_NAN)
 
 
 def reject_reason(code: str, detail: str) -> str:
@@ -133,6 +176,11 @@ def reject_reason(code: str, detail: str) -> str:
 class SlotScheduler:
     """Admission / retirement / backfill over a SlotEngine's slot batch."""
 
+    # the overload subclass sets this before ``__init__`` builds the
+    # allocator: admission then asks for the pages mapped now and growth
+    # raises PoolExhausted when the pool runs dry
+    _optimistic = False
+
     def __init__(self, engine: SlotEngine, params):
         self.engine = engine
         self.params = params
@@ -143,16 +191,19 @@ class SlotScheduler:
             # next stream. Popped, so the engine holds no second handle.
             self.cache, self.state, self.alloc = engine.resident
             engine.resident = None
+            self.alloc.optimistic = self._optimistic
         else:
             self.cache, self.state = engine.init_state()
             if engine.paged:
                 self.alloc = PageAllocator(engine.num_pages, engine.capacity,
                                            engine.max_pages, engine.page_size,
-                                           sharing=engine.prefix_sharing)
+                                           sharing=engine.prefix_sharing,
+                                           optimistic=self._optimistic)
         self.free: deque = deque(range(engine.capacity))
         self.occupant: Dict[int, Request] = {}       # slot -> request
         self._gen_seen: Dict[int, int] = {}          # slot -> tokens recorded
         self._true_len: Dict[int, int] = {}          # slot -> prompt length
+        self._budget: Dict[int, int] = {}            # slot -> admission budget
         self._t_last: Dict[int, float] = {}          # slot -> last token time
         self.clock: Optional[Callable[[], float]] = None   # set by serve()
         self.max_concurrency = 0
@@ -164,51 +215,58 @@ class SlotScheduler:
 
     # -- admission ---------------------------------------------------------
 
-    def admit(self, req: Request, now: float) -> str:
+    def admit(self, req: Request, now: float,
+              prompt: Optional[np.ndarray] = None,
+              budget: Optional[int] = None) -> str:
         """Prefill ``req`` into a free slot: ADMITTED, FULL (retry later)
-        or REJECTED (impossible — ``reject_reason`` set)."""
-        t = int(len(req.prompt))
-        if t + req.max_new_tokens > self.engine.max_len:
+        or REJECTED (impossible — ``reject_reason`` set). ``prompt`` /
+        ``budget`` override the request's own: the overload scheduler
+        resumes a preempted request by admitting its prompt ++ generated
+        tokens with the REMAINING budget."""
+        prompt = np.asarray(req.prompt if prompt is None else prompt)
+        budget = req.max_new_tokens if budget is None else budget
+        t = int(len(prompt))
+        if t + budget > self.engine.max_len:
             req.reject_reason = reject_reason(
                 REASON_TOO_LONG,
-                f"prompt ({t}) + max_new_tokens ({req.max_new_tokens}) "
+                f"prompt ({t}) + max_new_tokens ({budget}) "
                 f"exceeds engine max_len ({self.engine.max_len})")
             return REJECTED
         if not self.free:
             return FULL
         sharing = self.alloc is not None and self.alloc.index is not None
-        if sharing and self._admit_shared(req, now, t):
+        if sharing and self._admit_shared(req, now, prompt, budget, t):
             return ADMITTED
         page_ids = None
         if self.alloc is not None:
             bucket = self.engine._bucket(t)
-            if not self.alloc.can_admit(bucket, t, req.max_new_tokens):
+            if not self.alloc.can_admit(bucket, t, budget):
                 return FULL                          # admission by free pages
             slot = self.free.popleft()
-            page_ids = self.alloc.admit(slot, bucket, t, req.max_new_tokens)
+            page_ids = self.alloc.admit(slot, bucket, t, budget)
         else:
             slot = self.free.popleft()
         # (the prefill writes this slot's device table row; other pending
         # mirror changes, e.g. rows cleared by release(), keep alloc.dirty
         # set and reach the device before the next chunk)
         self.cache, self.state, tok0 = self.engine.prefill_into(
-            self.params, self.cache, self.state, req.prompt, slot,
-            req.max_new_tokens, page_ids=page_ids, seed=req.seed)
+            self.params, self.cache, self.state, prompt, slot, budget,
+            page_ids=page_ids, seed=req.seed)
         if sharing:
             # index the prompt's full pages (written above, before any
             # reader's prefill: one device stream)
-            self.alloc.register(np.asarray(req.prompt), slot)
-        self._finish_admit(req, slot, tok0, now, t)
+            self.alloc.register(prompt, slot)
+        self._finish_admit(req, slot, tok0, now, t, budget)
         return ADMITTED
 
-    def _admit_shared(self, req: Request, now: float, t: int) -> bool:
+    def _admit_shared(self, req: Request, now: float, prompt: np.ndarray,
+                      budget: int, t: int) -> bool:
         """Fork-point admission against the prefix index. False when no
         full page matches, or when the COW / suffix region cannot be
         reserved now: bucket rounding can make the shared reservation
         LARGER than the standard one (rem + bucket(t - start) may exceed
         bucket(t)), so the caller falls through to the standard path
         rather than reporting FULL."""
-        prompt = np.asarray(req.prompt)
         pages, boundary, rem = self.alloc.match(prompt)
         if not pages:
             return False                             # min share: 1 full page
@@ -217,12 +275,11 @@ class SlotScheduler:
         start = len(pages) * self.engine.page_size + rem
         suffix_bucket = self.engine._bucket(t - start)
         if not self.alloc.can_admit_shared(pages, boundary, rem,
-                                           suffix_bucket, t,
-                                           req.max_new_tokens):
+                                           suffix_bucket, t, budget):
             return False
         slot = self.free.popleft()
         prefix_ids, region_ids = self.alloc.admit_shared(
-            slot, pages, boundary, rem, suffix_bucket, t, req.max_new_tokens)
+            slot, pages, boundary, rem, suffix_bucket, t, budget)
         if rem > 0:
             # copy-on-write: the boundary page is duplicated BEFORE the
             # suffix prefill writes into it; the donor page is never
@@ -231,24 +288,28 @@ class SlotScheduler:
                                                int(region_ids[0]))
         self.cache, self.state, tok0 = self.engine.prefill_into_shared(
             self.params, self.cache, self.state, prompt, start, slot,
-            req.max_new_tokens, prefix_ids, region_ids,
-            self.alloc.table[slot], seed=req.seed)
+            budget, prefix_ids, region_ids, self.alloc.table[slot],
+            seed=req.seed)
         self.alloc.register(prompt, slot)
         self.shared_tokens += start
         self.shared_admissions += 1
-        self._finish_admit(req, slot, tok0, now, t)
+        self._finish_admit(req, slot, tok0, now, t, budget)
         return True
 
     def _finish_admit(self, req: Request, slot: int, tok0, now: float,
-                      t: int) -> None:
+                      t: int, budget: int) -> None:
         tok_i = int(tok0)                            # host sync: prefill done
         t_tok = max(self._now(now), req.arrival)
-        req.t_admitted = now
-        req.t_first_token = t_tok
+        # a resumed request keeps its first admission and first token
+        if req.t_admitted is None:
+            req.t_admitted = now
+        if req.t_first_token is None:
+            req.t_first_token = t_tok
         req.tokens.append(tok_i)
         self.occupant[slot] = req
         self._gen_seen[slot] = 1
         self._true_len[slot] = t
+        self._budget[slot] = budget
         self._t_last[slot] = t_tok
         self.max_concurrency = max(self.max_concurrency, len(self.occupant))
 
@@ -276,9 +337,9 @@ class SlotScheduler:
         past the covered positions go to the scratch page and are never
         part of an accepted prefix this chunk."""
         chunk = self.engine.tokens_per_chunk
-        for slot, req in self.occupant.items():
+        for slot in self.occupant:
             gen = self._gen_seen[slot]
-            steps = min(chunk, req.max_new_tokens - gen)
+            steps = min(chunk, self._budget[slot] - gen)
             if steps > 0:
                 self.alloc.ensure(slot, self._true_len[slot] + gen - 1
                                   + steps - 1)
@@ -290,16 +351,19 @@ class SlotScheduler:
                                                     self.alloc.table)
             self.alloc.dirty = False
 
-    def _retire(self, slot: int, req: Request, register: bool = True
-                ) -> None:
-        """Return a finished slot to the pool. With sharing on, its chain
-        is indexed first (``register=False`` for a quarantined slot: its
-        KV must never be shared): KV is resident through position
-        t + len(tokens) - 2 (the last token was never fed back), hence
-        ``tokens[:-1]``."""
+    def _retire(self, slot: int, req: Request,
+                register: bool = True) -> None:
+        """Return a finished slot to the pool (host bookkeeping only).
+        With sharing on, its chain is indexed first (``register=False``
+        for a quarantined slot: its KV must never be shared): KV is
+        resident through position t + len(tokens) - 2 (the last token was
+        never fed back), hence ``tokens[:-1]``. That holds after a
+        preemption too: a resumed request's chain is its ORIGINAL prompt
+        ++ every generated token."""
         del self.occupant[slot]
         del self._gen_seen[slot]
         del self._true_len[slot]
+        del self._budget[slot]
         self._t_last.pop(slot, None)
         if self.alloc is not None:
             if register and self.alloc.index is not None:
@@ -352,7 +416,23 @@ class SlotScheduler:
                     f"{len(req.tokens)} tokens salvaged")
                 req.t_finished = max(now, req.arrival)
                 self._retire(slot, req, register=False)
-            elif done_np[slot]:
+                continue
+            if req.stop_token is not None and req.stop_token in req.tokens:
+                # host-side early stop: keep up to the first stop token
+                # (inclusive) and retire; the rows the chunk decoded past
+                # it are dropped and not counted as produced. The slot is
+                # killed on the device too, so it stops decoding and
+                # drawing until its next admission (the JAX package leaves
+                # it live: a deliberate divergence)
+                k = req.tokens.index(req.stop_token)
+                produced -= min(len(req.tokens) - (k + 1), fresh)
+                del req.tokens[k + 1:]
+                del req.itl[max(k, 0):]
+                req.t_finished = max(now, req.arrival)
+                self.state = self.engine.deactivate_slot(self.state, slot)
+                self._retire(slot, req)
+                continue
+            if done_np[slot]:
                 req.t_finished = max(now, req.arrival)
                 self._retire(slot, req)
         return produced
@@ -361,18 +441,29 @@ class SlotScheduler:
     def busy(self) -> bool:
         return bool(self.occupant)
 
+    def extra_stats(self) -> Dict[str, float]:
+        return {}
+
 
 def serve(engine: SlotEngine, params, requests: List[Request],
-          realtime: bool = False) -> ServeReport:
+          realtime: bool = False, overload=None) -> ServeReport:
     """Drive a request stream to completion on ``engine``.
 
     ``realtime=False`` admits requests as soon as a slot frees up (arrival
     times still charge queueing delay through the serve clock);
     ``realtime=True`` waits for wall-clock arrivals. Requests the engine
-    can never serve come back with ``reject_reason`` set."""
+    can never serve come back with ``reject_reason`` set.
+
+    ``overload``: an :class:`repro_torch.serve.overload.OverloadConfig`:
+    the stream runs through the priority-aware preemptive scheduler
+    instead of this FIFO reject-only one."""
     waiting = deque(sorted(requests, key=lambda r: r.arrival))
     t0 = time.perf_counter()
-    sched = SlotScheduler(engine, params)
+    if overload is not None:
+        from repro_torch.serve.overload import OverloadScheduler
+        sched = OverloadScheduler(engine, params, overload)
+    else:
+        sched = SlotScheduler(engine, params)
     decode_tokens = 0
 
     def now() -> float:
@@ -408,6 +499,7 @@ def serve(engine: SlotEngine, params, requests: List[Request],
             stats["shared_admissions"] = float(sched.shared_admissions)
             stats["index_pages"] = float(len(sched.alloc.index))
             stats["index_evictions"] = float(sched.alloc.index.evictions)
+    stats.update(sched.extra_stats())
     if engine.persistent_prefix_index:
         # park the warm pool for the next serve() call (popped before reuse)
         engine.resident = (sched.cache, sched.state, sched.alloc)
@@ -416,10 +508,13 @@ def serve(engine: SlotEngine, params, requests: List[Request],
 
 
 def poisson_requests(num: int, rate_hz: float, prompt_lens, max_new_tokens,
-                     vocab_size: int, seed: int = 0) -> List[Request]:
+                     vocab_size: int, seed: int = 0, priorities=None,
+                     slo_ttft_ms: Optional[float] = None) -> List[Request]:
     """Synthetic open-loop workload: exponential inter-arrival gaps at
-    ``rate_hz``, prompt lengths and budgets drawn from (min, max) ranges.
-    The same draws as the JAX package's ``poisson_requests``."""
+    ``rate_hz``, prompt lengths and budgets drawn from (min, max) ranges;
+    ``priorities``: an optional (values, probabilities) pair drawn per
+    request; ``slo_ttft_ms`` stamps every request with one first-token
+    SLO. The same draws as the JAX package's ``poisson_requests``."""
     rng = np.random.default_rng(seed)
     lo, hi = prompt_lens
     nlo, nhi = ((max_new_tokens, max_new_tokens)
@@ -430,9 +525,14 @@ def poisson_requests(num: int, rate_hz: float, prompt_lens, max_new_tokens,
     out = []
     for i in range(num):
         t = int(rng.integers(lo, hi + 1))
+        prio = 0
+        if priorities is not None:
+            vals, probs = priorities
+            prio = int(rng.choice(vals, p=probs))
         out.append(Request(
             rid=i,
             prompt=rng.integers(0, vocab_size, (t,), dtype=np.int32),
             max_new_tokens=int(rng.integers(nlo, nhi + 1)),
-            arrival=float(arrivals[i])))
+            arrival=float(arrivals[i]), priority=prio,
+            slo_ttft_ms=slo_ttft_ms))
     return out
