@@ -68,6 +68,27 @@ Phases (any failure raises; nothing is caught):
      ``zoo_launches`` plus ``shared_prefill_launches`` of each chunk and
      chunked tail; the pool drained clean; one swap-out and one swap-in
      timed by CUDA events;
+  5d. fault-tolerant serving (``run_resilient``, run after 6f, whose
+     seeded run is one of its references): phase 4's 6 requests under the
+     restart supervisor (``serve_resilient``, a snapshot every 2 chunks).
+     An armed injector that never fires: tokens and launches exactly the
+     plain serve's, contiguous and paged. Kill and resume on the
+     contiguous, paged (24 usable pages of 16) and prefix-sharing engines
+     (the last on phase 5b's prompts), greedy and seeded-sampled at phase
+     6e's settings, one stream each with a fault at every site the engine
+     has (prefill, decode; page_alloc, swap when paged): every fault
+     fired, one restart each, 100% completion, tokens == the
+     uninterrupted run of the same engine, bitwise. rmsnorm through the
+     ``chaos`` backend: with a circuit breaker no restart and a trip,
+     without a restart from the middle of a decode chunk, both == the
+     chaos policy's run; no chaos backend left registered. A 3 s stall
+     against a 2 s watchdog. NaN quarantine, contiguous and paged
+     (``quarantine_run``): only the poisoned request shed. Each stream
+     prints its snapshots' bytes and ms, its restores' ms (CUDA events,
+     ``SnapshotProbe``), ``recovery_s_mean`` and its launches beyond the
+     uninterrupted run's; 8d and 10b run one paged stream with a decode
+     fault on deepseek (latent pages) and jamba (the whole cache, Mamba
+     state written in place) the same way;
   6. greedy speculative decoding on yi-9b without its exit heads, against
      the plain engine on that config: a tied draft on the paged engine
      (acceptance 1.0) and an independent 2-layer draft on the contiguous
@@ -205,8 +226,9 @@ Phases (any failure raises; nothing is caught):
      path with their launches in its threshold-2.0 runs beside, those on
      the prefix-sharing path with their launches in its first sharing
      run, those on the overload path with their launches in phase 5c's
-     chunked run), the card's name and power limit, and the final
-     ``{"ok": true, ...}`` line.
+     chunked run, those on the fault-tolerant path with their launches in
+     phase 5d's supervised streams whose injector never fires), the card's
+     name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
@@ -2380,17 +2402,20 @@ def make_prompts(torch, vocab: int, seed: int = 11):
 
 def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
               seeds=None, on_engine=None, priorities=None, overload=None,
-              **engine_kw):
+              resilient=None, **engine_kw):
     """Serve one request a prompt (the 6 of ``make_prompts`` but in phases
     5b and 5c; 24 new tokens each; request i seeded with ``seeds[i]`` and
     of priority ``priorities[i]`` when given) with every launch counter
     reset just before and read just after; the result goes to
     ``runs[name]``. ``on_engine(engine)`` is called before the reset
-    (phase 5b's and 5c's probes wrap the engine's admission there);
-    ``overload``: an ``OverloadConfig`` for ``serve``."""
+    (phase 5b's, 5c's and 5d's probes wrap the engine's methods there);
+    ``overload``: an ``OverloadConfig`` for ``serve``; ``resilient``: the
+    keywords of ``serve_resilient`` (phase 5d), which then drives the
+    stream under the restart supervisor instead of ``serve``."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core import xaif
     from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.resilient import serve_resilient
     from repro_torch.serve.scheduler import Request, serve
 
     requests = [Request(rid=i, prompt=pr, max_new_tokens=24,
@@ -2403,7 +2428,10 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
         on_engine(engine)
     torch.cuda.synchronize()
     xaif.reset_launch_counts()
-    report = serve(engine, p, requests, overload=overload)
+    if resilient is not None:
+        report = serve_resilient(engine, p, requests, **resilient)
+    else:
+        report = serve(engine, p, requests, overload=overload)
     torch.cuda.synchronize()
     launches = {k: n for k, n in xaif.launch_counts().items() if n}
     steps = engine.decode_calls * engine.chunk
@@ -3623,6 +3651,318 @@ def run_overload(torch, run_serve, cfg, params, card):
     return totals
 
 
+# -- phase 5d: fault-tolerant serving ----------------------------------------
+
+# the restart supervisor's snapshot cadence in phase 5d (decode chunks)
+SNAPSHOT_EVERY = 2
+# the watchdog's budget a chunk and the injected stall (1.5x): a chunk of 8
+# yi-9b steps takes ~0.3-0.7 s of host clock (PERF.md section 5)
+WATCHDOG_MS = 2000.0
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts, lists and tuples: an
+    ``SlotEngine.snapshot`` (cache or pages, the decode state, the
+    generators' states, a draft cache) or a device cache."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+class SnapshotProbe:
+    """Wraps one engine's ``snapshot`` and ``restore`` on the instance
+    (``serve_run``'s ``on_engine``): each call's span by CUDA events (the
+    copies between card and host included), each snapshot's host bytes
+    and each restore's peak device allocation beyond what was allocated
+    before it: a restore writes the snapshot back over the live cache in
+    place, so that peak must stay under half the cache's bytes (a restore
+    into a fresh cache would hold two caches at once). The wrappers copy
+    nothing themselves and launch no counted kernel."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.snaps, self.restores = [], []   # (bytes, ms); (ms, peak bytes)
+        # each restored snapshot's (tokens realized by decode, pages held)
+        self.restored = []
+
+    def _timed(self, fn, *args):
+        torch = self.torch
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn(*args)
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def install(self, engine):
+        snapshot0, restore0 = engine.snapshot, engine.restore
+
+        def snapshot(cache, st, alloc=None):
+            snap, ms = self._timed(snapshot0, cache, st, alloc)
+            self.snaps.append((tensor_bytes(snap), ms))
+            return snap
+
+        def restore(snap, cache, alloc=None):
+            torch = self.torch
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, ms = self._timed(restore0, snap, cache, alloc)
+            peak = torch.cuda.max_memory_allocated() - base
+            self.restored.append((int(snap["state"]["tensors"].realized),
+                                  sum(len(g) for g, _ in
+                                      snap.get("pages", ()))))
+            live = tensor_bytes(cache)
+            assert peak < live / 2, ("a restore allocated", peak,
+                                     "bytes beside a cache of", live)
+            self.restores.append((ms, peak))
+            return out
+
+        engine.snapshot, engine.restore = snapshot, restore
+
+    def line(self, report) -> str:
+        """The snapshots of a non-empty stream (the first, pristine one
+        copies no page) and the restores, as one phrase."""
+        full = [s for s in self.snaps if s[0] == max(b for b, _ in
+                                                      self.snaps)]
+        ms = sorted(m for _, m in self.snaps[1:]) or [0.0]
+        out = (f"{len(self.snaps)} snapshots, the largest "
+               f"{full[0][0] / 2**20:.2f} MiB in {full[0][1]:.2f} ms, "
+               f"median {statistics.median(ms):.2f} ms (CUDA events)")
+        if self.restores:
+            out += (f"; {len(self.restores)} restores, "
+                    f"{', '.join(f'{m:.2f}' for m, _ in self.restores)} ms, "
+                    f"a restore's peak new device allocation "
+                    f"{max(b for _, b in self.restores) / 2**20:.2f} MiB; "
+                    f"recovery_s_mean "
+                    f"{report.stats['recovery_s_mean'] * 1e3:.2f} ms")
+        return out
+
+
+def extra_launches(run, ref):
+    """The launch counts of ``run`` beyond those of ``ref`` (a replay's
+    cost), nonzero entries only."""
+    keys = set(run["launches"]) | set(ref["launches"])
+    out = {k: run["launches"].get(k, 0) - ref["launches"].get(k, 0)
+           for k in sorted(keys)}
+    return {k: n for k, n in out.items() if n}
+
+
+def supervised(torch, run_serve, name, cfg, params, prompts, ref, schedule,
+               card, **kw):
+    """One supervised stream (``serve_resilient`` at ``SNAPSHOT_EVERY``)
+    with ``schedule`` injected: every fault fired, one restart a fault,
+    100% completion (``serve_run`` asserts it) and the tokens of ``ref``
+    (the uninterrupted run of the same engine), bitwise. Prints its
+    snapshot and restore costs and its launches beyond ``ref``'s."""
+    from repro_torch.serve.faults import FaultInjector
+
+    probe = SnapshotProbe(torch)
+    inj = FaultInjector(schedule=schedule)
+    run = run_serve(name, cfg, params, prompts, on_engine=probe.install,
+                    resilient=dict(snapshot_every=SNAPSHOT_EVERY,
+                                   injector=inj), **kw)
+    stats = run["report"].stats
+    assert inj.fired == sum(len(v) for v in schedule.values()), (
+        name, inj.calls, schedule)
+    assert stats["restarts"] == inj.fired >= 1, stats
+    assert run["tokens"] == ref["tokens"], f"{name}: tokens differ"
+    # every restore brought back a snapshot taken after a decode chunk,
+    # with pages when the engine snapshots pages
+    assert all(n > 0 and (p > 0 or not kw.get("paged") or cfg.recurrent)
+               for n, p in probe.restored), (name, probe.restored)
+    print(f"resilient {name}: faults {schedule} fired, "
+          f"{int(stats['restarts'])} restarts, 100% completion, tokens == "
+          f"the uninterrupted run, bitwise; restored snapshots (tokens "
+          f"decoded, pages) {probe.restored}; {probe.line(run['report'])}; "
+          f"launches beyond the uninterrupted run "
+          f"{extra_launches(run, ref)} on {card}", flush=True)
+    return run
+
+
+def quarantine_run(torch, name, cfg, params, prompts, ref, **engine_kw):
+    """NaN quarantine: the first admission round (4 slots; 3 on the paged
+    engine's 24 pages), one chunk decoded, slot 1's attention state
+    poisoned with NaN in place (``poison_slot``: its first pool page, or
+    its row), then drained. Only that request is shed (``nan-quarantined``,
+    nothing emitted past the poison); the others, those backfilled into
+    the freed slot and pages included, equal ``ref``'s tokens, bitwise."""
+    from collections import deque
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.faults import poison_slot
+    from repro_torch.serve.scheduler import REASON_NAN, Request, SlotScheduler
+
+    engine = SlotEngine(RunConfig(arch=cfg), capacity=4, max_len=160, chunk=8,
+                        prompt_bucket=16, **engine_kw)
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=24)
+            for i, pr in enumerate(prompts)]
+    sched, waiting = SlotScheduler(engine, params), deque(reqs)
+    sched.admission_round(waiting, 0.0, False)
+    first = list(sched.occupant.values())
+    victim = sched.occupant[1]
+    sched.step_chunk(0.0)
+    salvaged = len(victim.tokens)
+    poisoned = list(sched.alloc.owned[1][:1]) if sched.alloc else []
+    sched.cache = poison_slot(engine, sched.cache, 1, sched.alloc)
+    while waiting or sched.busy:
+        sched.admission_round(waiting, 0.0, False)
+        if sched.busy:
+            sched.step_chunk(0.0)
+    torch.cuda.synchronize()
+    assert victim.reject_reason.startswith(REASON_NAN + ":"), \
+        victim.reject_reason
+    assert len(victim.tokens) == salvaged, (salvaged, victim.tokens)
+    for r in reqs:
+        if r is not victim:
+            assert r.reject_reason is None, (r.rid, r.reject_reason)
+            assert r.tokens == ref["tokens"][r.rid], (name, r.rid)
+    later = [r.rid for r in reqs if all(r is not f for f in first)]
+    print(f"resilient {name}: request {victim.rid} poisoned after "
+          f"{salvaged} tokens and shed ({victim.reject_reason}); the other "
+          f"5 (requests {later} admitted after the poison, into the "
+          f"scrubbed slot{' and pages ' + str(poisoned) if poisoned else ''}"
+          f" among others) == the uninterrupted run, bitwise", flush=True)
+
+
+def run_resilient(torch, run_serve, runs, cfg, params, prompts, card):
+    """Phase 5d: fault-tolerant serving on full-width yi-9b (phase 4's 6
+    requests of 24 tokens, capacity 4, chunks of 8, a snapshot every 2
+    chunks). A supervised stream whose armed injector never fires launches
+    exactly what the plain serve launches (contiguous and paged: a
+    snapshot launches no kernel of the port) and gives its tokens. Kill
+    and resume: contiguous, paged (24 usable pages of 16) and paged with
+    prefix sharing (phase 5b's shared-prefix prompts, its first sharing run
+    the greedy reference), greedy and seeded-sampled (phase 6e's settings),
+    each one stream with one fault at every site the engine has (prefill,
+    decode; page_alloc and swap when paged), held to the uninterrupted run
+    bitwise. The backend site: rmsnorm routed through the ``chaos``
+    backend, with a breaker (no restart, a trip) and without (a restart
+    from a fault in the middle of a decode chunk), both == the chaos
+    policy's run without an injector. The watchdog: a stall of 1.5x its
+    budget at decode call 2. NaN quarantine, contiguous and paged
+    (``quarantine_run``). Returns the runs of the never-firing streams."""
+    from repro_torch.core import xaif
+    from repro_torch.serve.faults import FaultInjector, chaos_backends
+
+    t0 = time.perf_counter()
+    paged = dict(paged=True, page_size=16, num_pages=25)
+    seeds = [1000 + i for i in range(6)]     # phase 6e's
+    never = {}
+    for kind, ref, kw in (("contiguous", runs["contiguous"], {}),
+                          ("paged", runs["paged"], paged)):
+        probe = SnapshotProbe(torch)
+        inj = FaultInjector(schedule={"decode": [10**6]})
+        run = run_serve(f"resilient-never-{kind}", cfg, params, prompts,
+                        on_engine=probe.install,
+                        resilient=dict(snapshot_every=SNAPSHOT_EVERY,
+                                       injector=inj), **kw)
+        assert inj.fired == 0 and run["report"].stats["restarts"] == 0
+        assert run["tokens"] == ref["tokens"], kind
+        assert run["launches"] == ref["launches"], (run["launches"],
+                                                    ref["launches"])
+        never[kind] = run
+        print(f"resilient never-{kind}: an armed injector that never fires; "
+              f"tokens == the plain serve, launches exactly the plain "
+              f"serve's; {probe.line(run['report'])}", flush=True)
+
+    # kill and resume. The call counts run on across restarts, so a fault
+    # early in a stream (inside the first admission, or inside the first
+    # snapshot that holds pages) would replay it from the empty pristine
+    # snapshot and shift every later index: each index below is one whose
+    # restore brings back a snapshot taken after a decode chunk, holding
+    # pages on a paged engine (found by a CPU run of the same geometry;
+    # ``supervised`` asserts it). Contiguous: decode call 3 comes a chunk
+    # after the snapshot of chunk 2, prefill call 4 is a backfill. Paged:
+    # swap call 2 is inside the second snapshot, page_alloc 20 / 16 in a
+    # later admission or growth (the allocator half mutated).
+    contig_sites = {"prefill": [4], "decode": [3]}
+    paged_sites = {"swap": [2], "decode": [2], "prefill": [6],
+                   "page_alloc": [20]}
+    prefix_sites = {"decode": [2], "prefill": [4], "swap": [2],
+                    "page_alloc": [16]}
+    share_prompts = sharing_prompts(cfg.vocab_size)
+    share_seeds = [3000 + i for i in range(len(share_prompts))]
+    sampled_ref = {
+        "contiguous": runs["sampled"],
+        "paged": run_serve("resilient-ref-paged-sampled", cfg, params,
+                           prompts, seeds=seeds, **paged, **SAMPLING),
+        "prefix": run_serve("resilient-ref-prefix-sampled", cfg, params,
+                            share_prompts, seeds=share_seeds, **paged,
+                            prefix_sharing=True, **SAMPLING)}
+    assert sampled_ref["paged"]["tokens"] == runs["sampled"]["tokens"]
+    for kind, sites, pr, sd, kw in (
+            ("contiguous", contig_sites, prompts, seeds, {}),
+            ("paged", paged_sites, prompts, seeds, paged),
+            ("prefix", prefix_sites, share_prompts, share_seeds,
+             dict(paged, prefix_sharing=True))):
+        greedy_ref = (runs["yi-9b-share"] if kind == "prefix"
+                      else runs[kind])
+        supervised(torch, run_serve, f"resilient-{kind}-greedy", cfg, params,
+                   pr, greedy_ref, sites, card, **kw)
+        supervised(torch, run_serve, f"resilient-{kind}-sampled", cfg,
+                   params, pr, sampled_ref[kind], sites, card, seeds=sd,
+                   **kw, **SAMPLING)
+
+    # the backend site: rmsnorm through the chaos backend (its plain
+    # version behind the injector); the fault without a breaker falls in
+    # the middle of the third decode chunk (4 prefills of 2L + 1 rmsnorm,
+    # then 20 steps of 2L + 2)
+    counters = set(xaif.launch_counts())
+    with chaos_backends(("rmsnorm",)):
+        chaos = xaif.Policy({"rmsnorm": "chaos"})
+        ref = run_serve("resilient-chaos-ref", cfg, params, prompts,
+                        policy=chaos)
+        assert "rmsnorm" not in ref["launches"], ref["launches"]
+        breaker = xaif.CircuitBreaker()
+        inj = FaultInjector(schedule={"backend": [0]})
+        run = run_serve("resilient-chaos-breaker", cfg, params, prompts,
+                        policy=chaos, resilient=dict(
+                            snapshot_every=SNAPSHOT_EVERY, injector=inj,
+                            breaker=breaker))
+        stats = run["report"].stats
+        assert stats["restarts"] == 0 and stats["breaker_trips"] >= 1, stats
+        assert breaker.pinned == {"rmsnorm"}
+        assert run["tokens"] == ref["tokens"], "breaker run differs"
+        assert xaif.active_breaker() is None
+        n = 4 * (2 * cfg.num_layers + 1) + 20 * (2 * cfg.num_layers + 2)
+        supervised(torch, run_serve, "resilient-chaos-no-breaker", cfg,
+                   params, prompts, ref, {"backend": [n]}, card,
+                   policy=chaos)
+    assert set(xaif.launch_counts()) == counters, "a chaos counter is left"
+    print(f"resilient chaos: with a breaker {int(stats['breaker_trips'])} "
+          f"trip, rmsnorm pinned to plain, no restart; without, a restart; "
+          f"both == the chaos policy's run, bitwise; no chaos backend left "
+          f"registered", flush=True)
+
+    # the watchdog: a stall of 1.5x the budget at decode call 2
+    inj = FaultInjector(stalls={"decode": {2: 1.5 * WATCHDOG_MS / 1e3}})
+    run = run_serve("resilient-watchdog", cfg, params, prompts,
+                    resilient=dict(snapshot_every=SNAPSHOT_EVERY,
+                                   watchdog_ms=WATCHDOG_MS, injector=inj))
+    assert inj.stalled == 1 and run["report"].stats["restarts"] >= 1
+    assert run["tokens"] == runs["contiguous"]["tokens"], "watchdog differs"
+    print(f"resilient watchdog: a {1.5 * WATCHDOG_MS:.0f} ms stall against "
+          f"a {WATCHDOG_MS:.0f} ms budget, "
+          f"{int(run['report'].stats['restarts'])} restart, tokens == the "
+          f"uninterrupted run, bitwise", flush=True)
+
+    quarantine_run(torch, "quarantine-contiguous", cfg, params, prompts,
+                   runs["contiguous"])
+    quarantine_run(torch, "quarantine-paged", cfg, params, prompts,
+                   runs["paged"], **paged)
+    print(f"phase 5d (fault-tolerant serving) took "
+          f"{time.perf_counter() - t0:.1f}s on {card}", flush=True)
+    return never
+
+
 def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
     """Phases 6b-6d: yi-9b on int8 weights. The port's
     ``quantize_weights_int8`` on the card (exactly the projections of
@@ -3810,8 +4150,14 @@ def serve_deepseek(torch, run_serve, ds, dparams, t_start):
     print(f"serve deepseek-paged: tokens == contiguous engine, bitwise, per "
           f"request; {ds.num_layers} precise attn_decode_paged a step, no "
           f"attn_decode; peak "
-          f"{int(mla_paged['report'].stats['peak_pages'])} of 24 pages; "
-          f"deepseek phases done at {time.perf_counter() - t_start:.1f}s",
+          f"{int(mla_paged['report'].stats['peak_pages'])} of 24 pages",
+          flush=True)
+    # -- 8d. phase 5d's kill and resume on the paged MLA engine: a decode
+    #    fault, the latent pages snapshotted through fetch_pages ---------
+    supervised(torch, run_serve, "deepseek-resilient-paged", ds, dparams,
+               ds_prompts, mla_paged, {"decode": [3]}, card_line(),
+               paged=True, page_size=16, num_pages=25)
+    print(f"deepseek phases done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
 
@@ -3897,8 +4243,16 @@ def run_jamba(torch, run_serve, t_start):
     print(f"serve jamba-paged: tokens == contiguous engine, bitwise, per "
           f"request; {n_attn} attn_decode_paged and {n_mamba} ssm_decode a "
           f"step, no attn_decode; peak "
-          f"{int(paged['report'].stats['peak_pages'])} of 24 pages; jamba "
-          f"phases done at {time.perf_counter() - t_start:.1f}s", flush=True)
+          f"{int(paged['report'].stats['peak_pages'])} of 24 pages",
+          flush=True)
+    # -- 10b. phase 5d's kill and resume on the paged hybrid engine: a
+    #    decode fault, the whole cache snapshotted (the Mamba state is
+    #    written in place by every step) -----------------------------------
+    supervised(torch, run_serve, "jamba-resilient-paged", jb, jparams,
+               prompts, paged, {"decode": [3]}, card_line(), paged=True,
+               page_size=16, num_pages=25)
+    print(f"jamba phases done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
 
 def run_xlstm(torch, run_serve, t_start, prefill_bounds=XLSTM_PREFILL):
@@ -4373,6 +4727,11 @@ def main() -> int:
     run_sampling(torch, run_serve, cfg, params, prompts, plain)
     run_sampled_spec(torch, run_serve, cfg_ne, params, prompts)
 
+    # -- 5d. fault-tolerant serving: kill and resume at every site, the
+    #    chaos backend with and without a breaker, the watchdog, NaN
+    #    quarantine (after 6e: its seeded run is a reference) ------------
+    run_resilient(torch, run_serve, runs, cfg, params, prompts, card)
+
     # -- 6b-6d. yi-9b on int8 weights (the bf16 weights still on the card):
     #    weight-only contiguous and paged, W8A8 contiguous ----------------
     qparams = run_quantized(torch, run_serve, cfg, params, prompts,
@@ -4630,6 +4989,17 @@ def main() -> int:
             k["paths"] = k.get("paths", ["serve"]) + ["overload"]
             k["overload_launches"] = runs["yi-9b-overload-chunked"][
                 "launches"][counter]
+    # the fault-tolerant path (phase 5d): the five kernels of yi-9b's
+    # supervised streams whose armed injector never fires, with their
+    # launches there (== the plain serve's)
+    for k in kernels:
+        if k["name"] in ("gemm", "rmsnorm", "attention", "attn_decode",
+                         "attn_decode_paged", "entropy_exit"):
+            run = ("resilient-never-paged" if k["name"] == "attn_decode_paged"
+                   else "resilient-never-contiguous")
+            k["paths"] = k.get("paths", ["serve"]) + ["resilient"]
+            k["resilient_launches"] = runs[run]["launches"][
+                replaces[k["name"]][3]]
     # the seizure evaluation's instances (phase 14's kernels run): the
     # transformer's attention and norms; both models' heads and exits
     seizure_kernels = {

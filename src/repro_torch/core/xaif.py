@@ -24,7 +24,10 @@ behind the one wrapper and counter.
 ``call(op, policy, *args)`` picks the backend from the device of the first
 tensor argument: CUDA tensors launch the kernel, CPU tensors run the plain
 version. Policy ``"ref"`` forces the plain version on any device; nothing
-else does — there is no fallback from a kernel to the plain version. No
+else does — there is no fallback from a kernel to the plain version.
+An installed :class:`CircuitBreaker` (below;
+``serve_resilient(breaker=...)`` installs one for a stream) degrades only
+around an injected fault, and counts and logs every trip. No
 kernel has a backward (nor had the Pallas kernels), so a call that would
 launch one on a tensor that requires grad, with autograd on, raises
 instead of cutting the gradient: training runs under ``"ref"``.
@@ -37,13 +40,28 @@ never select it: only a :class:`Policy` that names it does, and
 constructing one that names a lossy backend raises unless it says
 ``allow_lossy=True`` (the JAX registry audit's XR108). Model code passes
 the policy on without reading it.
+
+CIRCUIT BREAKER (JAX's ``CircuitBreaker``): while one is installed
+(``install_breaker``), a backend that raises an ``InjectedFault`` (the
+``chaos`` backends' test vector, ``serve/faults.py``) inside ``call`` is
+degraded around: the breaker pins the op to the plain version of its
+default backend (JAX's ``ref``) for the rest of its lifetime, records one
+``FaultEvent("circuit-breaker", ...)`` per trip and re-runs the call
+there. Any other exception propagates, breaker or not: a kernel that
+fails to build or launch on the card is never hidden behind its plain
+version (JAX's breaker acts at trace time on any error; the port's acts
+at every call, kernels included, so it is narrower). JAX pins an (op,
+shape bucket) cell; this policy has no shape buckets, so the port pins
+the op: every shape of it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Mapping, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple, Union
 
 import torch
+
+from repro_torch.dist.fault import FaultEvent, InjectedFault
 
 POLICIES = ("auto", "ref")
 
@@ -69,6 +87,13 @@ def register(name: str, plain: Callable, kernel: Callable,
         _REGISTRY[name] = OpEntry(name, plain, kernel, lossy)
     else:
         _NAMED[(name, backend)] = OpEntry(name, plain, kernel, lossy)
+
+
+def unregister(name: str, backend: str) -> None:
+    """Drop op ``name``'s further ``backend`` (a default backend stays)."""
+    if backend == "default":
+        raise ValueError("an op's default backend cannot be unregistered")
+    del _NAMED[(name, backend)]
 
 
 @dataclass(frozen=True)
@@ -143,7 +168,10 @@ def call(op: str, policy: PolicyLike, *args, **kwargs):
     """Dispatch ``op`` to the backend ``policy`` names for it (the default
     unless a :class:`Policy` names another): its kernel for CUDA tensors
     under mode ``"auto"``, its plain version for CPU tensors or under
-    ``"ref"``."""
+    ``"ref"``. With a :class:`CircuitBreaker` installed, an op it pinned
+    runs the plain version of its default backend, and a backend that
+    raises an ``InjectedFault`` trips the breaker and the call is re-run
+    there; any other exception propagates."""
     if isinstance(policy, Policy):
         mode, backend = policy.mode, policy.backend_for(op)
     elif policy in POLICIES:
@@ -154,16 +182,71 @@ def call(op: str, policy: PolicyLike, *args, **kwargs):
     e = entry(op, backend)
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     if mode == "ref" or device.type == "cpu":
-        return e.plain(*args, **kwargs)
-    if torch.is_grad_enabled() and any(
-            isinstance(a, torch.Tensor) and a.requires_grad
-            for a in args + tuple(kwargs.values())):
-        raise RuntimeError(
-            f"xaif: op {op!r} would launch its CUDA kernel on a tensor that "
-            f"requires grad, and no kernel has a backward: the gradient "
-            f"would stop here. Train under the 'ref' policy, or run "
-            f"inference under torch.no_grad()")
-    return e.kernel(*args, **kwargs)
+        fn = e.plain
+    else:
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args + tuple(kwargs.values())):
+            raise RuntimeError(
+                f"xaif: op {op!r} would launch its CUDA kernel on a tensor "
+                f"that requires grad, and no kernel has a backward: the "
+                f"gradient would stop here. Train under the 'ref' policy, "
+                f"or run inference under torch.no_grad()")
+        fn = e.kernel
+    breaker = _BREAKER
+    if breaker is None:
+        return fn(*args, **kwargs)
+    fallback = entry(op).plain
+    if op in breaker.pinned or fn is fallback:
+        return fallback(*args, **kwargs)
+    try:
+        return fn(*args, **kwargs)
+    except InjectedFault as exc:     # degrade, counted and logged
+        breaker.trip(op, backend, exc)
+    return fallback(*args, **kwargs)
+
+
+class CircuitBreaker:
+    """Pins ops whose backend raised an ``InjectedFault`` inside
+    :func:`call` to the plain version of their default backend (JAX's
+    ``ref``).
+
+    A trip is permanent for the breaker's lifetime: the failed backend is
+    not retried mid-stream. Each trip adds one to ``trips`` and logs one
+    :class:`FaultEvent` (kind ``"circuit-breaker"``) into ``events``,
+    which may be shared with a ``FaultInjector`` so that one timeline holds
+    the injected faults and the degradations they caused. ``pinned`` holds
+    the pinned op names: the port's policy has no shape buckets (JAX pins
+    one bucket of an op; the event says ``bucket=*``)."""
+
+    def __init__(self, events: Optional[List[FaultEvent]] = None):
+        self.pinned: Set[str] = set()
+        self.events = events if events is not None else []
+        self.trips = 0
+
+    def trip(self, op: str, backend: str, exc: Exception) -> None:
+        self.pinned.add(op)
+        self.trips += 1
+        self.events.append(FaultEvent(
+            "circuit-breaker", self.trips,
+            f"op={op} bucket=* backend={backend} -> plain: "
+            f"{type(exc).__name__}: {exc}"))
+
+
+_BREAKER: Optional[CircuitBreaker] = None
+
+
+def install_breaker(breaker: Optional[CircuitBreaker]
+                    ) -> Optional[CircuitBreaker]:
+    """Install ``breaker`` as the process-wide circuit breaker (None to
+    remove it). Returns the previous one, so callers can put it back."""
+    global _BREAKER
+    prev, _BREAKER = _BREAKER, breaker
+    return prev
+
+
+def active_breaker() -> Optional[CircuitBreaker]:
+    return _BREAKER
 
 
 def _counters():

@@ -84,19 +84,64 @@ seeded from ``--sample-seed``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --device cpu --temperature 0.7 --top-k 50 --top-p 0.9 \
         --sample-seed 1
+
+``--inject-fault site=<s>,chunk=<n>`` is the chaos smoke: one fault at
+the n-th call (0-based) of site s (``prefill``, ``decode``,
+``page_alloc``, ``swap``, ``backend``; the last two need ``--paged``,
+``backend`` routes rmsnorm through the ``chaos`` backend). The launcher
+serves a fault-free reference stream first, then the same requests under
+the restart supervisor (``serve/resilient.py``: a snapshot every
+``--snapshot-every`` chunks, at most ``--max-restarts`` restarts, a
+``--watchdog-ms`` budget a chunk), prints a ``chaos:`` line and exits
+non-zero unless the fault fired, every request completed and every token
+equals the reference's. The supervisor drives the base FIFO scheduler
+only, so the overload flags are refused with it:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
+        --device cpu --paged --inject-fault site=page_alloc,chunk=2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 
 import numpy as np
 
 from repro_torch.configs.base import RunConfig, get_arch, list_archs
+from repro_torch.core import xaif
 from repro_torch.models import lm
 from repro_torch.serve.engine import SlotEngine, SpecConfig
+from repro_torch.serve.faults import SITES, FaultInjector, chaos_backends
 from repro_torch.serve.overload import OverloadConfig
+from repro_torch.serve.resilient import serve_resilient
 from repro_torch.serve.scheduler import poisson_requests, serve
+
+
+def _fault_spec(ap, spec: str):
+    """``site=<name>,chunk=<n>`` -> (site, n), or a parse-time error."""
+    kv = {}
+    for part in spec.split(","):
+        if "=" not in part:
+            ap.error(f"--inject-fault {spec!r}: expected site=<name>,"
+                     f"chunk=<n> (got segment {part!r})")
+        k, v = part.split("=", 1)
+        kv[k.strip()] = v.strip()
+    site, chunk = kv.pop("site", None), kv.pop("chunk", None)
+    if kv:
+        ap.error(f"--inject-fault: unknown key(s) {sorted(kv)}; the spec is "
+                 f"site=<name>,chunk=<n>")
+    if site not in SITES:
+        ap.error(f"--inject-fault site must be one of {SITES} (got {site!r})")
+    try:
+        chunk = int(chunk)
+    except (TypeError, ValueError):
+        ap.error(f"--inject-fault chunk must be an integer >= 0 (got "
+                 f"{chunk!r})")
+    if chunk < 0:
+        ap.error(f"--inject-fault chunk must be >= 0 (got {chunk})")
+    return site, chunk
 
 
 def main(argv=None):
@@ -163,6 +208,21 @@ def main(argv=None):
                          "(1.0 = full distribution)")
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="seed of the per-slot sampling generators")
+    ap.add_argument("--inject-fault", default="", metavar="SPEC",
+                    help="chaos smoke: SPEC is site=<name>,chunk=<n>: one "
+                         "fault at the n-th call of that site (sites: "
+                         "prefill, decode, page_alloc, swap, backend), the "
+                         "stream served under the restart supervisor and "
+                         "held to 100%% completion and the tokens of a "
+                         "fault-free reference run")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="per-chunk watchdog budget of the restart "
+                         "supervisor: a slower chunk is treated as a crash "
+                         "and replayed from the latest snapshot (0 = off)")
+    ap.add_argument("--snapshot-every", type=int, default=4,
+                    help="supervisor snapshot cadence in decode chunks")
+    ap.add_argument("--max-restarts", type=int, default=8,
+                    help="supervisor restart budget before giving up")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -199,6 +259,25 @@ def main(argv=None):
                      "page and never prefills the draft's slot cache")
     if args.priority < 0:
         ap.error("--priority must be >= 0 (number of priority classes)")
+    fault_spec = (_fault_spec(ap, args.inject_fault) if args.inject_fault
+                  else None)
+    if fault_spec is not None and fault_spec[0] in ("page_alloc", "swap") \
+            and not args.paged:
+        ap.error(f"--inject-fault site={fault_spec[0]} requires --paged: "
+                 f"that site only exists on the paged KV path")
+    if args.watchdog_ms < 0:
+        ap.error("--watchdog-ms must be >= 0 (0 = off)")
+    if args.snapshot_every < 1:
+        ap.error("--snapshot-every must be >= 1")
+    if args.max_restarts < 0:
+        ap.error("--max-restarts must be >= 0")
+    resilient = fault_spec is not None or args.watchdog_ms > 0
+    if resilient and (args.preemption or args.priority > 1
+                      or args.prefill_chunk or args.slo_ttft_ms > 0):
+        ap.error("--inject-fault/--watchdog-ms run the restart supervisor, "
+                 "which drives the base FIFO scheduler only: drop the "
+                 "overload flags (--preemption/--priority/--prefill-chunk/"
+                 "--slo-ttft-ms)")
     if args.prefix_sharing:
         try:
             lm.check_shared_prefill(get_arch(args.arch))
@@ -275,16 +354,40 @@ def main(argv=None):
             0, cfg.vocab_size, (args.shared_prefix_len,), dtype=np.int32)
         for r in requests:
             r.prompt = np.concatenate([common, r.prompt])
-    engine = SlotEngine(RunConfig(arch=cfg), capacity=args.capacity,
-                        max_len=args.max_len, chunk=args.chunk,
-                        device=args.device, paged=args.paged,
-                        page_size=args.page_size, num_pages=args.num_pages,
-                        spec=spec, gated=args.gated,
-                        temperature=args.temperature, top_k=args.top_k,
-                        top_p=args.top_p, sample_seed=args.sample_seed,
-                        prefix_sharing=args.prefix_sharing)
-    report = serve(engine, params, requests, realtime=args.rate > 0,
-                   overload=overload)
+    injector, chaos_ref = None, None
+    with contextlib.ExitStack() as stack:
+        policy = "auto"
+        if fault_spec is not None and fault_spec[0] == "backend":
+            # route a row op through the chaos backend (its plain version
+            # behind the injector's "backend" site) so that the site fires
+            stack.enter_context(chaos_backends(("rmsnorm",)))
+            policy = xaif.Policy({"rmsnorm": "chaos"})
+        engine = SlotEngine(RunConfig(arch=cfg, policy=policy),
+                            capacity=args.capacity, max_len=args.max_len,
+                            chunk=args.chunk, device=args.device,
+                            paged=args.paged, page_size=args.page_size,
+                            num_pages=args.num_pages, spec=spec,
+                            gated=args.gated, temperature=args.temperature,
+                            top_k=args.top_k, top_p=args.top_p,
+                            sample_seed=args.sample_seed,
+                            prefix_sharing=args.prefix_sharing)
+        if resilient:
+            # the fault-free reference first, on fresh request copies (the
+            # scheduler fills in their lifecycle fields)
+            chaos_ref = copy.deepcopy(requests)
+            serve(engine, params, chaos_ref, realtime=args.rate > 0)
+            if fault_spec is not None:
+                injector = FaultInjector(schedule={fault_spec[0]:
+                                                   [fault_spec[1]]},
+                                         seed=args.seed)
+            report = serve_resilient(
+                engine, params, requests, realtime=args.rate > 0,
+                snapshot_every=args.snapshot_every,
+                max_restarts=args.max_restarts,
+                watchdog_ms=args.watchdog_ms or None, injector=injector)
+        else:
+            report = serve(engine, params, requests, realtime=args.rate > 0,
+                           overload=overload)
 
     lat = report.latency_percentiles()
     ttft = report.ttft_percentiles()
@@ -330,6 +433,31 @@ def main(argv=None):
     if spec is not None:
         print(f"  spec decode: k={spec.k} draft={args.draft} acceptance="
               f"{report.stats['spec_acceptance']:.2%}")
+    if chaos_ref is not None:
+        ref_toks = {r.rid: r.tokens for r in chaos_ref}
+        mismatched = [r.rid for r in requests if r.tokens != ref_toks[r.rid]]
+        what = (f"site={fault_spec[0]} chunk={fault_spec[1]}"
+                if fault_spec else "watchdog-only")
+        print(f"  chaos[{what}]: restarts={int(report.stats['restarts'])} "
+              f"faults={int(report.stats['faults_injected'])} "
+              f"recovery_max="
+              f"{report.stats.get('recovery_s_max', 0.0) * 1e3:.1f}ms "
+              f"completion={report.completion_rate:.0%} identical_tokens="
+              f"{len(requests) - len(mismatched)}/{len(requests)}")
+        if injector is not None and injector.fired < 1:
+            # a fault that never fires makes the smoke vacuous
+            raise SystemExit(
+                f"--inject-fault {what} never fired: the stream made only "
+                f"{injector.calls[fault_spec[0]]} {fault_spec[0]} calls; "
+                f"raise --new-tokens / --requests or lower the index")
+        if report.completion_rate < 1.0:
+            raise SystemExit(f"chaos run shed requests: "
+                             f"{[r.reject_reason for r in report.rejected]}")
+        if mismatched:
+            raise SystemExit(f"chaos run diverged from the fault-free "
+                             f"reference: rids {mismatched}")
+        print("  chaos: 100% completion, tokens identical to the fault-free "
+              "run")
     return report
 
 

@@ -47,6 +47,14 @@ continuous-batching engine and the one-request reference loop
     ``torch.Generator`` per slot (``DecodeState.rng``), seeded from
     ``(sample_seed, slot)`` or, at admission, from the request's own
     ``seed``; never from the global generator. Greedy touches none.
+  * Faults and snapshots (the restart supervisor, ``serve/resilient.py``):
+    ``injector`` (a ``serve/faults.py`` ``FaultInjector``) is checked at
+    the entry of every admission (site ``prefill``), of ``decode``
+    (``decode``) and of ``fetch_pages`` (``swap``). ``snapshot`` copies
+    the device half of a stream to host memory owned by the snapshot and
+    ``restore`` writes it back over the live buffers in place, bitwise,
+    whatever a half-finished step wrote into them after it (K/V appends,
+    recurrent state, generators).
 
 Every step runs the same kernels on the same per-row data whatever the
 other slots hold (per-slot cache positions; the GEMM reduces each row in
@@ -74,6 +82,32 @@ from repro_torch.models.attention import SharedPrefillCtx
 
 def _as_run(run: Union[RunConfig, ArchConfig]) -> RunConfig:
     return run if isinstance(run, RunConfig) else RunConfig(arch=run)
+
+
+def _map_state(tree, fn):
+    """``fn`` on every tensor of a cache or state tree (named tuples,
+    tuples, lists); other leaves (None, the mixer names) are kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_state(v, fn) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_state(v, fn) for v in tree)
+    return tree
+
+
+def _copy_state(dst, src) -> None:
+    """Copy every tensor of the host tree ``src`` into its counterpart in
+    the same-structured device tree ``dst``, in place."""
+    if isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"a snapshot tensor {tuple(src.shape)} "
+                             f"{src.dtype} for a buffer {tuple(dst.shape)} "
+                             f"{dst.dtype}")
+        dst.copy_(src)
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src, strict=True):
+            _copy_state(d, s)
 
 
 def _select(logits, exit_lgs, cfg: ArchConfig, policy: str):
@@ -447,6 +481,12 @@ class SlotEngine:
         if spec is not None and not spec.share_params:
             self.draft_params = lm.init_lm(self.draft_cfg, seed=spec.draft_seed,
                                            device=self.device)
+        # chaos hook (serve/faults.py), installed by the restart supervisor
+        self.injector = None
+        # a paged all-attention engine snapshots its allocated pages only;
+        # any other engine snapshots its whole cache
+        self._page_snapshot_ok = paged and all(
+            cfg.layer_spec(i).mixer == "attn" for i in range(cfg.num_layers))
 
     # -- device state ------------------------------------------------------
 
@@ -457,11 +497,11 @@ class SlotEngine:
         than ``max_len``: a round's draft steps run up to k positions past
         a slot's pinned position, and those writes must land somewhere
         (the JAX scatter drops them)."""
-        cfg = self.run.arch
         if self.spec is not None:
             self._draft_cache = lm.init_cache(
                 self.draft_cfg, self.capacity, self.max_len + self.spec_k,
                 device=self.device)
+        cfg = self.run.arch
         if self.paged:
             cache = lm.init_paged_cache(cfg, self.capacity, self.max_len,
                                         self.page_size, self.num_pages,
@@ -479,6 +519,12 @@ class SlotEngine:
         """Most tokens one chunk can realize per slot: what the scheduler's
         page growth must cover (chunk rounds x k + 1 rows under spec)."""
         return self.chunk * (self.spec_k + 1)
+
+    # -- chaos injection ---------------------------------------------------
+
+    def _check_fault(self, site: str) -> None:
+        if self.injector is not None:
+            self.injector.check(site)
 
     # -- admission ---------------------------------------------------------
 
@@ -498,6 +544,7 @@ class SlotEngine:
         draws the same tokens whatever slot it lands in. ``cache`` and
         ``st`` are updated in place. Returns (cache, st, first_token) with
         the token on the device."""
+        self._check_fault("prefill")
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
         t = int(prompt.shape[0])
         if t + max_new > self.max_len:
@@ -593,6 +640,7 @@ class SlotEngine:
         here. Under ``spec`` the draft's contiguous cache is filled from
         the WHOLE prompt (the draft keeps no index). Returns (cache, st,
         first_token) with the token on the device."""
+        self._check_fault("prefill")
         self._check_shared()
         prompt = np.asarray(prompt, np.int32)
         t = int(prompt.shape[0])
@@ -627,6 +675,7 @@ class SlotEngine:
         complete mirror page-table row. The prompt's last chunk goes
         through ``prefill_into_shared``, which admits the slot. Returns
         the cache."""
+        self._check_fault("prefill")
         self._check_shared()
         chunk = np.asarray(chunk_tokens, np.int32).reshape(-1)
         c_len, ps = int(chunk.shape[0]), self.page_size
@@ -734,16 +783,24 @@ class SlotEngine:
         device, then copy the blocks to host memory (pinned on a card) and
         wait for the copy. Returns the blocks (``lm.gather_pages``'s
         structure, on the host); None for an arch without a pool."""
+        self._check_fault("swap")
         blocks = lm.gather_pages(cache, self._page_ids(page_ids))
         if blocks is None:
             return None
-        pin = self.device.type == "cuda"
-        host = type(blocks)(*(
-            torch.empty(b.shape, dtype=b.dtype, pin_memory=pin).copy_(
-                b, non_blocking=pin) for b in blocks))
-        if pin:
-            torch.cuda.current_stream(self.device).synchronize()
+        host = _map_state(blocks, self._to_host)
+        self._host_sync()
         return host
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` that aliases nothing (pinned on a card,
+        asynchronous there: :meth:`_host_sync` before reading it)."""
+        pin = self.device.type == "cuda"
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(
+            t, non_blocking=pin)
+
+    def _host_sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     @torch.inference_mode()
     def restore_pages(self, cache: lm.PagedLMCache, page_ids, blocks
@@ -922,6 +979,7 @@ class SlotEngine:
         all slots. Returns (cache, st, tokens [S, tokens_per_chunk]) with
         everything on the device; slot s's valid tokens are the first
         (generated delta), left-packed in emission order."""
+        self._check_fault("decode")
         self.decode_calls += 1
         if self.spec is None:
             toks = torch.empty(self.capacity, self.chunk, dtype=torch.int32,
@@ -945,6 +1003,79 @@ class SlotEngine:
         # invalid flag), so the scheduler reads toks[slot, :generated delta]
         order = torch.sort((~valid).to(torch.int8), dim=1, stable=True)[1]
         return cache, st, emits.flatten(1).gather(1, order)
+
+    # -- snapshot / restore ------------------------------------------------
+
+    @torch.inference_mode()
+    def snapshot(self, cache, st: DecodeState, alloc=None) -> dict:
+        """Copy the device half of a serve stream to host memory owned by
+        the snapshot (call between chunks): every ``DecodeState`` tensor,
+        each slot generator's ``get_state()``, the draft's contiguous
+        cache on a speculative engine and the cache. A paged all-attention
+        engine copies only the allocated pool pages (``sorted(alloc.refcnt)``:
+        slot-owned and index-held alike) through ``fetch_pages``, in
+        groups of ``max_pages`` (exact ids, no pow2 pad: see
+        ``fetch_pages``), plus ``pos``; every other engine (contiguous
+        rows, MLA latents, Mamba / mLSTM / sLSTM state, a hybrid's pages)
+        copies its whole cache. Restorable any number of times."""
+        state = {"tensors": _map_state(st._replace(rng=None), self._to_host),
+                 "rng": (None if st.rng is None
+                         else [g.get_state() for g in st.rng])}
+        draft = (_map_state(self._draft_cache, self._to_host)
+                 if self.spec is not None else None)
+        if self._page_snapshot_ok and alloc is not None:
+            pids = sorted(alloc.refcnt)
+            groups = [pids[i:i + self.max_pages]
+                      for i in range(0, len(pids), self.max_pages)]
+            snap = {"kind": "paged", "pos": self._to_host(cache.pos),
+                    "pages": [(g, self.fetch_pages(cache, g))
+                              for g in groups]}
+        else:
+            snap = {"kind": "full", "cache": _map_state(cache, self._to_host)}
+        self._host_sync()
+        return dict(snap, state=state, draft=draft)
+
+    @torch.inference_mode()
+    def restore(self, snap: dict, cache, alloc=None):
+        """Write a :meth:`snapshot` back over the live ``cache`` (and the
+        draft's) IN PLACE, so recovery allocates no second cache: every
+        buffer the next chunk reads is bitwise the captured one, whatever
+        a half-finished step wrote after the snapshot, and the resumed
+        stream replays the uninterrupted run's tokens (greedy and sampled:
+        the generators come back with ``set_state``). A paged snapshot
+        zeroes the pool pages it does not hold (a page freed since may
+        hold a quarantined slot's NaN, which a masked read would still
+        spread), writes its own pages back and pushes ``alloc``'s mirror
+        table to the device. Returns (cache, a fresh DecodeState: a few
+        scalars a slot). Nothing of the snapshot is aliased."""
+        rng = None
+        if snap["state"]["rng"] is not None:
+            rng = []
+            for s in snap["state"]["rng"]:
+                g = torch.Generator(device=self.device)
+                g.set_state(s)
+                rng.append(g)
+        st = _map_state(snap["state"]["tensors"],
+                        lambda t: t.to(self.device, copy=True))
+        st = st._replace(rng=rng)
+        if self.spec is not None and snap["draft"] is not None:
+            _copy_state(self._draft_cache, snap["draft"])
+        if snap["kind"] == "paged":
+            if alloc is None:
+                raise ValueError("a paged restore needs the allocator")
+            held = {p for group, _ in snap["pages"] for p in group}
+            unheld = torch.as_tensor(
+                [p for p in range(self.num_pages) if p not in held],
+                dtype=torch.long, device=self.device)
+            for pool in cache.pools:
+                pool.index_fill_(1, unheld, 0)
+            for group, blocks in snap["pages"]:
+                self.restore_pages(cache, group, blocks)
+            self.set_page_table(cache, alloc.table)
+            cache.pos.copy_(snap["pos"])
+        else:
+            _copy_state(cache, snap["cache"])
+        return cache, st
 
     @staticmethod
     def stats(st: DecodeState) -> Dict[str, float]:

@@ -1,6 +1,7 @@
 """Host-side page allocation for the paged KV serve engine (port of
-``repro.serve.paging``, with prefix sharing and the overload subsystem's
-optimistic mode; snapshots' ``clone`` is not ported).
+``repro.serve.paging``, with prefix sharing, the overload subsystem's
+optimistic mode, and the snapshot ``clone`` and ``page_alloc`` fault hook
+of the restart supervisor).
 
 The device never allocates: the :class:`PageAllocator` owns the free list,
 per-slot page ownership and a numpy mirror of the device page table. The
@@ -51,6 +52,7 @@ successful pop lands in the table row before the next, so a failed
 """
 from __future__ import annotations
 
+import copy
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -217,6 +219,24 @@ class PageAllocator:
         self.dirty = False                              # mirror vs device
         self.peak_pages = 0                             # high-water mark
         self.index = PrefixIndex(page_size) if sharing else None
+        # chaos hook (serve/faults.py): fires the "page_alloc" site inside
+        # _pop_free, possibly mid-admission with the allocator half
+        # mutated: the state a snapshot restore must be able to discard
+        self.injector = None
+
+    def clone(self) -> "PageAllocator":
+        """Deep copy of every allocation structure (free list, ownership,
+        reservations, refcounts, the mirror table, the prefix index with
+        its LRU stamps) for snapshot / restore. The injector is SHARED,
+        not copied: its per-site counters must keep advancing across
+        restores, so that a consumed fault never fires again in replay."""
+        inj, self.injector = self.injector, None
+        try:
+            dup = copy.deepcopy(self)
+        finally:
+            self.injector = inj
+        dup.injector = inj
+        return dup
 
     # -- refcounts -----------------------------------------------------------
 
@@ -236,6 +256,8 @@ class PageAllocator:
         ran dry (covered by ``available``'s reclaimable term, so a pop
         guarded by ``can_admit`` / the reservation never fails, unless
         admission is optimistic)."""
+        if self.injector is not None:
+            self.injector.check("page_alloc")
         while not self.free:
             freed = (self.index.evict_one(self)
                      if self.index is not None else None)

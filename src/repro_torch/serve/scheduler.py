@@ -199,6 +199,9 @@ class SlotScheduler:
                                            engine.max_pages, engine.page_size,
                                            sharing=engine.prefix_sharing,
                                            optimistic=self._optimistic)
+        if self.alloc is not None:
+            # chaos: the engine's injector also covers host page allocation
+            self.alloc.injector = engine.injector
         self.free: deque = deque(range(engine.capacity))
         self.occupant: Dict[int, Request] = {}       # slot -> request
         self._gen_seen: Dict[int, int] = {}          # slot -> tokens recorded

@@ -48,6 +48,17 @@ TOL_OP = 1e-5
 MLA, HYBRID = "deepseek-v2-lite-16b", "jamba-v0.1-52b"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU runs here are thousands of small ops: one intra-op
+    thread each (restored after the module). Under the suite's parallel
+    workers, threads that wait for a core slow such runs tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch, dtype="float32"):
     return (get_arch(arch).reduced(dtype=dtype),
             port_arch(arch).reduced(dtype=dtype))

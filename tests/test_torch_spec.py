@@ -44,6 +44,17 @@ from test_torch_paged import paged_inputs
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU runs here are thousands of small ops: one intra-op
+    thread each (restored after the module). Under the suite's parallel
+    workers, threads that wait for a core slow such runs tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(a, dtype):
     return (jnp.asarray(a).astype(getattr(jnp, dtype)),
             torch.from_numpy(a).to(getattr(torch, dtype)))

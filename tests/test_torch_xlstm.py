@@ -65,6 +65,17 @@ TOL_MODEL = 1e-3
 ARCH = "xlstm-350m"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU runs here are thousands of small ops: one intra-op
+    thread each (restored after the module). Under the suite's parallel
+    workers, threads that wait for a core slow such runs tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(dtype="float32"):
     return (get_arch(ARCH).reduced(dtype=dtype),
             port_arch(ARCH).reduced(dtype=dtype))

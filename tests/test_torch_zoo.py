@@ -55,6 +55,17 @@ PARAMS_B = {"chatglm3-6b": 6.24, "qwen1.5-32b": 35.20,
             "mistral-large-123b": 34.02}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The port's CPU runs here are thousands of small ops: one intra-op
+    thread each (restored after the module). Under the suite's parallel
+    workers, threads that wait for a core slow such runs tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(name):
     kw = dict(REDUCED[name], dtype="float32")
     return get_arch(name).reduced(**kw), port_arch(name).reduced(**kw)
