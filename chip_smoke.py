@@ -89,6 +89,33 @@ Phases (any failure raises; nothing is caught):
      uninterrupted run's; 8d and 10b run one paged stream with a decode
      fault on deepseek (latent pages) and jamba (the whole cache, Mamba
      state written in place) the same way;
+  5e. the shape-aware dispatch policy (``run_dispatch``, after 5d):
+     ``core.autotune.autotune`` at yi-9b's serve dims (the generic fp32
+     cells and yi-9b's in bf16), one line a cell (each backend's ms by
+     CUDA events, the winner, the skipped backends and why, the prior's
+     flops and bytes and its bound); a rule, its cell's argmin, on every
+     yi-9b cell (the kernel measured on each) and on no generic cell, no
+     kernel skipped on a yi-9b cell but by its ``supports``, every kernel
+     a generic cell's ``supports`` accepts launched, the persisted policy
+     loaded back equal on this card. Phase 4's requests served contiguous
+     and paged
+     under (a) an all-"kernel" DispatchPolicy (tokens and launches ==
+     phases 4 and 5, bitwise; no fallback; its host-clock ms a step
+     against "auto" in turns), (b) the tuned policy and (c) ``{("gemm",
+     "rows_m"): "ref"}``: launches exactly what a CPU run of the same
+     geometry predicts (``record_calls``: the calls recorded by a wrapper
+     of ``xaif.call``, resolved under each policy); where a rule moves a
+     call off the kernel, first-token logits within rel L2 5e-2 of (a)'s
+     and tokens == (a)'s up to a near tie; no fallback in any of them.
+     (d) the tuned policy on the first 4 requests at 1040 positions,
+     contiguous and paged (66 pages of 16, one max-length request and
+     the scratch page), so
+     that decode attention's KV extent is in the kv_l bucket (which no
+     yi-9b cell measured): tokens and launches == "auto"'s at the same
+     geometry, bitwise, every call recorded there on the kernel, no
+     fallback. The zoo's qwen1.5-32b,
+     qwen3-moe-30b-a3b and chameleon-34b run at half depth to make room
+     (each prints the seconds saved);
   6. greedy speculative decoding on yi-9b without its exit heads, against
      the plain engine on that config: a tied draft on the paged engine
      (acceptance 1.0) and an independent 2-layer draft on the contiguous
@@ -227,8 +254,11 @@ Phases (any failure raises; nothing is caught):
      the prefix-sharing path with their launches in its first sharing
      run, those on the overload path with their launches in phase 5c's
      chunked run, those on the fault-tolerant path with their launches in
-     phase 5d's supervised streams whose injector never fires), the card's
-     name and power limit, and the final ``{"ok": true, ...}`` line.
+     phase 5d's supervised streams whose injector never fires, those on
+     the dispatch-policy path with their launches in phase 5e's tuned
+     serves, and each kernel's autotune cells), the card's name and power
+     limit, the script's seconds, and the final ``{"ok": true, ...}``
+     line.
 
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
@@ -331,14 +361,21 @@ WQ_PREFILL = (0.046, 0.043, None)
 W8A8_PREFILL = (0.10, 0.096, 1)
 QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
 # the zoo archs served by ``run_zoo`` in phases 12b-12h (in this order):
-# the layers each is served at. Full depth where the bf16 weights fit
-# beside the serve's caches and the prefill check's transients;
-# mistral-large-123b (1.384 B parameters a layer, 246 GB whole) is cut to
-# 24 of its 88 layers (63.4 GiB), as jamba is cut, its exit at layer 22
-# kept
-ZOO_LAYERS = {"musicgen-medium": 48, "chatglm3-6b": 28, "qwen1.5-32b": 64,
-              "qwen3-moe-30b-a3b": 48, "chameleon-34b": 48,
+# the layers each is served at, at full width. musicgen-medium and
+# chatglm3-6b at full depth; qwen1.5-32b (64 layers), qwen3-moe-30b-a3b
+# (48) and chameleon-34b (48) cut to half their depth, their exits at
+# layers 16, 12 and 12 kept, to make room for phase 5e within the
+# script's time; mistral-large-123b (1.384 B parameters a layer, 246 GB
+# whole) cut to 24 of its 88 layers (63.4 GiB), as jamba is cut, its exit
+# at layer 22 kept
+ZOO_LAYERS = {"musicgen-medium": 48, "chatglm3-6b": 28, "qwen1.5-32b": 32,
+              "qwen3-moe-30b-a3b": 24, "chameleon-34b": 24,
               "mistral-large-123b": 24}
+# the seconds of those three archs' phases at full depth, on an NVIDIA H100
+# 80GB HBM3 at 700 W (this script's run before the cut): what the cut saves
+# is printed against them
+ZOO_FULL_DEPTH_S = {"qwen1.5-32b": 92.7, "qwen3-moe-30b-a3b": 95.8,
+                    "chameleon-34b": 76.4}
 # phase 5b's pool just above the live working set of its 8 shared-prefix
 # requests (4 slots, pages of 16): admission there evicts index pages
 SHARE_SMALL_POOL = 14
@@ -2402,7 +2439,7 @@ def make_prompts(torch, vocab: int, seed: int = 11):
 
 def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
               seeds=None, on_engine=None, priorities=None, overload=None,
-              resilient=None, **engine_kw):
+              resilient=None, max_len=160, **engine_kw):
     """Serve one request a prompt (the 6 of ``make_prompts`` but in phases
     5b and 5c; 24 new tokens each; request i seeded with ``seeds[i]`` and
     of priority ``priorities[i]`` when given) with every launch counter
@@ -2423,7 +2460,8 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
                         priority=0 if priorities is None else priorities[i])
                 for i, pr in enumerate(prompts)]
     engine = SlotEngine(RunConfig(arch=run_cfg, policy=policy), capacity=4,
-                        max_len=160, chunk=8, prompt_bucket=16, **engine_kw)
+                        max_len=max_len, chunk=8, prompt_bucket=16,
+                        **engine_kw)
     if on_engine is not None:
         on_engine(engine)
     torch.cuda.synchronize()
@@ -2434,6 +2472,7 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
         report = serve(engine, p, requests, overload=overload)
     torch.cuda.synchronize()
     launches = {k: n for k, n in xaif.launch_counts().items() if n}
+    fallbacks = xaif.fallback_counts()
     steps = engine.decode_calls * engine.chunk
     assert len(report.served) == len(prompts), [r.reject_reason
                                                 for r in requests]
@@ -2449,7 +2488,7 @@ def serve_run(torch, runs, card, name, run_cfg, p, prompts, policy="auto",
           f"{launches}; stats {report.stats} on {card}", flush=True)
     runs[name] = dict(tokens=[r.tokens for r in requests],
                       launches=launches, steps=steps, report=report,
-                      prefills=engine.prefill_calls)
+                      prefills=engine.prefill_calls, fallbacks=fallbacks)
     return runs[name]
 
 
@@ -3929,7 +3968,7 @@ def run_resilient(torch, run_serve, runs, cfg, params, prompts, card):
                             breaker=breaker))
         stats = run["report"].stats
         assert stats["restarts"] == 0 and stats["breaker_trips"] >= 1, stats
-        assert breaker.pinned == {"rmsnorm"}
+        assert breaker.pinned == {("rmsnorm", "*"): "ref"}
         assert run["tokens"] == ref["tokens"], "breaker run differs"
         assert xaif.active_breaker() is None
         n = 4 * (2 * cfg.num_layers + 1) + 20 * (2 * cfg.num_layers + 2)
@@ -3961,6 +4000,301 @@ def run_resilient(torch, run_serve, runs, cfg, params, prompts, card):
     print(f"phase 5d (fault-tolerant serving) took "
           f"{time.perf_counter() - t0:.1f}s on {card}", flush=True)
     return never
+
+
+# -- phase 5e: the shape-aware dispatch policy and measured autotune -------
+
+# first-token logits of a serve under another policy than the kernels':
+# rel L2 bound against the kernels' run (as phase 5b's fork-point prefill)
+DISPATCH_MAX_REL = 5e-2
+
+
+class CallRecorder:
+    """Wraps ``xaif.call`` while a ``with`` block runs and counts each
+    call's (op, shapes, dtype): which calls a serve makes does not depend
+    on the policy, so these counts predict any policy's launches
+    (``predicted``)."""
+
+    def __init__(self):
+        from collections import Counter
+        self.calls = Counter()
+
+    def __enter__(self):
+        from repro_torch.core import xaif
+        self.xaif, self.real = xaif, xaif.call
+
+        def call(op, policy, *args, **kwargs):
+            dtype = next(a.dtype for a in args if hasattr(a, "dtype"))
+            self.calls[(op, xaif._shapes_of(args), dtype)] += 1
+            return self.real(op, policy, *args, **kwargs)
+        xaif.call = call
+        return self
+
+    def __exit__(self, *exc):
+        self.xaif.call = self.real
+
+    def predicted(self, policy):
+        """(launches a counter, calls an (op, bucket, backend run)) of the
+        recorded calls under ``policy``, as ``xaif.resolve`` dispatches
+        them (a rule's backend, or its supports fallback)."""
+        from collections import Counter
+        xaif = self.xaif
+        launches, cells = Counter(), Counter()
+        for (op, shapes, dtype), n in self.calls.items():
+            b = xaif.resolve(op, policy, shapes, dtype)
+            cells[(op, xaif.shape_bucket(op, shapes, dtype), b.name)] += n
+            if not b.plain and hasattr(b.entry.kernel, "launches"):
+                launches[op if b.name == xaif.KERNEL
+                         else f"{op}_{b.name}"] += n
+        return dict(launches), dict(cells)
+
+
+class PrefillLogits:
+    """Keeps the first-token logits of every admission (``lm.forward_
+    prefill``'s, in admission order) while a ``with`` block runs."""
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self.lm, self.real, self.rows = lm, lm.forward_prefill, []
+
+        def spy(*args, **kwargs):
+            logits, cache = self.real(*args, **kwargs)
+            self.rows.append(logits[0].float())
+            return logits, cache
+        lm.forward_prefill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.forward_prefill = self.real
+
+
+# serve (d)'s positions: decode attention's KV extent in the kv_l bucket
+# (past 1024 positions; 65 pages of 16 a slot)
+DISPATCH_LONG_LEN = 1040
+
+# the vocabulary of the CPU run that predicts phase 5e's launches (no
+# bucket or supports reads the vocabulary: a head's rows decide its cell)
+DISPATCH_CPU_VOCAB = 512
+
+
+def dispatch_geometry(cfg):
+    """yi-9b's serve geometry at a narrow width, for the CPU run that
+    predicts the card's launches: its depth, exit, dtype, head dim and
+    group (8 query heads a KV head), so that every call lands in the
+    bucket and meets the ``supports`` the card's call does."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    return cfg.reduced(num_layers=cfg.num_layers, num_heads=g,
+                       num_kv_heads=1, head_dim=cfg.head_dim,
+                       vocab_size=DISPATCH_CPU_VOCAB,
+                       early_exit=cfg.early_exit)
+
+
+def record_calls(cfg, prompts, **engine_kw):
+    """The xaif calls of phase 4's serve (``serve_run``'s engine settings)
+    at ``dispatch_geometry(cfg)`` on the CPU."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import SlotEngine
+    from repro_torch.serve.scheduler import Request, serve
+
+    small = dispatch_geometry(cfg)
+    params = lm.init_lm(small, seed=0, device="cpu")
+    engine = SlotEngine(small, capacity=4, max_len=160, chunk=8,
+                        prompt_bucket=16, device="cpu", **engine_kw)
+    requests = [Request(rid=i, prompt=pr % small.vocab_size,
+                        max_new_tokens=24) for i, pr in enumerate(prompts)]
+    # thousands of tiny ops: one intra-op thread runs them fastest
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.inference_mode(), CallRecorder() as rec:
+            serve(engine, params, requests)
+    finally:
+        torch.set_num_threads(threads)
+    return rec
+
+
+def run_dispatch(torch, run_serve, runs, cfg, params, prompts, card):
+    """Phase 5e: the shape-aware dispatch policy on full-width yi-9b (phase
+    4's 6 requests, capacity 4, 160 positions, chunks of 8, prompt buckets
+    of 16). ``autotune`` at yi-9b's serve dims (every generic and yi-9b
+    cell, each backend's ms, the winner, what was skipped and why, the
+    prior and its bound): a rule, the cell's argmin, on every yi-9b cell
+    whose kernel was measured and on no generic cell (its fp32 toy shapes
+    are no yi-9b call), no kernel skipped on a yi-9b cell but by its
+    ``supports``, every generic cell a kernel takes launches it, and the
+    persisted policy loads back equal on this card.
+    Then three policies serve, contiguous and paged (24 usable pages of
+    16): (a) "kernel" in every cell, bitwise phase 4's and 5's tokens and
+    launches with no fallback, its host-clock ms a step against "auto" in
+    turns (the cost of bucketing every call); (b) the tuned policy and (c)
+    ``{("gemm", "rows_m"): "ref"}`` (prompts beyond 32 rows prefill on the
+    plain GEMM), each with exactly the launches that a CPU run of the same
+    geometry predicts (``record_calls``) and, where a rule moves a call
+    off the kernel, first-token logits within DISPATCH_MAX_REL of (a)'s
+    and tokens equal up to a near tie (``near_tie_parts``); no fallback in
+    any. (d) the tuned policy on the first 4 requests at DISPATCH_LONG_LEN
+    positions, contiguous and paged: decode attention in the kv_l bucket on the kernel, launches
+    those recorded on the run, and where every cell of the path names the
+    kernel, tokens and launches == "auto"'s at that geometry, bitwise.
+    Returns the autotune result."""
+    import tempfile
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import autotune, xaif
+    from repro_torch.serve.engine import SlotEngine
+
+    t0 = time.perf_counter()
+    paged = dict(paged=True, page_size=16, num_pages=25)
+    bucket_len = max(-(-len(p) // 16) * 16 for p in prompts)
+    xaif.reset_launch_counts()
+    res = autotune.autotune(arch=cfg, capacity=4, max_len=160, page_size=16,
+                            bucket_len=bucket_len, device="cuda")
+    torch.cuda.synchronize()
+    tuned_launches = {k: n for k, n in xaif.launch_counts().items() if n}
+    for c in res.cells:
+        win = c.winner()
+        dims = autotune._cost_args(c.op, c.shapes)
+        itemsize = 4 if c.dtype == "torch.float32" else 2
+        cost = xaif.entry(c.op).cost_fn(*dims, dtype_bytes=itemsize)
+        b_ms, b_by = bound(cost["hbm_bytes"], cost["flops"],
+                           c.dtype.replace("torch.", ""))
+        print(f"autotune {c.op}/{c.bucket} ({c.source}, {c.dtype}, "
+              f"{[list(x) for x in c.shapes]}): ms "
+              f"{ {n: round(us / 1e3, 4) for n, us in c.measured_us.items()} }"
+              f"; winner {win}; rule {c.rule or 'none: ' + c.no_rule}; "
+              f"skipped {c.skipped}; prior flops "
+              f"{c.prior['flops']:.4g} bytes {c.prior['hbm_bytes']:.4g}; "
+              f"bound {b_ms:.4f} ms ({b_by}, {itemsize}-byte operands) on "
+              f"{card}", flush=True)
+        assert win == min(c.measured_us, key=c.measured_us.get), c
+        if c.source == cfg.name:
+            # a yi-9b cell the kernel takes writes its argmin
+            assert ("kernel" in c.measured_us
+                    or c.skipped["kernel"] == "supports"), c
+            assert c.rule == (win if "kernel" in c.measured_us else None), c
+        else:
+            # a generic cell's fp32 toy shapes are no yi-9b call
+            assert c.rule is None, c
+        assert res.policy.backend_for(c.op, c.bucket) == (c.rule
+                                                          or "kernel"), c
+        if "kernel" in c.measured_us:
+            assert tuned_launches.get(c.op, 0) > 0, (c.op, tuned_launches)
+    assert {(o, b) for o, b, _ in res.policy.rules} == {
+        (c.op, c.bucket) for c in res.cells if c.rule}
+    path = Path(tempfile.mkdtemp()) / "yi-9b-policy.json"
+    res.persist(str(path))
+    tuned = autotune.load_policy(str(path), "cuda")
+    assert tuned == res.policy, "the persisted policy differs"
+    shutil.rmtree(path.parent)
+    print(f"autotune: {len(res.cells)} cells on {res.device}, a rule (its "
+          f"cell's argmin) on each of yi-9b's {len(res.policy.rules)} cells "
+          f"and on no generic one; the policy persisted and loaded back "
+          f"equal on this card; kernel launches while timing "
+          f"{tuned_launches}", flush=True)
+
+    t_tune = time.perf_counter() - t0
+    # the calls phase 4's and 5's serves make, recorded on the CPU
+    t1 = time.perf_counter()
+    recorded = {"contiguous": record_calls(cfg, prompts),
+                "paged": record_calls(cfg, prompts, **paged)}
+    t_record = time.perf_counter() - t1
+    allk = xaif.DispatchPolicy.make(
+        {(op, b): "kernel" for op in xaif.ops() for b in xaif.op_buckets(op)})
+    mixed = xaif.DispatchPolicy.make({("gemm", "rows_m"): "ref"})
+    # (a)'s first-token logits by engine; teacher logits along (a)'s tokens
+    # (the same on both engines), by request
+    first, seen = {}, {}
+    for kind, kw in (("contiguous", {}), ("paged", paged)):
+        rec = recorded[kind]
+        want, path_cells = rec.predicted(allk)
+        ref = runs[kind]
+        assert want == ref["launches"], (kind, want, ref["launches"])
+        with PrefillLogits() as spy:
+            a = run_serve(f"dispatch-kernel-{kind}", cfg, params, prompts,
+                          policy=allk, **kw)
+        first[kind] = spy.rows
+        assert a["tokens"] == ref["tokens"], f"(a) {kind} tokens differ"
+        assert a["launches"] == ref["launches"], (a["launches"],
+                                                  ref["launches"])
+        assert not a["fallbacks"], a["fallbacks"]
+        print(f"dispatch (a) all-kernel {kind}: tokens and launches == the "
+              f"'auto' run's, bitwise; no fallback; cells on the path "
+              f"{sorted(path_cells.items())}", flush=True)
+        for name, policy in (("tuned", tuned), ("mixed", mixed)):
+            want, cells = rec.predicted(policy)
+            on_kernel = all(b == xaif.KERNEL for _, _, b in cells)
+            with PrefillLogits() as spy:
+                r = run_serve(f"dispatch-{name}-{kind}", cfg, params,
+                              prompts, policy=policy, **kw)
+            assert r["launches"] == want, (name, kind, r["launches"], want)
+            assert not r["fallbacks"], (name, kind, r["fallbacks"])
+            moved = {k: n for k, n in cells.items() if k[2] != xaif.KERNEL}
+            if on_kernel:
+                assert r["tokens"] == a["tokens"], (name, kind)
+                print(f"dispatch ({name}) {kind}: every cell on the path "
+                      f"names the kernel; tokens and launches == (a)'s, "
+                      f"bitwise; no fallback", flush=True)
+                continue
+            rel = [float((x - y).norm() / y.norm())
+                   for x, y in zip(spy.rows, first[kind])]
+            rms = float(torch.cat([(x - y).pow(2).flatten() for x, y in
+                                   zip(spy.rows, first[kind])]).mean()) ** .5
+            assert max(rel) < DISPATCH_MAX_REL, (name, kind, rel)
+            parted = near_tie_parts(torch, cfg, params, prompts, r["tokens"],
+                                    a["tokens"], rms, seen)
+            if name == "mixed":
+                others = {k: n for k, n in r["launches"].items()
+                          if k != "gemm"}
+                assert others == {k: n for k, n in a["launches"].items()
+                                  if k != "gemm"}, (others, a["launches"])
+            print(f"dispatch ({name}) {kind}: launches exactly the CPU "
+                  f"prediction {want}; calls off the kernel "
+                  f"{sorted(moved.items())}; first-token logits rel L2 max "
+                  f"{max(rel):.4g} (bound {DISPATCH_MAX_REL}), RMS "
+                  f"{rms:.4g}; {6 - len(parted)} of 6 requests == (a) "
+                  f"whole, parted at near ties {parted}; no fallback",
+                  flush=True)
+    # (d) the tuned policy where decode attention's KV extent is past 1024
+    # positions (the kv_l bucket, which no yi-9b cell measured): its rules
+    # there are the default, so the kernels run as under "auto". The first
+    # 4 requests: one admission a slot
+    long_len, four = DISPATCH_LONG_LEN, prompts[:4]
+    # the pool holds one max-length request (65 pages + the scratch page)
+    long_paged = dict(paged, num_pages=-(-long_len // 16) + 1)
+    for kind, kw in (("contiguous", {}), ("paged", long_paged)):
+        auto = run_serve(f"dispatch-auto-long-{kind}", cfg, params, four,
+                         max_len=long_len, **kw)
+        with CallRecorder() as rec:
+            r = run_serve(f"dispatch-tuned-long-{kind}", cfg, params, four,
+                          policy=tuned, max_len=long_len, **kw)
+        want, cells = rec.predicted(tuned)
+        op = "attn_decode_paged" if kw else "attn_decode"
+        assert (op, "kv_l", xaif.KERNEL) in cells, sorted(cells)
+        assert r["launches"] == want, (r["launches"], want)
+        assert not r["fallbacks"], r["fallbacks"]
+        same = all(b == xaif.KERNEL for _, _, b in cells)
+        if same:
+            assert r["tokens"] == auto["tokens"], f"(d) {kind} tokens"
+            assert r["launches"] == auto["launches"], (r["launches"],
+                                                       auto["launches"])
+        print(f"dispatch (d) tuned at {long_len} positions {kind}: "
+              + ("tokens and launches == 'auto''s, bitwise" if same else
+                 "a rule moves calls off the kernel (tokens held in (b))")
+              + f"; launches == the calls recorded; no fallback; cells on "
+              f"the path {sorted(cells.items())}", flush=True)
+    host_ab(torch, "yi-9b, 'auto' against an all-kernel DispatchPolicy "
+            "(the cost of per-call bucketing)",
+            [("auto", SlotEngine(cfg, capacity=4, max_len=160, chunk=8),
+              params),
+             ("dispatch", SlotEngine(RunConfig(arch=cfg, policy=allk),
+                                     capacity=4, max_len=160, chunk=8),
+              params)],
+            prompts)
+    print(f"phase 5e (dispatch policy and autotune) took "
+          f"{time.perf_counter() - t0:.1f}s (autotune {t_tune:.1f}s, the "
+          f"CPU runs {t_record:.1f}s) on {card}", flush=True)
+    return res
 
 
 def run_quantized(torch, run_serve, cfg, params, prompts, bf16):
@@ -4378,7 +4712,7 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
 
     full = get_arch(name)
     cfg = dataclasses.replace(full, num_layers=ZOO_LAYERS[name])
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     leaves = lm._leaves(params)
@@ -4459,8 +4793,14 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
                   f"{sr['report'].stats['spec_acceptance']:.3f}", flush=True)
     del params, ref_toks
     torch.cuda.empty_cache()
-    print(f"{name} phases done at {time.perf_counter() - t_start:.1f}s",
-          flush=True)
+    took = time.perf_counter() - t_phase
+    saved = ""
+    if name in ZOO_FULL_DEPTH_S:
+        saved = (f"; {full.num_layers} -> {nl} layers saved "
+                 f"{ZOO_FULL_DEPTH_S[name] - took:.1f}s of its "
+                 f"{ZOO_FULL_DEPTH_S[name]:.1f}s at full depth")
+    print(f"{name} phases took {took:.1f}s{saved}; done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
 
 def check_seizure_steps(torch, tr, kind, w, batches):
@@ -4732,6 +5072,10 @@ def main() -> int:
     #    quarantine (after 6e: its seeded run is a reference) ------------
     run_resilient(torch, run_serve, runs, cfg, params, prompts, card)
 
+    # -- 5e. the shape-aware dispatch policy: autotune at yi-9b's serve
+    #    dims, then the all-kernel, tuned and mixed policies served -------
+    tuned = run_dispatch(torch, run_serve, runs, cfg, params, prompts, card)
+
     # -- 6b-6d. yi-9b on int8 weights (the bf16 weights still on the card):
     #    weight-only contiguous and paged, W8A8 contiguous ----------------
     qparams = run_quantized(torch, run_serve, cfg, params, prompts,
@@ -4798,15 +5142,19 @@ def main() -> int:
     #    reached on the H100, so it takes 64 prompts, and bounds at ~2x the
     #    8-prompt readings (kernels vs plain max 0.043, mean 0.031) with
     #    room for the larger max of 64; the others read max 0.018-0.025
-    #    and 5-6 clear prompts of 8 under the default bounds (PERF.md) ---
+    #    and 5-6 clear prompts of 8 under the default bounds (PERF.md). At
+    #    half depth the random logits' top-2 gaps shrink: qwen1.5 at 32
+    #    layers read 2 clear prompts of 8 (kernels vs plain max 0.0196,
+    #    argmax 8/8 equal), so it and chameleon, cut alike, take 64 prompts
+    #    as qwen3-moe does ---
     for name, prefill, spec in (
             ("musicgen-medium", {}, ("tied-paged", "draft2l-contiguous")),
             ("chatglm3-6b", {}, ("tied-paged", "draft2l-contiguous")),
-            ("qwen1.5-32b", dict(fp32_copy=False), ()),
+            ("qwen1.5-32b", dict(fp32_copy=False, n_prompts=64), ()),
             ("qwen3-moe-30b-a3b", dict(fp32_copy=False, n_prompts=64,
                                        max_rel=0.15, max_mean_rel=0.0625),
              ()),
-            ("chameleon-34b", dict(fp32_copy=False), ()),
+            ("chameleon-34b", dict(fp32_copy=False, n_prompts=64), ()),
             ("mistral-large-123b", dict(fp32_copy=False), ("tied-paged",))):
         torch.cuda.empty_cache()
         # gated decode (phases 12e, 12g): chatglm3's QKV biases and half
@@ -5000,6 +5348,27 @@ def main() -> int:
             k["paths"] = k.get("paths", ["serve"]) + ["resilient"]
             k["resilient_launches"] = runs[run]["launches"][
                 replaces[k["name"]][3]]
+    # the shape-aware dispatch path (phase 5e): the kernels of yi-9b's
+    # serves under the tuned DispatchPolicy, with their launches there;
+    # and each kernel's autotune cells (the generic ones fp32, yi-9b's in
+    # its dtype), each backend's ms and the winner
+    for k in kernels:
+        if k["name"] in ("gemm", "rmsnorm", "attention", "attn_decode",
+                         "attn_decode_paged", "entropy_exit"):
+            kind = "paged" if k["name"] == "attn_decode_paged" \
+                else "contiguous"
+            k["paths"] = k.get("paths", ["serve"]) + ["dispatch_policy"]
+            k["dispatch_launches"] = runs[f"dispatch-tuned-{kind}"][
+                "launches"].get(replaces[k["name"]][3], 0)
+    by_name = {k["name"]: k for k in kernels}
+    for c in tuned.cells:
+        if "kernel" not in c.measured_us:
+            continue
+        name = "mlstm_decode" if c.bucket == "mlstm" else c.op
+        by_name[name].setdefault("autotune_cells", []).append(dict(
+            cell=f"{c.op}/{c.bucket}", source=c.source, dtype=c.dtype,
+            ms={n: us / 1e3 for n, us in c.measured_us.items()},
+            winner=c.winner(), rule=c.rule))
     # the seizure evaluation's instances (phase 14's kernels run): the
     # transformer's attention and norms; both models' heads and exits
     seizure_kernels = {
@@ -5018,6 +5387,8 @@ def main() -> int:
                      replaces=f"src/repro/{tpu}", launches=n,
                      **records[name])
                 for name, (tpu, src, n) in seizure_kernels.items()]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f}s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

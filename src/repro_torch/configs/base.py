@@ -225,14 +225,17 @@ class RunConfig:
 
     ``policy`` is ``"auto"`` (hand-written kernels for CUDA tensors, plain
     PyTorch for CPU tensors), ``"ref"`` (plain PyTorch everywhere — the
-    oracle that tests and ``chip_smoke.py`` hold the kernels against) or a
+    oracle that tests and ``chip_smoke.py`` hold the kernels against), a
     ``core.xaif.Policy`` naming per-op backends (W8A8 serving:
-    ``Policy({"gemm": "int8"}, allow_lossy=True)``). Weight quantization
-    is not a flag here: int8 weights are a params tree that
-    ``serve.quantize.quantize_weights_int8`` made."""
+    ``Policy({"gemm": "int8"}, allow_lossy=True)``) or a
+    ``core.xaif.DispatchPolicy`` naming a backend per (op, shape bucket),
+    as ``core.autotune`` measures and persists one (an empty one serves as
+    ``"auto"``). Model code passes the policy on without reading it.
+    Weight quantization is not a flag here: int8 weights are a params
+    tree that ``serve.quantize.quantize_weights_int8`` made."""
 
     arch: ArchConfig
-    policy: Any = "auto"         # str or core.xaif.Policy
+    policy: Any = "auto"   # str, core.xaif.Policy or core.xaif.DispatchPolicy
 
 
 # ---------------------------------------------------------------------------

@@ -202,4 +202,45 @@ def attn_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attn_decode.launches = 0
 
-xaif.register("attn_decode", attn_decode_ref, attn_decode)
+def attn_decode_cost(b, hq, s, d, dtype_bytes=2):
+    """JAX's ``attn_decode_cost``: one pass over the cache's K and V."""
+    flops = 4.0 * b * hq * s * d
+    return {"flops": flops,
+            "hbm_bytes": dtype_bytes * b * (2 * s * d + 2 * hq * d)}
+
+
+def gqa_supports(q, k, v, max_rows: int) -> bool:
+    """The GQA decode kernels' limits on shapes: q [B, Hq, D] or [B, Hq,
+    K1, D] with D one of ``HEAD_DIMS``, k / v one [N, Hkv, R, D] shape,
+    Hq / Hkv * K1 rows a KV head, at most ``max_rows``."""
+    k1 = q[2] if len(q) == 4 else 1
+    return (len(q) in (3, 4) and q[-1] in HEAD_DIMS and len(k) == 4
+            and k[3] == q[-1] and tuple(v) == tuple(k)
+            and q[1] % k[1] == 0 and q[1] // k[1] * k1 <= max_rows)
+
+
+def mla_supports(q, c) -> bool:
+    """The precise (MLA) kernels' limits: q [B, H <= 16, 512] against a
+    latent of one head [N, 1, R, 512]."""
+    return (len(q) == 3 and q[1] <= MLA_MAX_HEADS and q[2] == MLA_LATENT
+            and len(c) == 4 and c[1] == 1 and c[3] == MLA_LATENT)
+
+
+def _supports(shapes, dtype):
+    # (q, k, v, cache_pos): GQA in fp32 / bf16, or the precise mode (fp32
+    # q, told apart by its 512-wide latent: no GQA instance is that wide)
+    q, k, v, pos = shapes[:4]
+    if q[-1] == MLA_LATENT:
+        return (dtype in (None, torch.float32) and mla_supports(q, k)
+                and tuple(v) == tuple(k) and k[0] == q[0]
+                and tuple(pos) == (q[0],))
+    return (dtype in (None,) + tuple(DTYPE_CODE)
+            and gqa_supports(q, k, v, MAX_GROUP) and len(q) == 3
+            and k[0] == q[0] and tuple(pos) == (q[0],))
+
+
+xaif.register("attn_decode", attn_decode_ref, attn_decode,
+              cost_fn=attn_decode_cost, supports=_supports,
+              description="decode attention over a contiguous cache: the "
+                          "GQA kernel, or the precise (MLA) kernel on the "
+                          "latent")

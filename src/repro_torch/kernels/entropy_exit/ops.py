@@ -53,4 +53,17 @@ def entropy(logits: torch.Tensor) -> torch.Tensor:
 
 entropy.launches = 0
 
-xaif.register("entropy_exit", entropy_ref, entropy)
+def entropy_cost(m, v, dtype_bytes=2):
+    """JAX's ``entropy_cost``: one pass over the logits."""
+    return {"flops": 6.0 * m * v, "hbm_bytes": dtype_bytes * m * v + 4.0 * m}
+
+
+def _supports(shapes, dtype):
+    # logits [..., V] in fp32 or bf16; any V (odd widths load scalars)
+    return dtype in (None,) + tuple(DTYPE_CODE) and len(shapes[0]) >= 1
+
+
+xaif.register("entropy_exit", entropy_ref, entropy, cost_fn=entropy_cost,
+              supports=_supports,
+              description="single-pass online-softmax entropy, a cluster of "
+                          "blocks a row")

@@ -73,4 +73,77 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention.launches = 0
 attention.instances = {"attention_fp32": 0}
 
-xaif.register("attention", attention_ref, attention)
+def attention_cost(b, hq, t, s, d, dtype_bytes=2):
+    """JAX's ``attention_cost``."""
+    flops = 4.0 * b * hq * t * s * d
+    return {"flops": flops,
+            "hbm_bytes": dtype_bytes * b * (2 * hq * t * d + 2 * hq * s * d)}
+
+
+def _supports(shapes, dtype):
+    # the instances' (q/k, v) head dims in this dtype (JAX's Pallas kernel
+    # needs dv == d and so rejects MLA's (192, 128), which this kernel
+    # has; it has no fp32 (64, 64)); one batch, GQA groups
+    q, k, v = shapes[0], shapes[1], shapes[2]
+    dims = {torch.float32: HEAD_DIMS_FP32, torch.bfloat16: HEAD_DIMS,
+            None: HEAD_DIMS + HEAD_DIMS_FP32}.get(dtype, ())
+    return (len(q) == len(k) == len(v) == 4 and (q[3], v[3]) in dims
+            and k[3] == q[3] and v[:3] == k[:3] and k[0] == q[0]
+            and q[1] % k[1] == 0)
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: Optional[float] = None,
+                        *, bq: int = 512, bkv: int = 1024) -> torch.Tensor:
+    """The JAX ``attention_blockwise_op`` (backend ``blockwise``): online
+    softmax over q blocks of ``bq`` and kv blocks of ``bkv`` rows (each
+    halved until it divides T / S), in fp32, never materialising [T, S].
+    q [B, Hq, T, Dqk], k [B, Hkv, S, Dqk], v [B, Hkv, S, Dv] (Dv may
+    differ: MLA) -> [B, Hq, T, Dv] in q's dtype, the causal mask
+    bottom-right (query t sees keys <= t + S - T). PyTorch on every
+    device: no kernel, no launch counter."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    bq_ = min(bq, t)
+    while t % bq_:
+        bq_ //= 2
+    bkv_ = min(bkv, s)
+    while s % bkv_:
+        bkv_ //= 2
+    offset = s - t
+    rows = torch.arange(bq_, device=q.device)[:, None]
+    cols = torch.arange(bkv_, device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, t, bq_):
+        qblk = q[:, :, q0:q0 + bq_].float() * scale
+        m = torch.full((b, hq, bq_, 1), -1e30, device=q.device)
+        l_ = torch.zeros(b, hq, bq_, 1, device=q.device)
+        o = torch.zeros(b, hq, bq_, dv, device=q.device)
+        for k0 in range(0, s, bkv_):
+            kr = k[:, :, k0:k0 + bkv_].float().repeat_interleave(g, dim=1)
+            vr = v[:, :, k0:k0 + bkv_].float().repeat_interleave(g, dim=1)
+            sc = torch.einsum("bhtd,bhsd->bhts", qblk, kr)
+            if causal:
+                keep = k0 + cols <= q0 + rows + offset
+                sc = torch.where(keep, sc, torch.full_like(sc, -1e30))
+            m_n = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp(sc - m_n)
+            alpha = torch.exp(m - m_n)
+            l_ = l_ * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + torch.einsum("bhts,bhsd->bhtd", p, vr)
+            m = m_n
+        outs.append(o / l_.clamp_min(1e-30))
+    return torch.cat(outs, dim=2).to(q.dtype)
+
+
+xaif.register("attention", attention_ref, attention, cost_fn=attention_cost,
+              supports=_supports,
+              description="flash attention, online softmax, GQA: the bf16 "
+                          "tensor-core kernel or the fp32 scalar one")
+xaif.register("attention", attention_blockwise, attention_blockwise,
+              backend="blockwise", cost_fn=attention_cost,
+              description="PyTorch online softmax over q / kv blocks on "
+                          "every device; never materialises [T, S]")

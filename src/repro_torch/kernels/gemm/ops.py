@@ -397,6 +397,42 @@ def gemm_heads(x: torch.Tensor, w: torch.Tensor, transpose_w: bool = False,
 
 gemm_heads.launches = 0
 
-xaif.register("gemm", gemm_ref, gemm)
-xaif.register("gemm", gemm_w8a8_ref, gemm_int8, backend="int8", lossy=True)
-xaif.register("gemm_heads", gemm_heads_ref, gemm_heads)
+def gemm_cost(m, k, n, dtype_bytes=2):
+    """JAX's ``gemm_cost``: the products' flops and each operand moved
+    once."""
+    return {"flops": 2.0 * m * k * n,
+            "hbm_bytes": dtype_bytes * (m * k + k * n + m * n)}
+
+
+def _gemm_supports(shapes, dtype):
+    # x [..., K] against a 2-D w [K, N] (a WeightQ's int8 tensor), in fp32
+    # or bf16; the plans take any K and N
+    x, w = shapes[0], shapes[1]
+    return (dtype in (None, torch.float32, torch.bfloat16) and len(w) == 2
+            and x[-1] == w[0])
+
+
+def _int8_supports(shapes, dtype):
+    # the W8A8 kernel takes bf16 activations only
+    return dtype in (None, torch.bfloat16) and _gemm_supports(shapes, dtype)
+
+
+def _heads_supports(shapes, dtype):
+    # x fp32 [M, H, K]; w [L, H, D] or, head-major, [H, K, N]
+    x, w = shapes[0], shapes[1]
+    return (dtype in (None, torch.float32) and len(x) == 3 and len(w) == 3
+            and x[1] in (w[0], w[1]))
+
+
+xaif.register("gemm", gemm_ref, gemm, cost_fn=gemm_cost,
+              supports=_gemm_supports,
+              description="fused GEMM (bias, activation), bf16 tensor-core "
+                          "or fp32 kernel, int8 weights dequantized in "
+                          "registers")
+xaif.register("gemm", gemm_w8a8_ref, gemm_int8, backend="int8", lossy=True,
+              cost_fn=gemm_cost, supports=_int8_supports,
+              description="W8A8: activations quantized per row in the "
+                          "kernel, int32 products, fused dequant")
+xaif.register("gemm_heads", gemm_heads_ref, gemm_heads,
+              supports=_heads_supports,
+              description="per-head fp32 products, one launch for all heads")

@@ -121,4 +121,30 @@ def moe_decode(x: torch.Tensor, expert_idx: torch.Tensor, gate: torch.Tensor,
 
 moe_decode.launches = 0
 
-xaif.register("moe_decode", moe_decode_ref, moe_decode)
+def moe_decode_cost(b, k, d, h, e, dtype_bytes=2):
+    """JAX's ``moe_decode_cost``: the (at most) min(B K, E) touched
+    experts' three panels read once."""
+    flops = 6.0 * b * k * d * h
+    touched = min(b * k, e)
+    return {"flops": flops,
+            "hbm_bytes": dtype_bytes * (3 * touched * d * h + 2 * b * d)}
+
+
+def _supports(shapes, dtype):
+    # x [B, d], expert_idx / gate [B, K], w_gate / w_up [E, d, h], w_down
+    # [E, h, d]; d and h multiples of 8, E <= 1024, B K <= 2048
+    x, idx, gate, wg, wu, wd = shapes[:6]
+    b, d = x
+    k = idx[1]
+    e, _, h = wg
+    return (dtype in (None, torch.float32, torch.bfloat16)
+            and tuple(idx) == tuple(gate) == (b, k)
+            and tuple(wg) == tuple(wu) == (e, d, h) and tuple(wd) == (e, h, d)
+            and d % 8 == 0 and h % 8 == 0 and e <= MAX_EXPERTS
+            and b * k <= MAX_ASSIGN)
+
+
+xaif.register("moe_decode", moe_decode_ref, moe_decode,
+              cost_fn=moe_decode_cost, supports=_supports,
+              description="dropless MoE decode: routing on the card, only "
+                          "touched experts' panels read")

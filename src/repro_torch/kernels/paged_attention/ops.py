@@ -10,9 +10,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import check, library, stream_ptr
+from repro_torch.kernels._build import DTYPE_CODE, check, library, stream_ptr
 from repro_torch.kernels.attn_decode.ops import (MAX_GROUP, MLA_LATENT,
-                                                 check_decode, check_precise)
+                                                 check_decode, check_precise,
+                                                 gqa_supports, mla_supports)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 TILE = 64           # positions per tile of csrc/decode_tile.cuh
@@ -139,4 +140,37 @@ def attn_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
 attn_decode_paged.launches = 0
 
-xaif.register("attn_decode_paged", paged_attention_ref, attn_decode_paged)
+def paged_attention_cost(b, hq, np_, ps, d, dtype_bytes=2):
+    """JAX's ``paged_attention_cost``: one pass over the resident pages."""
+    s = np_ * ps
+    flops = 4.0 * b * hq * s * d
+    return {"flops": flops,
+            "hbm_bytes": dtype_bytes * b * (2 * s * d + 2 * hq * d)}
+
+
+def paged_supports(shapes, dtype, max_rows: int) -> bool:
+    """(q, k_pages, v_pages, page_table [B, NP], cache_pos [B]) as the GQA
+    paged kernels take them: a page size that divides the tile."""
+    q, kp, vp, table, pos = shapes[:5]
+    return (dtype in (None,) + tuple(DTYPE_CODE)
+            and gqa_supports(q, kp, vp, max_rows) and TILE % kp[2] == 0
+            and len(table) == 2 and table[0] == q[0]
+            and tuple(pos) == (q[0],))
+
+
+def _supports(shapes, dtype):
+    # GQA, or the precise mode (fp32 q, a 512-wide latent of one head,
+    # pages that divide its 32-position tile)
+    q, kp, vp, table, pos = shapes[:5]
+    if q[-1] == MLA_LATENT:
+        return (dtype in (None, torch.float32) and mla_supports(q, kp)
+                and tuple(vp) == tuple(kp) and MLA_TILE % kp[2] == 0
+                and len(table) == 2 and table[0] == q[0]
+                and tuple(pos) == (q[0],))
+    return len(q) == 3 and paged_supports(shapes, dtype, MAX_GROUP)
+
+
+xaif.register("attn_decode_paged", paged_attention_ref, attn_decode_paged,
+              cost_fn=paged_attention_cost, supports=_supports,
+              description="decode attention over page pools, page ids read "
+                          "on the card: GQA, or precise (MLA) latent pages")

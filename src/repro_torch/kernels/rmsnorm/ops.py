@@ -53,4 +53,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 rmsnorm.launches = 0
 
-xaif.register("rmsnorm", rmsnorm_ref, rmsnorm)
+def rmsnorm_cost(m, d, dtype_bytes=2):
+    """JAX's ``rmsnorm_cost``."""
+    return {"flops": 4.0 * m * d, "hbm_bytes": 2.0 * dtype_bytes * m * d}
+
+
+def _supports(shapes, dtype):
+    # x [..., d] in fp32 or bf16 and a scale [d]; any d
+    return (dtype in (None,) + tuple(DTYPE_CODE)
+            and tuple(shapes[1]) == (shapes[0][-1],))
+
+
+xaif.register("rmsnorm", rmsnorm_ref, rmsnorm, cost_fn=rmsnorm_cost,
+              supports=_supports,
+              description="fused single-pass RMSNorm, a row's threads from "
+                          "its width")

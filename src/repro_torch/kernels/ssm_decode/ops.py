@@ -145,4 +145,29 @@ def mlstm_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 ssm_decode.launches = 0
 
-xaif.register("ssm_decode", ssm_decode_ref, ssm_decode)
+def ssm_decode_cost(b, d, n, dtype_bytes=4):
+    """JAX's ``ssm_decode_cost``: the state read and written once."""
+    return {"flops": 8.0 * b * d * n,
+            "hbm_bytes": dtype_bytes * b * d * (2 * n + 3)}
+
+
+def _supports(shapes, dtype):
+    # fp32. Mamba: x [B, Din], a [Din, 16] (the d_state the kernel is built
+    # for), h [B, Din, 16]; mLSTM: q [B, H, dh], dh % 4 == 0, C [B, H, dh,
+    # dh]. At most 65535 rows (B, or B H) a launch
+    x = shapes[0]
+    if dtype not in (None, torch.float32):
+        return False
+    if len(x) == 2:
+        a, h = shapes[2], shapes[6]
+        return (tuple(a) == (x[1], STATE_SIZE)
+                and tuple(h) == (x[0], x[1], STATE_SIZE) and x[0] <= 65535)
+    b, hh, dh = x
+    return (len(x) == 3 and dh % 4 == 0 and b * hh <= 65535
+            and tuple(shapes[6]) == (b, hh, dh, dh))
+
+
+xaif.register("ssm_decode", ssm_decode_ref, ssm_decode,
+              cost_fn=ssm_decode_cost, supports=_supports,
+              description="one-token recurrent step, the state read and "
+                          "written once: Mamba or mLSTM")

@@ -8,9 +8,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core import xaif
-from repro_torch.kernels._build import check, library, stream_ptr
-from repro_torch.kernels.attn_decode.ops import check_contiguous
-from repro_torch.kernels.paged_attention.ops import check_paged
+from repro_torch.kernels._build import DTYPE_CODE, check, library, stream_ptr
+from repro_torch.kernels.attn_decode.ops import (check_contiguous,
+                                                 gqa_supports)
+from repro_torch.kernels.paged_attention.ops import (check_paged,
+                                                     paged_supports)
 from repro_torch.kernels.verify_decode.ref import (verify_decode_paged_ref,
                                                    verify_decode_ref)
 
@@ -81,6 +83,36 @@ def verify_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 verify_decode.launches = 0
 verify_decode_paged.launches = 0
 
-xaif.register("verify_decode", verify_decode_ref, verify_decode)
+def verify_decode_cost(b, hq, k1, s, d, dtype_bytes=2):
+    """JAX's ``verify_decode_cost``: one pass over the cache for K1
+    queries."""
+    flops = 4.0 * b * hq * k1 * s * d
+    return {"flops": flops,
+            "hbm_bytes": dtype_bytes * b * (2 * s * d + 2 * hq * k1 * d)}
+
+
+def verify_decode_paged_cost(b, hq, k1, np_, ps, d, dtype_bytes=2):
+    """JAX's ``verify_decode_paged_cost``."""
+    return verify_decode_cost(b, hq, k1, np_ * ps, d, dtype_bytes)
+
+
+def _supports(shapes, dtype):
+    # q [B, Hq, K1, D], k / v [B, Hkv, S, D], cache_pos [B]: g * K1 <= 64
+    q, k, v, pos = shapes[:4]
+    return (dtype in (None,) + tuple(DTYPE_CODE) and len(q) == 4
+            and gqa_supports(q, k, v, MAX_ROWS) and k[0] == q[0]
+            and tuple(pos) == (q[0],))
+
+
+def _paged_supports(shapes, dtype):
+    return len(shapes[0]) == 4 and paged_supports(shapes, dtype, MAX_ROWS)
+
+
+xaif.register("verify_decode", verify_decode_ref, verify_decode,
+              cost_fn=verify_decode_cost, supports=_supports,
+              description="K1 speculative queries a sequence over a "
+                          "contiguous cache, a staircase mask, one pass")
 xaif.register("verify_decode_paged", verify_decode_paged_ref,
-              verify_decode_paged)
+              verify_decode_paged, cost_fn=verify_decode_paged_cost,
+              supports=_paged_supports,
+              description="verify attention over page pools")

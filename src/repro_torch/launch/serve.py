@@ -85,10 +85,26 @@ seeded from ``--sample-seed``:
         --device cpu --temperature 0.7 --top-k 50 --top-p 0.9 \
         --sample-seed 1
 
+``--autotune`` measures every backend of every op at the served arch's
+dims (``core/autotune.py``, 2 iterations a backend, on ``--device``) and
+writes the winning ``DispatchPolicy`` to ``--policy`` (default
+``.xaif_policy_torch.json``), then serves under it. ``--policy PATH``
+alone serves under the policy an earlier ``--autotune`` wrote there, and
+refuses one measured on another device (a policy measured on the CPU
+timed no kernel and has no rule). Without either flag the launcher
+serves ``"auto"``; no file is read unasked. A ``dispatch:`` line reports
+the policy's rules and the calls its ``supports`` fallbacks moved:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --device cpu --autotune --policy /tmp/yi.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --device cpu --policy /tmp/yi.json
+
 ``--inject-fault site=<s>,chunk=<n>`` is the chaos smoke: one fault at
 the n-th call (0-based) of site s (``prefill``, ``decode``,
 ``page_alloc``, ``swap``, ``backend``; the last two need ``--paged``,
-``backend`` routes rmsnorm through the ``chaos`` backend). The launcher
+``backend`` routes rmsnorm through the ``chaos`` backend, in place of any
+loaded or tuned policy). The launcher
 serves a fault-free reference stream first, then the same requests under
 the restart supervisor (``serve/resilient.py``: a snapshot every
 ``--snapshot-every`` chunks, at most ``--max-restarts`` restarts, a
@@ -110,6 +126,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.configs.base import RunConfig, get_arch, list_archs
+from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import xaif
 from repro_torch.models import lm
 from repro_torch.serve.engine import SlotEngine, SpecConfig
@@ -225,6 +242,15 @@ def main(argv=None):
                     help="supervisor restart budget before giving up")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--policy", default=None,
+                    help="serve under the DispatchPolicy JSON that "
+                         "--autotune wrote here on this device (with "
+                         "--autotune: where to write it; default "
+                         f"{autotune_mod.DEFAULT_POLICY_PATH})")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure every backend at this arch's serve-time "
+                         "dims on --device, persist the winning policy to "
+                         "--policy and serve under it")
     args = ap.parse_args(argv)
     if (args.shared_prefix_len + args.prompt_len_max + args.new_tokens
             > args.max_len):
@@ -329,6 +355,24 @@ def main(argv=None):
     if args.threshold is not None and cfg.early_exit is not None:
         cfg = dataclasses.replace(cfg, early_exit=dataclasses.replace(
             cfg.early_exit, entropy_threshold=args.threshold))
+    if args.autotune:
+        path = args.policy or autotune_mod.DEFAULT_POLICY_PATH
+        print(f"autotuning XAIF backends at {args.arch} serve dims on "
+              f"{args.device} -> {path}")
+        result = autotune_mod.autotune(
+            iters=2, arch=cfg, capacity=args.capacity, max_len=args.max_len,
+            page_size=args.page_size, device=args.device, print_fn=print)
+        result.persist(path)
+        policy = result.policy
+    elif args.policy is not None:
+        try:
+            policy = autotune_mod.load_policy(args.policy, args.device)
+        except (OSError, ValueError) as exc:
+            ap.error(f"--policy: {exc}")
+        print(f"loaded dispatch policy from {args.policy} "
+              f"({len(policy.rules)} rules)")
+    else:
+        policy = "auto"
     params = lm.init_lm(cfg, seed=0, device=args.device)
     overload = None
     if (args.preemption or args.priority > 1 or args.prefill_chunk
@@ -356,12 +400,13 @@ def main(argv=None):
             r.prompt = np.concatenate([common, r.prompt])
     injector, chaos_ref = None, None
     with contextlib.ExitStack() as stack:
-        policy = "auto"
         if fault_spec is not None and fault_spec[0] == "backend":
             # route a row op through the chaos backend (its plain version
-            # behind the injector's "backend" site) so that the site fires
+            # behind the injector's "backend" site) so that the site fires;
+            # it replaces a loaded or tuned policy, as in JAX's launcher
             stack.enter_context(chaos_backends(("rmsnorm",)))
             policy = xaif.Policy({"rmsnorm": "chaos"})
+        xaif.reset_launch_counts()
         engine = SlotEngine(RunConfig(arch=cfg, policy=policy),
                             capacity=args.capacity, max_len=args.max_len,
                             chunk=args.chunk, device=args.device,
@@ -411,6 +456,10 @@ def main(argv=None):
               f"(first: {report.rejected[0].reject_reason})")
     print(f"  exit stats: exit_rate={report.stats['exit_rate']:.2%} "
           f"gated_fraction={report.stats['gated_fraction']:.2%}")
+    if isinstance(policy, xaif.DispatchPolicy):
+        print(f"  dispatch: {len(policy.rules)} rules, default "
+              f"{policy.default}; supports fallbacks "
+              f"{xaif.fallback_counts() or 'none'}")
     if engine.paged:
         print(f"  pages: peak {int(report.stats['peak_pages'])} of "
               f"{engine.num_pages - 1} usable ({engine.page_size} "

@@ -331,7 +331,8 @@ def test_circuit_breaker_pins_the_op_and_matches_plain(world):
             # the breaker absorbed the raise inside the call: no restart
             assert rep.stats["restarts"] == 0
             assert rep.stats["breaker_trips"] == breaker.trips == 1
-            assert breaker.pinned == {"rmsnorm"}
+            # a Policy has no buckets: the whole op is pinned (JAX's "*")
+            assert breaker.pinned == {("rmsnorm", "*"): "ref"}
             assert [e.kind for e in inj.events] == ["inject",
                                                     "circuit-breaker"]
             assert "op=rmsnorm" in inj.events[1].info
@@ -382,6 +383,37 @@ def test_breaker_is_the_only_fallback_and_counts_every_trip():
     (ev,) = b.events
     assert isinstance(ev, FaultEvent) and ev.kind == "circuit-breaker"
     assert "InjectedFault" in ev.info and "-> plain" in ev.info
+
+
+def test_breaker_pins_one_bucket_under_a_dispatch_policy():
+    """Under a DispatchPolicy the breaker pins the (op, bucket) cell that
+    raised, as JAX's does: the decode-sized rows go to the plain version
+    from then on, while the prefill-sized rows keep their own rule."""
+    small, scale = torch.randn(2, 8), torch.rand(8) + 0.5
+    large = torch.randn(64, 8)
+    plain = xaif.entry("rmsnorm").plain
+    with chaos_backends(("rmsnorm",)):
+        policy = xaif.DispatchPolicy.make({("rmsnorm", "rows_s"): "chaos",
+                                           ("rmsnorm", "rows_m"): "chaos"})
+        prev = arm(FaultInjector(schedule={"backend": [0]}))
+        b = xaif.CircuitBreaker()
+        xaif.install_breaker(b)
+        try:
+            assert torch.equal(xaif.call("rmsnorm", policy, small, scale),
+                               plain(small, scale))
+            assert b.pinned == {("rmsnorm", "rows_s"): "ref"}
+            # rows_m still runs its rule's backend (the chaos site counts)
+            assert torch.equal(xaif.call("rmsnorm", policy, large, scale),
+                               plain(large, scale))
+            assert armed().calls["backend"] == 2
+            # rows_s is pinned: the chaos backend is not called again
+            xaif.call("rmsnorm", policy, small, scale)
+            assert armed().calls["backend"] == 2 and b.trips == 1
+        finally:
+            xaif.install_breaker(None)
+            arm(prev)
+    (ev,) = b.events
+    assert "op=rmsnorm bucket=rows_s backend=chaos" in ev.info
 
 
 def test_breaker_lets_a_real_backend_error_through():

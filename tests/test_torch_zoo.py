@@ -50,8 +50,8 @@ REDUCED = {
 ARCHS = sorted(REDUCED)
 # Parameters (billions) of each full-width config at the depth the card
 # serves, as ``lm.init_lm`` lays them out (embed and unembed apart)
-PARAMS_B = {"chatglm3-6b": 6.24, "qwen1.5-32b": 35.20,
-            "qwen3-moe-30b-a3b": 30.53, "chameleon-34b": 34.29,
+PARAMS_B = {"chatglm3-6b": 6.24, "qwen1.5-32b": 18.38,
+            "qwen3-moe-30b-a3b": 15.58, "chameleon-34b": 17.68,
             "mistral-large-123b": 34.02}
 
 
