@@ -190,29 +190,15 @@ Phases (any failure raises; nothing is caught):
      every step); then the paged engine (no pool: 24 usable pages are
      accounted, nothing is stored in them): tokens equal the contiguous
      run's, bitwise;
- 12b. musicgen-medium at full width and full depth (48 layers, d_model
-     1536, 24 query heads over 24 KV heads of 64: group 1, the head-dim-64
-     instances of the GQA decode kernels and of bf16 flash attention; 1.818
-     B params, bf16, random weights; xlstm's weights freed first), served
-     from codebook ids (its frontend is a stub): 8 prompts prefilled
-     through the kernels, the plain policy and the plain policy on an fp32
-     weight copy;
- 12c. the 6-request serve of phase 4 on musicgen (``run_zoo``, as the
-     archs after it), contiguous (request 0 == ``generate`` bitwise; every
-     launch counter exactly ``zoo_launches``: attention 48 a prefill,
-     attn_decode 48 and entropy_exit 1 a step) and paged (tokens equal,
-     exact launches), then greedy speculative decoding without its exit as
-     in phase 6 (a tied draft, paged, and a 2-layer draft, contiguous:
-     tokens == plain greedy, bitwise; verify_decode(_paged) 48 a round);
  12d-12h. the rest of the zoo, one arch after another, each built after
      the one before was freed (``run_zoo``; random weights from seed 0,
      bf16, full width, at ``ZOO_LAYERS`` layers, served from token ids):
      chatglm3-6b (28 layers, 32 query heads over 2 KV heads: group 16,
      rotary over half the head dim, QKV biases; 6.24 B params),
-     qwen1.5-32b (64 layers, 40 over 40: group 1, QKV biases; 35.20 B),
-     qwen3-moe-30b-a3b (48 layers of 128 experts of 768 top-8, QK-norm,
-     32 heads of 128 over d_model 2048; 30.53 B), chameleon-34b (48
-     layers, QK-norm, its image tokenizer a stub; 34.29 B) and
+     qwen1.5-32b (32 of 64 layers, 40 over 40: group 1, QKV biases; 18.38
+     B), qwen3-moe-30b-a3b (24 of 48 layers of 128 experts of 768 top-8,
+     QK-norm, 32 heads of 128 over d_model 2048; 15.58 B), chameleon-34b
+     (24 of 48 layers, QK-norm, its image tokenizer a stub; 17.68 B) and
      mistral-large-123b cut to 24 of its 88 layers (group 12; 34.02 B):
      8 prompts (qwen3-moe: 64) prefilled through the kernels, the plain
      policy and the plain policy in fp32 (chatglm3 on an fp32 weight copy,
@@ -249,16 +235,38 @@ Phases (any failure raises; nothing is caught):
      exit rate > 0.5 asserted, and the exit rate never falling over
      thresholds 0.1-0.5; the Fig. 3 table from the measured exit rates;
      and a kernel launch on a tensor that requires grad raises;
- 15. one JSON line listing the kernels (those on ``forward_decode_gated``'s
+ 15. the LM training path (``run_training``): (a) reduced yi-9b,
+     deepseek (MLA, MoE, a dense prefix), jamba, xlstm and musicgen in
+     fp32, 3 train steps each (``make_train_step`` under the plain
+     policy), each step on the card from the CPU's parameters and AdamW
+     state against the CPU's step (loss 1e-5, grad_norm 1e-4 relative,
+     parameters 1e-5 + 1e-4 |p|); (b) full-width musicgen-medium (48
+     layers, d_model 1536, 1.818 B params) trained by ``train()`` for 120
+     steps of 8 x 256 tokens from ``lm_batches`` (bf16 parameters, fp32
+     master and moments, remat "nothing", peak lr 1e-3): ms a step by CUDA
+     events, the peak allocation and the losses printed; every loss
+     finite, the mean of the last 10 final and exit losses below the
+     first 10's, no kernel launched; (c) the optimizer state freed, the
+     trained weights served through the kernels as phases 12b-12c did the
+     random ones (``run_zoo``: 8 prompts prefilled through the kernels,
+     the plain policy and an fp32 weight copy; the 6-request serve
+     contiguous and paged, exact launches, request 0 == ``generate`` and
+     paged == contiguous, bitwise; greedy speculative decoding without
+     the exit, tied and 2-layer drafts), the same requests under the
+     plain policy (tokens == the kernels' up to a near tie), and, as
+     findings, the exit rate at the config's threshold (0.45) and a
+     gated serve's skipped steps and gated fraction;
+ 16. one JSON line listing the kernels (those on ``forward_decode_gated``'s
      path with their launches in its threshold-2.0 runs beside, those on
      the prefix-sharing path with their launches in its first sharing
      run, those on the overload path with their launches in phase 5c's
      chunked run, those on the fault-tolerant path with their launches in
      phase 5d's supervised streams whose injector never fires, those on
      the dispatch-policy path with their launches in phase 5e's tuned
-     serves, and each kernel's autotune cells), the card's name and power
-     limit, the script's seconds, and the final ``{"ok": true, ...}``
-     line.
+     serves, and each kernel's autotune cells; every kernel's launches in
+     phase 15's training steps, all 0, and musicgen's kernels' launches
+     serving the trained weights), the card's name and power limit, the
+     script's seconds, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds deepseek's, jamba's, xlstm's and musicgen's kernels
 at their serving shapes (musicgen's head-dim-64 decode kernels in bf16 and
@@ -315,9 +323,10 @@ from the card's library); gemm_int8's and moe_decode's lines name theirs (``int8
 ``moe_plan``). Each serve run resets every launch counter just
 before it and reads them just after; a kernel's ``launches`` in the JSON
 line come from the run of its path (phase 4, 5, 5b, 5c, 6, 6c, 6d, 8, 10,
-12, 12c, 12d-12h or 14). Each served model
-also has three decode chunks timed by the host clock and one traced per
-engine (``decode step`` lines, with the device kernels a step, the GEMM,
+12, 12d-12h, 14 or 15(c)). Each served model
+also has three decode chunks timed by the host clock and two steps more
+traced per engine (``TRACE_STEPS``; ``decode step`` lines, with the
+device kernels a step, the GEMM,
 decode-attention and MoE kernels' shares, and rmsnorm's and the mLSTM
 step's, entropy_exit's and the Mamba step's ms and launches a step),
 paged beside contiguous;
@@ -360,7 +369,7 @@ XLSTM_PREFILL = (0.79, 0.55)
 WQ_PREFILL = (0.046, 0.043, None)
 W8A8_PREFILL = (0.10, 0.096, 1)
 QUANT_VS_BF16 = {"weight-only": 0.13, "w8a8": 0.175}
-# the zoo archs served by ``run_zoo`` in phases 12b-12h (in this order):
+# the zoo archs served by ``run_zoo`` in phases 12d-12h and 15(c):
 # the layers each is served at, at full width. musicgen-medium and
 # chatglm3-6b at full depth; qwen1.5-32b (64 layers), qwen3-moe-30b-a3b
 # (48) and chameleon-34b (48) cut to half their depth, their exits at
@@ -2336,44 +2345,59 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx")
 
 
+# the decode steps ``profile_decode`` traces (a chunk of the engine cut to
+# this many steps): the profiler's host-side processing grows with the
+# window's events (~25k a yi-9b step: CPU ops, runtime calls, kernels);
+# whole chunks of 8 steps took 438.7 s over the script's 23 calls, 2
+# steps 115.4 s (on an H100's host), and the device's kernel records
+# then come up to ~27 a step short of the launches (~7 at 8 steps)
+TRACE_STEPS = 2
+
+
 def profile_decode(torch, name, engine, params, prompts):
     """Where a decode step's time goes: fill every slot, then time three
     chunks of ``engine.chunk`` steps by the host clock, each between two
     synchronizes (ms a step: the whole window's, the three chunks' times
-    over all their steps, with each chunk's beside it), and trace one more
-    chunk with torch.profiler for the device time a step by kernel, the
-    device kernels a step (the profiler's event counts), the device's busy
-    share of the untraced step and the traced step's host ops. A
-    measurement, not a check: if the profiler shows no device time, that
-    part is reported as not measured. Returns the kernel launches a step
-    as the host issued them (the CUDA launch calls the profiler recorded
-    on the host; None if it recorded none): the device's kernel records
-    of a traced chunk can come up to a few kernels a step short of
-    them."""
+    over all their steps, with each chunk's beside it), and trace
+    ``TRACE_STEPS`` more steps with torch.profiler for the device time a
+    step by kernel, the device kernels a step (the profiler's event
+    counts), the device's busy share of the untraced step and the traced
+    step's host ops. A measurement, not a check: if the profiler shows no
+    device time, that part is reported as not measured. Returns the kernel
+    launches a step as the host issued them (the CUDA launch calls the
+    profiler recorded on the host; None if it recorded none): the device's
+    kernel records of a traced chunk can come up to a few kernels a step
+    short of them."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_call = time.perf_counter()
     cache, st = fill_slots(engine, params, prompts)
     walls = []
     for _ in range(3):
         cache, st, ms = timed_chunk(torch, engine, params, cache, st)
         walls.append(ms)
     wall = sum(walls) / len(walls)      # equal chunks: the window's mean
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cache, st, traced = timed_chunk(torch, engine, params, cache, st)
+    chunk, engine.chunk = engine.chunk, TRACE_STEPS
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            cache, st, traced = timed_chunk(torch, engine, params, cache, st)
+    finally:
+        engine.chunk = chunk
+    events = prof.key_averages()
     per, count, calls = {}, {}, 0
-    for e in prof.key_averages():
+    for e in events:
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0 and e.device_type.name == "CUDA":
-            per[e.key] = per.get(e.key, 0.0) + t / 1e3 / engine.chunk
-            count[e.key] = count.get(e.key, 0) + e.count / engine.chunk
+            per[e.key] = per.get(e.key, 0.0) + t / 1e3 / TRACE_STEPS
+            count[e.key] = count.get(e.key, 0) + e.count / TRACE_STEPS
             if not e.key.startswith(("Memcpy", "Memset")):
                 calls += e.count
     dev = sum(per.values())
-    kernels = calls / engine.chunk if dev > 0 else None
-    issued = sum(e.count for e in prof.key_averages()
+    kernels = calls / TRACE_STEPS if dev > 0 else None
+    issued = sum(e.count for e in events
                  if e.device_type.name == "CPU" and e.key in LAUNCH_APIS)
-    issued = issued / engine.chunk if issued else None
+    issued = issued / TRACE_STEPS if issued else None
     # the GEMM kernels' share: csrc/gemm.cu's (bf16, int8-weight, fp32)
     # and csrc/gemm_int8.cu's (its activation quantization included), by
     # their own names (no library kernel)
@@ -2406,8 +2430,8 @@ def profile_decode(torch, name, engine, params, prompts):
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     # the host's side of the traced step: self time and calls a step of
     # the costliest host ops (profiled, so larger than untraced)
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / engine.chunk,
-                    e.count / engine.chunk) for e in prof.key_averages()
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / TRACE_STEPS,
+                    e.count / TRACE_STEPS) for e in events
                    if e.device_type.name == "CPU"), key=lambda r: -r[1])[:6]
     busy = (f"device busy {dev:.2f} ms a step = {dev / wall:.1%} of the "
             f"untraced step, {kernels:.3f} device kernels a step "
@@ -2419,13 +2443,13 @@ def profile_decode(torch, name, engine, params, prompts):
             "device time not measured (the profiler showed none)")
     print(f"decode step {name}: {wall:.2f} ms a step (host clock, "
           f"{3 * engine.chunk} steps in 3 chunks of {engine.chunk}, a chunk "
-          f"{[round(w, 2) for w in walls]}; traced {traced:.2f}; "
-          f"{engine.capacity} live slots); {busy}; "
+          f"{[round(w, 2) for w in walls]}; traced {traced:.2f} over "
+          f"{TRACE_STEPS} steps; {engine.capacity} live slots); {busy}; "
           f"top kernels ms/step "
           f"{[(k[:48], round(v, 3)) for k, v in top]}; top host ops "
           f"(ms, calls) a traced step "
-          f"{[(k[:32], round(v, 2), round(c)) for k, v, c in host]}",
-          flush=True)
+          f"{[(k[:32], round(v, 2), round(c)) for k, v, c in host]}; "
+          f"profile took {time.perf_counter() - t_call:.1f}s", flush=True)
     return issued
 
 
@@ -4685,10 +4709,12 @@ def zoo_launches(cfg, steps: int, prefills: int, paged: bool):
 
 
 def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
-            spec: tuple = (), gated: bool = False, sharing: bool = False):
-    """Phases 12b-12h, one zoo arch served at full width and
-    ``ZOO_LAYERS[name]`` layers (random weights from seed 0, bf16; the
-    phases before freed theirs), from token ids (musicgen's and
+            spec: tuple = (), gated: bool = False, sharing: bool = False,
+            params=None):
+    """Phases 12d-12h and 15(c), one zoo arch served at full width and
+    ``ZOO_LAYERS[name]`` layers (random weights from seed 0, bf16, or the
+    caller's ``params``: phase 15's trained musicgen; the phases before
+    freed theirs), from token ids (musicgen's and
     chameleon's frontends are stubs: ids through the ``embed`` table).
     As yi-9b's
     phases 3-6: the prefill through the kernels, the plain policy and the
@@ -4705,7 +4731,8 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
     "draft2l-contiguous" (a 2-layer draft of its own weights). ``gated``:
     the gated engine at an exit threshold of 2.0 too (``serve_gated``).
     ``sharing``: phase 5b's shared-prefix stream too (``run_sharing``, on
-    24 pages)."""
+    24 pages). Returns (the config, ``check_prefill``'s logits, the
+    prompts, the contiguous run)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import lm
     from repro_torch.serve.engine import SlotEngine, SpecConfig, generate
@@ -4713,7 +4740,9 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
     full = get_arch(name)
     cfg = dataclasses.replace(full, num_layers=ZOO_LAYERS[name])
     t_phase = t0 = time.perf_counter()
-    params = lm.init_lm(cfg, seed=0, device="cuda")
+    made = "given" if params is not None else "initialised"
+    if params is None:
+        params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     leaves = lm._leaves(params)
     n_params = sum(t.numel() for t in leaves)
@@ -4726,11 +4755,11 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
           f"{f', rotary over {cfg.rope_partial_pct:.0%}' if cfg.rope == 'partial' else ''}"
           f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of {cfg.moe.d_expert}' if cfg.moe else ''}"
           f", vocab {cfg.vocab_size}; {n_params / 1e9:.3f}B params "
-          f"({cfg.dtype}, {nbytes / 2**30:.1f} GiB) initialised in "
+          f"({cfg.dtype}, {nbytes / 2**30:.1f} GiB) {made} in "
           f"{time.perf_counter() - t0:.1f}s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
           flush=True)
-    check_prefill(torch, lm, cfg, params, **prefill)
+    last = check_prefill(torch, lm, cfg, params, **prefill)
 
     prompts = make_prompts(torch, cfg.vocab_size)
     run = run_serve(f"{name}-contiguous", cfg, params, prompts)
@@ -4801,6 +4830,7 @@ def run_zoo(torch, run_serve, t_start, name: str, prefill: dict,
                  f"{ZOO_FULL_DEPTH_S[name]:.1f}s at full depth")
     print(f"{name} phases took {took:.1f}s{saved}; done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    return cfg, last, prompts, run
 
 
 def check_seizure_steps(torch, tr, kind, w, batches):
@@ -4950,6 +4980,224 @@ def run_seizure(torch, card, t_start):
     torch.backends.cudnn.deterministic = False
     print(f"seizure: a kernel launch under autograd raises; phase done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+# phase 15: the LM training path. (a) Reduced configs in fp32, each
+# train step on the card from the CPU's parameters and AdamW state before
+# it, against the CPU's step (the embedding's gradient sums by atomics on
+# the card, so bits are not required): loss 1e-5 and grad_norm 1e-4
+# relative, parameters after the step 1e-5 + 1e-4 |p|. Reduced xlstm's
+# gradients are chaotic at fp32 rounding (its mLSTM and sLSTM layers
+# together: a grad norm of ~7000, and on the CPU a 1e-7 relative change of
+# its parameters moves the three steps' grad_norm by 5.2e-2 relative and
+# the parameters after them to 3.5 times the bound; the loss by 9.2e-6):
+# its grad_norm is held to 0.15 and its parameters to 7 times the bound,
+# 3x and 2x that sensitivity (the card's first reading: 3.2e-2, 2.0).
+# (b) Full-width musicgen-medium trained through ``train()``: bf16
+# parameters with an fp32 master, remat "nothing", the launcher's peak
+# learning rate.
+TRAIN_ARCHS = {"yi-9b": {}, "deepseek-v2-lite-16b": {}, "jamba-v0.1-52b": {},
+               "xlstm-350m": {}, "musicgen-medium": dict(num_kv_heads=4)}
+TRAIN_CHECK_STEPS = 3
+TRAIN_LOSS_TOL = 1e-5                                      # relative
+TRAIN_GNORM_TOL = {"xlstm-350m": 0.15}                     # else 1e-4
+TRAIN_PARAM_BOUNDS = {"xlstm-350m": 7.0}       # x (1e-5 + 1e-4 |p|), else 1
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 120, 8, 256, 1e-3
+TRAIN_LOG_EVERY = 10
+
+
+def copy_train_state(torch, state, device):
+    """A ``TrainState`` (parameters and AdamW state) copied to ``device``."""
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import TrainState
+
+    def tree(t):
+        return None if t is None else lm._map(
+            t, lambda a: a.detach().to(device, copy=True))
+    opt = state.opt
+    return TrainState(tree(state.params), opt._replace(
+        step=opt.step.to(device, copy=True), m=tree(opt.m), v=tree(opt.v),
+        master=tree(opt.master)))
+
+
+def check_train_steps(torch, name):
+    """Phase 15(a): ``TRAIN_CHECK_STEPS`` steps of the reduced ``name`` in
+    fp32 (``make_train_step`` under "ref", remat "nothing", batch 4 x 32
+    from ``lm_batches``), each from the CPU's state on both devices, the
+    card against the CPU (``TRAIN_LOSS_TOL``, ``TRAIN_GNORM_TOL``,
+    ``TRAIN_PARAM_BOUNDS``); no kernel launched. Returns the
+    largest relative loss and grad-norm differences and the largest
+    parameter difference over its bound."""
+    from repro_torch.configs.base import RunConfig, get_arch
+    from repro_torch.core import xaif
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.train.train_step import TrainState, make_train_step
+
+    cfg = get_arch(name).reduced(dtype="float32", **TRAIN_ARCHS[name])
+    _, step = make_train_step(RunConfig(cfg, policy="ref", remat="nothing",
+                                        learning_rate=TRAIN_LR))
+    params = lm.init_lm(cfg, seed=0, device="cpu")
+    cpu = TrainState(params, init_adamw(params))
+    data = lm_batches(cfg.vocab_size, 4, 32, seed=0)
+    worst = dict(loss=0.0, grad_norm=0.0, params=0.0)
+    xaif.reset_launch_counts()
+    for _ in range(TRAIN_CHECK_STEPS):
+        batch = {k: torch.from_numpy(v) for k, v in next(data).items()
+                 if k != "step"}
+        card, got = step(copy_train_state(torch, cpu, "cuda"),
+                         {k: v.cuda() for k, v in batch.items()})
+        cpu, want = step(cpu, batch)
+        for k in ("loss", "grad_norm"):
+            worst[k] = max(worst[k], abs(float(got[k]) - float(want[k]))
+                           / abs(float(want[k])))
+        for a, b in zip(lm._leaves(card.params), lm._leaves(cpu.params)):
+            err = (a.cpu().float() - b.float()).abs()
+            worst["params"] = max(worst["params"], float(
+                (err / (1e-5 + 1e-4 * b.float().abs())).max()))
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in xaif.launch_counts().items() if n}
+    assert not launched, (name, launched)
+    gtol = TRAIN_GNORM_TOL.get(name, 1e-4)
+    ptol = TRAIN_PARAM_BOUNDS.get(name, 1.0)
+    print(f"train {name} (reduced, fp32, {cfg.num_layers} layers): "
+          f"{TRAIN_CHECK_STEPS} steps on the card, each from the CPU's "
+          f"state, against the CPU's: loss max rel diff "
+          f"{worst['loss']:.3e} (tol {TRAIN_LOSS_TOL:g}), grad_norm "
+          f"{worst['grad_norm']:.3e} (tol {gtol:g}), parameters after the "
+          f"step {worst['params']:.3f} of the bound 1e-5 + 1e-4 |p| (at "
+          f"most {ptol:g}); no kernel launched", flush=True)
+    assert worst["loss"] <= TRAIN_LOSS_TOL and worst["grad_norm"] <= gtol \
+        and worst["params"] <= ptol, (name, worst)
+    return worst
+
+
+def train_musicgen(torch, card):
+    """Phase 15(b): full-width musicgen-medium trained for ``TRAIN_STEPS``
+    steps through ``train()`` (batch ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from
+    ``lm_batches``, "ref", bf16 parameters with an fp32 master, remat
+    "nothing", peak learning rate ``TRAIN_LR``), every launch counter
+    reset just before and read just after. The ms a step by CUDA events
+    over each window of ``TRAIN_LOG_EVERY`` steps after the first (an
+    event recorded at each of the trainer's log lines, which follow a host
+    read of the step's metrics), the peak allocation, and the losses.
+    Asserts: every loss and grad norm finite; the mean of the last 10
+    final and exit losses below the mean of their first 10; no kernel
+    launched. Returns (the trained parameters, the history, the launch
+    counts of the run)."""
+    from repro_torch.configs.base import RunConfig, get_arch
+    from repro_torch.core import xaif
+    from repro_torch.models import lm
+    from repro_torch.train.trainer import train
+
+    cfg = get_arch("musicgen-medium")
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    run = RunConfig(cfg, policy="ref", remat="nothing",
+                    learning_rate=TRAIN_LR)
+    marks, lines = [], []
+
+    def log(line):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        lines.append(line)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xaif.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train(run, TRAIN_STEPS, log_every=TRAIN_LOG_EVERY,
+                 batch_override=TRAIN_BATCH, seq_override=TRAIN_SEQ,
+                 print_fn=log, params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = xaif.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    windows = [a.elapsed_time(b) / TRAIN_LOG_EVERY
+               for a, b in zip(marks, marks[1:])]
+    n_params = sum(t.numel() for t in lm._leaves(params))
+    first, last = {}, {}
+    for k in ("loss", "loss_final", "loss_exit0", "aux_loss", "grad_norm",
+              "lr"):
+        v = hist[k]
+        assert len(v) == TRAIN_STEPS and all(math.isfinite(x) for x in v), k
+        first[k], last[k] = sum(v[:10]) / 10, sum(v[-10:]) / 10
+    print(f"train musicgen-medium: {cfg.num_layers} layers d_model="
+          f"{cfg.d_model}, {n_params / 1e9:.3f}B params (bf16, fp32 master "
+          f"and moments), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, peak lr {TRAIN_LR:g}, in {secs:.1f}s: "
+          f"{sorted(windows)[len(windows) // 2]:.1f} ms a step by CUDA "
+          f"events (median of the {TRAIN_LOG_EVERY}-step windows after the "
+          f"first: {[round(w, 1) for w in windows]}); peak allocated "
+          f"{peak / 2**30:.2f} GiB; loss_final {hist['loss_final'][0]:.4f} "
+          f"-> {hist['loss_final'][-1]:.4f} (mean of 10: "
+          f"{first['loss_final']:.4f} -> {last['loss_final']:.4f}), "
+          f"loss_exit0 {hist['loss_exit0'][0]:.4f} -> "
+          f"{hist['loss_exit0'][-1]:.4f} ({first['loss_exit0']:.4f} -> "
+          f"{last['loss_exit0']:.4f}), grad_norm {hist['grad_norm'][0]:.3f} "
+          f"-> {hist['grad_norm'][-1]:.3f}; trainer lines {lines[-1]!r}; "
+          f"launches {launches} on {card}", flush=True)
+    assert last["loss_final"] < first["loss_final"], (first, last)
+    assert last["loss_exit0"] < first["loss_exit0"], (first, last)
+    assert not any(launches.values()), launches
+    return params, hist, launches
+
+
+def serve_trained(torch, run_serve, runs, params, t_start):
+    """Phase 15(c): the trained musicgen-medium served through the kernels
+    (``run_zoo`` with its parameters: phases 12b-12c's checks, the
+    prefill against the plain policy by ``check_prefill``'s bounds, every
+    launch counter exactly ``zoo_launches``, paged == contiguous and
+    request 0 == ``generate``, bitwise, the spec runs); then the same
+    requests under the plain policy, whose tokens may part from the
+    kernels' only at near ties (``near_tie_parts``, at 5x the prefill
+    logits' RMS distance), and, as findings, the exit rate at the config's
+    threshold and one gated serve's skipped steps and gated fraction."""
+    cfg, last, prompts, run = run_zoo(
+        torch, run_serve, t_start, "musicgen-medium", {},
+        ("tied-paged", "draft2l-contiguous"), params=params)
+    plain = run_serve("musicgen-medium-trained-plain", cfg, params, prompts,
+                      policy="ref")
+    rms = float((last["kernels"] - last["plain"]).pow(2).mean().sqrt())
+    parted = near_tie_parts(torch, cfg, params, prompts, plain["tokens"],
+                            run["tokens"], rms)
+    gated, skipped, idle = gated_steps(run_serve, "musicgen-medium-trained-"
+                                       "gated", cfg, params, prompts)
+    stats, gstats = run["report"].stats, gated["report"].stats
+    print(f"serve musicgen-medium trained: plain-policy tokens == the "
+          f"kernels' on {len(prompts) - len(parted)} of {len(prompts)} "
+          f"requests, the rest parted at near ties (request, step, gap, "
+          f"exact tie) {parted} (bound max(0.1, 5 x {rms:.3e})); exit rate "
+          f"at threshold {cfg.early_exit.entropy_threshold} "
+          f"{stats['exit_rate']:.4f}; gated serve: {skipped} of "
+          f"{gated['steps']} steps skipped ({idle} with no live slot), "
+          f"exit rate {gstats['exit_rate']:.4f}, gated fraction "
+          f"{gstats['gated_fraction']:.4f}", flush=True)
+    return run
+
+
+def run_training(torch, run_serve, runs, card, t_start):
+    """Phase 15: the LM training path ((a), (b)), then the trained weights
+    served through the kernels ((c)). Returns the launch counts of the
+    training steps."""
+    t0 = time.perf_counter()
+    for name in TRAIN_ARCHS:
+        check_train_steps(torch, name)
+    print(f"phase 15(a) took {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    params, _, launches = train_musicgen(torch, card)
+    torch.cuda.empty_cache()       # the optimizer state went with train()
+    print(f"phase 15(b) took {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    t0 = time.perf_counter()
+    serve_trained(torch, run_serve, runs, params, t_start)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 15(c) took {time.perf_counter() - t0:.1f}s; phase 15 done "
+          f"at {time.perf_counter() - t_start:.1f}s", flush=True)
     return launches
 
 
@@ -5131,9 +5379,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_xlstm(torch, run_serve, t_start)
 
-    # -- 12b-12h. musicgen-medium (full depth, head dim 64; xlstm's weights,
-    #    local to run_xlstm, are freed first), then the rest of the zoo,
-    #    each arch's weights freed before the next is built: (arch,
+    # -- 12d-12h. the rest of the zoo (musicgen-medium, head dim 64, is
+    #    served in phase 15(c) on the weights phase 15 trains; xlstm's
+    #    weights, local to run_xlstm, are freed first), each arch's weights
+    #    freed before the next is built: (arch,
     #    check_prefill's arguments, spec runs). The
     #    four large ones compute fp32 on their bf16 weights (an fp32 copy
     #    would not fit beside them). qwen3-moe's 48 MoE layers route
@@ -5148,7 +5397,6 @@ def main() -> int:
     #    argmax 8/8 equal), so it and chameleon, cut alike, take 64 prompts
     #    as qwen3-moe does ---
     for name, prefill, spec in (
-            ("musicgen-medium", {}, ("tied-paged", "draft2l-contiguous")),
             ("chatglm3-6b", {}, ("tied-paged", "draft2l-contiguous")),
             ("qwen1.5-32b", dict(fp32_copy=False, n_prompts=64), ()),
             ("qwen3-moe-30b-a3b", dict(fp32_copy=False, n_prompts=64,
@@ -5174,7 +5422,14 @@ def main() -> int:
     seizure = run_seizure(torch, card, t_start)
     tf, cnn = seizure["transformer"], seizure["cnn"]
 
-    # -- 15. the kernels line, the card, the verdict -------------------------
+    # -- 15. the LM training path: reduced configs held step by step against
+    #    the CPU, full-width musicgen-medium trained (no kernel launched),
+    #    then served through the kernels (phases 12b-12c on its trained
+    #    weights) -------------------------------------------------------
+    torch.cuda.empty_cache()
+    train_launches = run_training(torch, run_serve, runs, card, t_start)
+
+    # -- 16. the kernels line, the card, the verdict -------------------------
     replaces = {   # kernel: (what it replaces, source, run, counter)
         "gemm": ("kernels/gemm/gemm.py:48", "gemm", "contiguous", "gemm"),
         "rmsnorm": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm", "contiguous",
@@ -5360,6 +5615,24 @@ def main() -> int:
             k["paths"] = k.get("paths", ["serve"]) + ["dispatch_policy"]
             k["dispatch_launches"] = runs[f"dispatch-tuned-{kind}"][
                 "launches"].get(replaces[k["name"]][3], 0)
+    # the training path (phase 15(b)): no kernel launches in the steps;
+    # musicgen's kernels then serve the trained weights (phase 15(c): the
+    # musicgen runs of the replaces table, with their launches there)
+    trained = {"gemm": "musicgen-medium-contiguous",
+               "rmsnorm": "musicgen-medium-contiguous",
+               "entropy_exit": "musicgen-medium-contiguous",
+               "attention_bf16_d64": "musicgen-medium-contiguous",
+               "attn_decode_d64": "musicgen-medium-contiguous",
+               "attn_decode_paged_d64": "musicgen-medium-paged",
+               "verify_decode_d64": "musicgen-medium-spec-draft2l-contiguous",
+               "verify_decode_paged_d64": "musicgen-medium-spec-tied-paged"}
+    for k in kernels:
+        counter = replaces[k["name"]][3]
+        k["train_launches"] = train_launches.get(counter, 0)
+        if k["name"] in trained:
+            k["paths"] = k.get("paths", ["serve"]) + ["trained_serve"]
+            k["trained_serve_launches"] = runs[trained[k["name"]]][
+                "launches"][counter]
     by_name = {k["name"]: k for k in kernels}
     for c in tuned.cells:
         if "kernel" not in c.measured_us:
@@ -5371,22 +5644,22 @@ def main() -> int:
             winner=c.winner(), rule=c.rule))
     # the seizure evaluation's instances (phase 14's kernels run): the
     # transformer's attention and norms; both models' heads and exits
-    seizure_kernels = {
+    seizure_kernels = {   # kernel: (what it replaces, source, counter)
         "attention_fp32_d16": ("kernels/flash_attention/flash_attention.py:70",
-                               "flash_attention", tf["attention_fp32"]),
+                               "flash_attention", "attention_fp32"),
         "rmsnorm_fp32_d64": ("kernels/rmsnorm/rmsnorm.py:26", "rmsnorm",
-                             tf["rmsnorm"]),
-        "gemm_fp32_n2": ("kernels/gemm/gemm.py:48", "gemm",
-                         tf["gemm"] + cnn["gemm"]),
+                             "rmsnorm"),
+        "gemm_fp32_n2": ("kernels/gemm/gemm.py:48", "gemm", "gemm"),
         "entropy_exit_fp32_v2": ("kernels/entropy_exit/entropy_exit.py:68",
-                                 "entropy_exit",
-                                 tf["entropy_exit"] + cnn["entropy_exit"]),
+                                 "entropy_exit", "entropy_exit"),
     }
     kernels += [dict(name=name, route="cuda",
                      source=f"src/repro_torch/csrc/{src}.cu",
-                     replaces=f"src/repro/{tpu}", launches=n,
+                     replaces=f"src/repro/{tpu}",
+                     launches=tf.get(counter, 0) + cnn.get(counter, 0),
+                     train_launches=train_launches.get(counter, 0),
                      **records[name])
-                for name, (tpu, src, n) in seizure_kernels.items()]
+                for name, (tpu, src, counter) in seizure_kernels.items()]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))

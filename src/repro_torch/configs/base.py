@@ -7,8 +7,10 @@ layers), hybrid (Jamba: Mamba and attention mixers in a period-8
 pattern, MLP and MoE channel mixers), recurrent (xLSTM: mLSTM and sLSTM
 mixers with no channel mixer), audio (MusicGen: a dense decoder whose
 frontend is a stub that hands it frame embeddings) or vlm (Chameleon: a
-dense decoder over mixed-modal tokens, its image tokenizer a stub).
-The port keeps its own copy so that it imports nothing of the JAX package.
+dense decoder over mixed-modal tokens, its image tokenizer a stub);
+the run shapes and a ``RunConfig`` with the training fields (shape,
+remat, microbatch, loss chunk, learning rate, weight decay, clipping,
+seed) beside the dispatch policy. The port keeps its own copy so that it imports nothing of the JAX package.
 ``ArchConfig.reduced()`` gives the same tiny config as the JAX package, so
 tests can hold one against the other.
 """
@@ -219,9 +221,33 @@ class ArchConfig:
         return dataclasses.replace(self, **changes)
 
 
+# ---------------------------------------------------------------------------
+# Run shapes (the JAX package's assigned input-shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                   LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
 @dataclass(frozen=True)
 class RunConfig:
-    """An arch plus the dispatch policy its ops run under.
+    """An arch plus the dispatch policy its ops run under, and the
+    training fields with the JAX package's defaults.
 
     ``policy`` is ``"auto"`` (hand-written kernels for CUDA tensors, plain
     PyTorch for CPU tensors), ``"ref"`` (plain PyTorch everywhere — the
@@ -232,10 +258,28 @@ class RunConfig:
     as ``core.autotune`` measures and persists one (an empty one serves as
     ``"auto"``). Model code passes the policy on without reading it.
     Weight quantization is not a flag here: int8 weights are a params
-    tree that ``serve.quantize.quantize_weights_int8`` made."""
+    tree that ``serve.quantize.quantize_weights_int8`` made.
+
+    The training fields are read by ``train.train_step`` only: ``shape``
+    (batch and length unless the trainer overrides them), ``remat``
+    ("nothing", "dots": keep the matmul outputs and recompute the rest,
+    "full": keep a super-block's input only), ``microbatch`` (gradient
+    accumulation steps), ``loss_chunk`` (0: off; else the head and loss
+    over sequence chunks of about that length), then AdamW's peak learning
+    rate, decoupled weight decay, global-norm clip, and the init and data
+    seed. Training needs a policy under which autograd reaches every op:
+    ``"ref"`` on the card (no kernel has a backward)."""
 
     arch: ArchConfig
     policy: Any = "auto"   # str, core.xaif.Policy or core.xaif.DispatchPolicy
+    shape: ShapeConfig = TRAIN_4K
+    remat: str = "dots"                # nothing | dots | full
+    microbatch: int = 1                # gradient-accumulation steps
+    loss_chunk: int = 0                # 0 = off; else chunked head + CE
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
-"""Early-exit dynamic networks (port of ``repro.core.early_exit``,
-inference side): exit heads, the normalized-entropy confidence and exit
-decision and the batched merge of exit and final logits.
+"""Early-exit dynamic networks (port of ``repro.core.early_exit``): exit
+heads, the normalized-entropy confidence and exit decision, the batched
+merge of exit and final logits, and the training loss (token-mean cross
+entropy, the multi-exit joint loss).
 
 The exit decision goes through the XAIF ``entropy_exit`` op, so on the card
 the entropy of each exit row is one pass of the entropy kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import EarlyExitConfig
 from repro_torch.core import xaif
@@ -45,6 +47,38 @@ def apply_exit_head(params: Dict[str, torch.Tensor], hidden: torch.Tensor,
                   eps=norm_eps)
     w = params.get("unembed", shared_unembed)
     return xaif.call("gemm", policy, x, w)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE in fp32. logits [..., C], labels [...] integer; with
+    ``mask`` [...] the mean over the masked-in tokens (at least 1)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    mask = mask.float()
+    return -torch.sum(ll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def multi_exit_loss(final_logits: torch.Tensor,
+                    exit_logits: Tuple[torch.Tensor, ...],
+                    labels: torch.Tensor, cfg: EarlyExitConfig,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """L = CE(final) + w * mean_i CE(exit_i) (paper §V). Returns (L,
+    metrics: ``loss_final``, ``loss_exit{i}`` and ``loss``)."""
+    l_final = cross_entropy(final_logits, labels, mask)
+    metrics = {"loss_final": l_final}
+    if not exit_logits:
+        return l_final, metrics
+    l_exits = [cross_entropy(el, labels, mask) for el in exit_logits]
+    for i, le in enumerate(l_exits):
+        metrics[f"loss_exit{i}"] = le
+    l_exit = sum(l_exits) / len(l_exits)
+    loss = l_final + cfg.loss_weight * l_exit
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def merge_exit_logits(final_logits: torch.Tensor,

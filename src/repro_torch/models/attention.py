@@ -2,7 +2,9 @@
 DeepSeek-V2 Multi-head Latent Attention (MLA).
 
 GQA (with optional QKV biases and a QK-norm: q and k normalised over the
-head dim before rotary) has five execution modes over one parameter set:
+head dim before rotary) has six execution modes over one parameter set:
+  * train: full-sequence causal attention with no cache
+    (``apply_attention``);
   * prefill: full-sequence causal attention through the XAIF
     ``attention`` op (the flash kernel on the card), K/V written into the
     request's cache;
@@ -139,19 +141,33 @@ def _project_qkv(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
     return q.contiguous(), k, v
 
 
-def apply_attention_prefill(params, x: torch.Tensor, cfg: ArchConfig,
-                            policy: str, cache: KVCache
-                            ) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill x [B, T, d]: causal attention, and the produced K/V written
-    into positions [0, T) of ``cache`` (in place)."""
+def _causal(params, x: torch.Tensor, cfg: ArchConfig, policy: str):
+    """Causal self-attention of x [B, T, d] at positions [0, T): (output
+    [B, T, d], K, V [B, Hkv, T, D])."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, policy, positions)
     out = xaif.call("attention", policy, q, k, v, causal=True)
     out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.head_dim)
+    return xaif.call("gemm", policy, out, params["wo"]), k, v
+
+
+def apply_attention(params, x: torch.Tensor, cfg: ArchConfig,
+                    policy: str) -> torch.Tensor:
+    """Full-sequence causal path without a cache (training). x [B, T, d]."""
+    return _causal(params, x, cfg, policy)[0]
+
+
+def apply_attention_prefill(params, x: torch.Tensor, cfg: ArchConfig,
+                            policy: str, cache: KVCache
+                            ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill x [B, T, d]: causal attention, and the produced K/V written
+    into positions [0, T) of ``cache`` (in place)."""
+    t = x.shape[1]
+    out, k, v = _causal(params, x, cfg, policy)
     cache.k[:, :, :t] = k
     cache.v[:, :, :t] = v
-    return xaif.call("gemm", policy, out, params["wo"]), cache
+    return out, cache
 
 
 def apply_attention_decode(params, x: torch.Tensor, cfg: ArchConfig,
@@ -473,7 +489,7 @@ def apply_mla(params, x: torch.Tensor, cfg: ArchConfig, policy: str,
               ) -> Tuple[torch.Tensor, Optional[MLACache]]:
     """Prefill x [B, T, d]: decompress K/V per head, causal attention; the
     latent and rotary key are written into positions [0, T) of ``cache``
-    (in place)."""
+    (in place). Without a cache (training) nothing is written."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.num_heads

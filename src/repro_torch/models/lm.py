@@ -1,6 +1,8 @@
 """CausalLM assembly (port of ``repro.models.lm``): embed -> prefix
 layers -> stacked layers (an early-exit head at each exit boundary) ->
-final norm -> unembed.
+final norm -> unembed. ``forward_train`` / ``forward_train_hidden`` run
+the whole sequence with no cache for training (the MoE aux loss summed,
+``remat`` on each super-block); the serve passes fill and read caches.
 
 Parameters keep the JAX package's tree: DeepSeek's ``first_k_dense``
 dense-MLP layers are a list ``params["prefix"]``; the other layers repeat
@@ -42,9 +44,12 @@ in (the overload scheduler's host swap).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, BlockSpec
 from repro_torch.core import xaif
@@ -482,20 +487,32 @@ _RECURRENT = {
 
 def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
                  policy: str, state, mode: str, cache_pos=None,
-                 page_table=None, live=None):
-    """One layer: the sequence mixer of ``spec`` (``mode`` prefill / decode
-    / verify / prefill_shared) then the MLP, the MoE or nothing (``ffn ==
-    "none"``). In mode ``prefill_shared`` ``page_table`` carries the
+                 page_table=None, live=None) -> torch.Tensor:
+    """One layer of a serve pass (``_apply_layer_aux``'s x)."""
+    return _apply_layer_aux(p, x, cfg, spec, policy, state, mode, cache_pos,
+                            page_table, live)[0]
+
+
+def _apply_layer_aux(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
+                     policy: str, state, mode: str, cache_pos=None,
+                     page_table=None, live=None):
+    """One layer: the sequence mixer of ``spec`` (``mode`` train / prefill
+    / decode / verify / prefill_shared) then the MLP, the MoE or nothing
+    (``ffn == "none"``). Returns (x, the MoE's load-balance aux loss or
+    None): mode ``train`` has no state and returns every layer's aux (0
+    without an MoE); the serve modes return None. In mode
+    ``prefill_shared`` ``page_table`` carries the
     ``attn.SharedPrefillCtx``. ``live`` [B] bool (decode): slots that still
     matter — dead ones are masked out of MoE routing."""
+    train = mode == "train"
     h = rmsnorm(p["ln1"], x, policy, cfg.norm_eps)
     m = p["mixer"]
     if spec.mixer in _RECURRENT:    # slot-indexed state, paged cache or not
         prefill, decode = _RECURRENT[spec.mixer]
-        fn = prefill if mode == "prefill" else decode
+        fn = prefill if mode in ("prefill", "train") else decode
         out, _ = fn(m, h, cfg, policy, state)
     elif cfg.mla is not None:   # prefill or decode: verify refuses MLA
-        if mode == "prefill":
+        if mode in ("prefill", "train"):
             out, _ = attn.apply_mla(m, h, cfg, policy, state)
         elif page_table is None:
             out, _ = attn.apply_mla_decode(m, h, cfg, policy, state,
@@ -503,6 +520,8 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
         else:
             out, _ = attn.apply_mla_decode_paged(m, h, cfg, policy, state,
                                                  cache_pos, page_table)
+    elif train:
+        out = attn.apply_attention(m, h, cfg, policy)
     elif mode == "prefill":
         out, _ = attn.apply_attention_prefill(m, h, cfg, policy, state)
     elif mode == "prefill_shared":
@@ -521,20 +540,25 @@ def _apply_layer(p, x: torch.Tensor, cfg: ArchConfig, spec: BlockSpec,
         out, _ = attn.apply_attention_verify_paged(m, h, cfg, policy, state,
                                                    cache_pos, page_table)
     x = x + out
+    aux = None
+    if train:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.ffn == "none":
-        return x
+        return x, aux
     h2 = rmsnorm(p["ln2"], x, policy, cfg.norm_eps)
     if spec.ffn != "moe":
-        return x + apply_mlp(p["ffn"], h2, policy)
+        return x + apply_mlp(p["ffn"], h2, policy), aux
     if mode == "decode" and cfg.moe.dropless_decode:
         out2 = moe_mod.apply_moe_decode(p["ffn"], h2, cfg, policy,
                                         valid=live)
     else:
         groups = 1 if h2.shape[1] == 1 else None
         v2 = None if live is None else live[:, None]
-        out2, _ = moe_mod.apply_moe(p["ffn"], h2, cfg, policy, groups,
-                                    valid=v2)
-    return x + out2
+        out2, moe_aux = moe_mod.apply_moe(p["ffn"], h2, cfg, policy, groups,
+                                          valid=v2)
+        if train:
+            aux = moe_aux
+    return x + out2, aux
 
 
 def _run_layers(params, x: torch.Tensor, layers, cfg: ArchConfig,
@@ -572,6 +596,122 @@ def _exit_logits(params, x: torch.Tensor, i: int, cfg: ArchConfig,
                  policy: str):
     return apply_exit_head(params["exits"][i], x, params["unembed"], policy,
                            cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+REMAT = ("nothing", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: keep the
+    outputs of the matrix products, recompute everything else."""
+    aten = torch.ops.aten
+    dots = (aten.mm.default, aten.bmm.default, aten.addmm.default,
+            aten.baddbmm.default)
+    return (CheckpointPolicy.MUST_SAVE if op in dots
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, remat: str):
+    """The JAX package's ``_remat_wrap`` on ``torch.utils.checkpoint``:
+    ``"full"`` keeps only ``fn``'s inputs and recomputes the rest in the
+    backward (``jax.checkpoint``); ``"dots"`` also keeps the outputs of
+    the matrix products (selective checkpointing on ``aten.mm`` /
+    ``bmm`` / ``addmm`` / ``baddbmm``, as ``checkpoint_dots`` keeps the
+    dot products; the plain GEMM's products are fp32, so what it keeps is
+    fp32); ``"nothing"`` keeps every activation."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: one of {REMAT}")
+    if remat == "nothing":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _train_layers(params, cfg: ArchConfig) -> List[Dict]:
+    """Every layer's parameters in absolute order, for training: the prefix
+    layers as they are, and each stacked slot tensor split by one
+    ``unbind``, whose backward stacks the layers' gradients in one op
+    (``_layer``'s ``t[sb]`` would give each layer's gradient the whole
+    stack's size)."""
+    def row(slot, tensors):
+        it = iter(tensors)
+        return _map(slot, lambda _: next(it))
+
+    rows = []
+    for slot in params["slots"]:
+        cols = [t.unbind(0) for t in _leaves(slot)]
+        rows.append([row(slot, [c[sb] for c in cols])
+                     for sb in range(cfg.num_superblocks)])
+    return list(params.get("prefix", ())) + [
+        rows[j][sb] for sb in range(cfg.num_superblocks)
+        for j in range(cfg.period)]
+
+
+def _train_trunk(params, inputs: torch.Tensor, cfg: ArchConfig, policy,
+                 remat: str):
+    """Embed and every layer (mode ``train``, no cache): (the last layer's
+    output [B, T, d], [(exit index, hidden at its boundary)], aux). The
+    aux loss sums as JAX's: each segment's layers from 0 in order, then the
+    segments' sums. ``remat`` wraps each super-block (not the prefix
+    layers), as JAX wraps its scan body."""
+    x = _embed(params, inputs, cfg)
+    layers = _train_layers(params, cfg)
+    kd, period = cfg.first_k_dense, cfg.period
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(kd):
+        x, a = _apply_layer_aux(layers[i], x, cfg, cfg.layer_spec(i),
+                                policy, None, "train")
+        aux_total = aux_total + a
+
+    def superblock(x, aux, sb):
+        for i in range(kd + sb * period, kd + (sb + 1) * period):
+            x, a = _apply_layer_aux(layers[i], x, cfg, cfg.layer_spec(i),
+                                    policy, None, "train")
+            aux = aux + a
+        return x, aux
+
+    body = _remat_wrap(superblock, remat)
+    hidden = []
+    for start, end, exit_i in _segments(cfg):
+        seg_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for sb in range(start, end):
+            x, seg_aux = body(x, seg_aux, sb)
+        aux_total = aux_total + seg_aux
+        if exit_i is not None:
+            hidden.append((exit_i, x))
+    return x, hidden, aux_total
+
+
+def forward_train(params, inputs: torch.Tensor, cfg: ArchConfig, policy,
+                  remat: str = "nothing"):
+    """Training forward of inputs [B, T] (token ids, or a stub frontend's
+    embeddings [B, T, d]) with no cache: (final logits [B, T, V], exit
+    logits tuple, {"aux_loss": the MoE layers' summed aux}). Autograd
+    reaches the parameters only through plain ops: a kernel launch on a
+    tensor that requires grad raises (``xaif.call``), so on the card
+    training runs under the ``"ref"`` policy."""
+    x, hidden, aux = _train_trunk(params, inputs, cfg, policy, remat)
+    exits = tuple(_exit_logits(params, h, i, cfg, policy)
+                  for i, h in hidden)
+    return _head(params, x, cfg, policy), exits, {"aux_loss": aux}
+
+
+def forward_train_hidden(params, inputs: torch.Tensor, cfg: ArchConfig,
+                         policy, remat: str = "nothing"):
+    """``forward_train`` without the heads: (the pre-head hidden [B, T, d],
+    the exit boundaries' hiddens (None without exits), aux). The chunked
+    head and loss (``train_step.chunked_head_loss``) take it, so the
+    [B, T, V] logits never exist whole."""
+    x, hidden, aux = _train_trunk(params, inputs, cfg, policy, remat)
+    return x, (tuple(h for _, h in hidden) or None), {"aux_loss": aux}
 
 
 def forward_prefill(params, tokens: torch.Tensor, cfg: ArchConfig,
